@@ -1,0 +1,354 @@
+"""NAR (Next-Article Recommendation) model, serving forward.
+
+Port of ``chameleon_recsys_tpu/models/nar.py::NARModel`` for the serving
+case: ``train=False``, candidates scored at one position per session
+(``candidate_positions``), no shared candidate pool, no row compaction, no
+ranking.  One forward pass:
+
+  user-context towers | item features (metadata towers + frozen ACE + item
+  embedding + recency/novelty against the click buffer's stats)
+    -> learned elementwise scale/center (gamma*x + beta)
+    -> PreCAR (leaky relu) -> CAR (tanh)              [input / positive / cand]
+    -> stacked UGRNN over the session -> FC1(512, leaky) -> FC2(CAR, tanh)
+    -> matching MLP on (predicted * candidate) -> temperature softmax over
+       [positive | candidates]
+
+bf16 follows the JAX package's explicit casts (f32 parameters cast to the
+compute dtype at each use; activations kept in it between ops), not
+``torch.autocast``.  Parameter names follow the Flax tree so that
+``convert.params_from_flax`` maps one to one.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import (
+    ArticleFeaturesSchema,
+    NARConfig,
+    SECONDS_PER_DAY,
+    SessionFeaturesSchema,
+    embedding_dim_for_cardinality,
+)
+from ..ops.normalization import log1p_base, log_base, normalize_values
+from ..ops.rnn import StackedUGRNN
+from .towers import FeatureTowers, gather_rows
+
+# tf.nn.leaky_relu's default slope, which the reference uses; torch's is 0.01
+_LEAKY_ALPHA = 0.2
+
+
+def _leaky(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, _LEAKY_ALPHA)
+
+
+class NARAux(NamedTuple):
+    """Non-trainable inputs to the forward pass."""
+
+    ace_matrix: torch.Tensor  # [num_items, ace_dim] frozen content embeddings
+    metadata: Dict[str, torch.Tensor]  # per-article metadata columns
+    recent_pop_norm: torch.Tensor  # [num_items] f32
+    buffer_ids: torch.Tensor  # [buffer_size] int32 newest-first
+
+
+class NARModel(nn.Module):
+    def __init__(
+        self,
+        cfg: NARConfig,
+        session_schema: SessionFeaturesSchema,
+        article_schema: ArticleFeaturesSchema,
+        ace_dim: int,
+    ):
+        super().__init__()
+        self.cfg = cfg
+        self.session_schema = session_schema
+        self.article_schema = article_schema
+        dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+        self.dtype = dt
+        feats = cfg.internal_features
+
+        self.ctx_specs = session_schema.context_sequence_features()
+        self.user_context_towers = (
+            FeatureTowers(self.ctx_specs, cfg.max_cardinality_for_ohe, dtype=dt)
+            if self.ctx_specs else None
+        )
+        user_dim = (
+            self.user_context_towers.output_dim if self.ctx_specs else 1
+        )
+        self.metadata_specs = article_schema.metadata_features()
+        self.article_metadata_towers = (
+            FeatureTowers(self.metadata_specs, cfg.max_cardinality_for_ohe, dtype=dt)
+            if self.metadata_specs else None
+        )
+        item_dim = (
+            self.article_metadata_towers.output_dim if self.metadata_specs else 0
+        )
+        if feats.article_content_embeddings:
+            item_dim += ace_dim
+        self.item_clicked_embedding = None
+        if feats.item_clicked_embeddings:
+            num_items = article_schema.num_items
+            emb_dim = embedding_dim_for_cardinality(
+                num_items, cfg.item_embedding_const_mult
+            )
+            self.item_clicked_embedding = nn.Embedding(num_items, emb_dim)
+            item_dim += emb_dim
+        item_dim += int(feats.recency) + int(feats.novelty)
+
+        feat_dim = user_dim + item_dim
+        c = cfg.car_embedding_size
+        self.gamma_scale = nn.Parameter(torch.ones(feat_dim))
+        self.beta_center = nn.Parameter(torch.zeros(feat_dim))
+        self.PreCAR_kernel = nn.Parameter(torch.empty(feat_dim, c))
+        self.PreCAR_bias = nn.Parameter(torch.zeros(c))
+        self.CAR_kernel = nn.Parameter(torch.empty(c, c))
+        self.CAR_bias = nn.Parameter(torch.zeros(c))
+
+        self.rnn = StackedUGRNN(
+            c, cfg.rnn_units, cfg.rnn_num_layers, dtype=dt,
+            use_kernel=cfg.use_pallas_rnn,
+        )
+        self.session_FC1 = nn.Linear(cfg.rnn_units, 512)
+        self.session_FC2 = nn.Linear(512, c)
+
+        self.matching_names = []
+        m_in = c
+        for i, units in enumerate(cfg.matching_layer_sizes):
+            name = f"matching_{i + 1}"
+            self.register_parameter(
+                f"{name}_kernel", nn.Parameter(torch.empty(m_in, units))
+            )
+            self.register_parameter(f"{name}_bias", nn.Parameter(torch.zeros(units)))
+            self.matching_names.append(name)
+            m_in = units
+        self.matching_out_kernel = nn.Parameter(torch.empty(m_in, 1))
+        self.matching_out_bias = nn.Parameter(torch.zeros(1))
+
+    # -- initialisation ----------------------------------------------------
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The JAX package's initializers, drawn from ``generator``: He
+        (truncated normal, fan_in) for PreCAR, FC1 and the matching layers,
+        Glorot uniform for CAR, FC2, the RNN and the embeddings, LeCun
+        uniform for the matching output, zeros for biases and beta, ones for
+        gamma.  Equal in distribution to Flax's draws, not in value."""
+
+        def he(p, fan_in):
+            # Flax divides the std by the std of a unit normal cut at +-2
+            std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+        def uniform(p, limit):
+            nn.init.uniform_(p, -limit, limit, generator=generator)
+
+        def glorot(p):
+            uniform(p, math.sqrt(6.0 / (p.shape[0] + p.shape[1])))
+
+        for name, p in self.named_parameters():
+            if name == "gamma_scale":
+                p.fill_(1.0)
+            elif name.endswith("bias") or name == "beta_center":
+                p.zero_()
+            elif name == "PreCAR_kernel" or name.startswith("matching_") and (
+                name != "matching_out_kernel"
+            ):
+                he(p, p.shape[0])  # [in, out]
+            elif name == "session_FC1.weight":
+                he(p, p.shape[1])  # nn.Linear: [out, in]
+            elif name == "matching_out_kernel":
+                uniform(p, math.sqrt(3.0 / p.shape[0]))
+            else:
+                glorot(p)
+
+    # -- dynamic features ----------------------------------------------------
+    def _buffer_stat_ids(self, aux: NARAux):
+        ids = aux.buffer_ids[: self.cfg.recent_clicks_for_normalization]
+        return ids, ids != 0
+
+    def _normalize_with_fallback(self, values, item_ids, stat_values, stat_mask):
+        """Normalize against the buffer's stats, or against the call's own
+        values when the buffer is empty (the reference's first-batch
+        fallback), with fixed shapes: both stat sources, one masked out."""
+        buffer_empty = ~stat_mask.any()
+        batch_mask = (item_ids != 0).reshape(-1) & buffer_empty
+        stats_values = torch.cat([stat_values, values.reshape(-1)])
+        stats_mask = torch.cat([stat_mask, batch_mask])
+        return normalize_values(values, stats_values, stats_mask)[..., None]
+
+    def _recency_feature(self, item_ids, ref_ts, aux: NARAux):
+        """Normalized smoothed days since publishing."""
+        base = self.cfg.elapsed_days_smooth_log_base
+        created_col = aux.metadata["created_at_ts"]
+        created = gather_rows(created_col, item_ids).float()
+        elapsed = torch.relu((ref_ts.float() - created) / SECONDS_PER_DAY)
+        smoothed = log1p_base(elapsed, base)
+
+        stat_ids, stat_mask = self._buffer_stat_ids(aux)
+        stat_created = gather_rows(created_col, stat_ids).float()
+        max_batch_ts = ref_ts.max().float()
+        stat_elapsed = torch.relu((max_batch_ts - stat_created) / SECONDS_PER_DAY)
+        stat_smoothed = log1p_base(stat_elapsed, base)
+        return self._normalize_with_fallback(
+            smoothed, item_ids, stat_smoothed, stat_mask
+        )
+
+    def _novelty_feature(self, item_ids, aux: NARAux):
+        """Standardized popularity novelty -log2(pop_norm)."""
+        base = self.cfg.popularity_smooth_log_base
+        novelty = -log_base(gather_rows(aux.recent_pop_norm, item_ids), base)
+        stat_ids, stat_mask = self._buffer_stat_ids(aux)
+        stat_novelty = -log_base(gather_rows(aux.recent_pop_norm, stat_ids), base)
+        return self._normalize_with_fallback(
+            novelty, item_ids, stat_novelty, stat_mask
+        )
+
+    # -- item features -------------------------------------------------------
+    def _shared_item_feats(self, item_ids, aux: NARAux):
+        """Parameter-bearing per-item features: metadata towers, ACE, the
+        trainable id embedding."""
+        feats = []
+        if self.article_metadata_towers is not None:
+            feats.append(self.article_metadata_towers({
+                spec.name: gather_rows(aux.metadata[spec.name], item_ids)
+                for spec in self.metadata_specs
+            }))
+        if self.cfg.internal_features.article_content_embeddings:
+            feats.append(gather_rows(aux.ace_matrix, item_ids).to(self.dtype))
+        if self.item_clicked_embedding is not None:
+            feats.append(
+                gather_rows(self.item_clicked_embedding.weight, item_ids).to(
+                    self.dtype
+                )
+            )
+        return feats
+
+    def _dynamic_item_feats(self, item_ids, ref_ts, aux: NARAux):
+        """Parameter-free recency/novelty; each call normalizes over its own
+        ids when the buffer is empty."""
+        feats = []
+        if self.cfg.internal_features.recency:
+            feats.append(self._recency_feature(item_ids, ref_ts, aux).to(self.dtype))
+        if self.cfg.internal_features.novelty:
+            feats.append(self._novelty_feature(item_ids, aux).to(self.dtype))
+        return feats
+
+    # -- towers ----------------------------------------------------------------
+    def _scale_center(self, x):
+        return x * self.gamma_scale.to(x.dtype) + self.beta_center.to(x.dtype)
+
+    def _car_tower(self, x):
+        dt = self.dtype
+        pre = _leaky(x @ self.PreCAR_kernel.to(dt) + self.PreCAR_bias.to(dt))
+        return torch.tanh(pre @ self.CAR_kernel.to(dt) + self.CAR_bias.to(dt))
+
+    def _dense(self, layer: nn.Linear, x):
+        dt = self.dtype
+        return x @ layer.weight.to(dt).T + layer.bias.to(dt)
+
+    def _match_score(self, x):
+        dt = self.dtype
+        for name in self.matching_names:
+            kernel = getattr(self, f"{name}_kernel").to(dt)
+            bias = getattr(self, f"{name}_bias").to(dt)
+            x = _leaky(x @ kernel + bias)
+        return (
+            x @ self.matching_out_kernel.to(dt) + self.matching_out_bias.to(dt)
+        )[..., 0]
+
+    # -- forward -----------------------------------------------------------------
+    def forward(
+        self,
+        batch: Dict[str, torch.Tensor],
+        aux: NARAux,
+        neg_items: torch.Tensor,  # [B, 1, K] candidates
+        *,
+        candidate_positions: Optional[torch.Tensor] = None,  # [B]
+        train: bool = False,
+        rank: bool = False,
+        neg_pool: Optional[torch.Tensor] = None,
+        scoring_rows=None,
+    ) -> torch.Tensor:
+        """Softmax over [label slot | K candidates] at each session's
+        candidate position: [B, 1, 1+K] f32."""
+        if (train or rank or neg_pool is not None or scoring_rows is not None
+                or candidate_positions is None):
+            raise NotImplementedError(
+                "only the serving forward is ported: train=False, rank=False, "
+                "candidate_positions given, no neg_pool, no scoring_rows"
+            )
+        cfg, dt = self.cfg, self.dtype
+        item_clicked = batch["item_clicked"]  # [B, T]
+        next_item_label = batch["label_next_item"]  # [B, T]
+        b, t = item_clicked.shape
+        k = neg_items.shape[-1]
+        device = item_clicked.device
+
+        seq_lengths = batch["session_size"].long() - 1
+        mask = torch.arange(t, device=device)[None, :] < seq_lengths[:, None]
+        event_ts = batch["event_timestamp"]
+        max_event_ts = event_ts.max()
+
+        if self.user_context_towers is not None:
+            user_ctx = self.user_context_towers(
+                {s.name: batch[s.name] for s in self.ctx_specs}
+            )
+        else:
+            user_ctx = torch.zeros((b, t, 1), dtype=dt, device=device)
+
+        # param-bearing item features in ONE pass over input | label ids
+        bt = b * t
+        ids_all = torch.cat([item_clicked.reshape(-1), next_item_label.reshape(-1)])
+        shared_all = self._shared_item_feats(ids_all, aux)
+        shared_all = torch.cat(shared_all, dim=-1) if shared_all else None
+
+        def shared_slice(lo, hi):
+            if shared_all is None:
+                return []
+            return [shared_all[lo:hi].reshape(b, t, -1)]
+
+        input_item_feats = torch.cat(
+            shared_slice(0, bt)
+            + self._dynamic_item_feats(item_clicked, event_ts, aux),
+            dim=-1,
+        )
+        pos_item_feats = torch.cat(
+            shared_slice(bt, 2 * bt)
+            + self._dynamic_item_feats(next_item_label, max_event_ts, aux),
+            dim=-1,
+        )
+        stacked = self._scale_center(torch.stack([
+            torch.cat([user_ctx, input_item_feats], -1),
+            torch.cat([user_ctx, pos_item_feats], -1),
+        ]))
+        stacked_car = self._car_tower(stacked)  # [2, B, T, C]
+        input_car, pos_car = stacked_car[0], stacked_car[1]
+
+        # candidates at one position per session (dense candidate path)
+        rows = torch.arange(b, device=device)
+        pos_idx = candidate_positions.long()
+        ctx_for_neg = user_ctx[rows, pos_idx][:, None]  # [B, 1, F_u]
+        neg_item_feats = torch.cat(
+            self._shared_item_feats(neg_items, aux)
+            + self._dynamic_item_feats(neg_items, max_event_ts, aux),
+            dim=-1,
+        )  # [B, 1, K, F_i]
+        user_ctx_tiled = ctx_for_neg[:, :, None, :].expand(b, 1, k, -1)
+        neg_car = self._car_tower(
+            self._scale_center(torch.cat([user_ctx_tiled, neg_item_feats], -1))
+        )  # [B, 1, K, C]
+
+        rnn_out = self.rnn(input_car, mask)
+        h = _leaky(self._dense(self.session_FC1, rnn_out))
+        predicted_emb = torch.tanh(self._dense(self.session_FC2, h))  # [B, T, C]
+
+        pred_for_neg = predicted_emb[rows, pos_idx][:, None]  # [B, 1, C]
+        pos_for_neg = pos_car[rows, pos_idx][:, None]
+        # the label slot rides the candidate axis and enters the softmax
+        cand_car = torch.cat([pos_for_neg[:, :, None, :], neg_car], dim=2)
+        all_scores = self._match_score(cand_car * pred_for_neg[:, :, None, :])
+        scores = all_scores.float() / cfg.softmax_temperature
+        return torch.softmax(scores, dim=-1)

@@ -1,0 +1,84 @@
+"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
+``nvcc`` into ``_build/<name>-<hash of the source>.so`` inside the package, so
+an edited source is rebuilt and an unchanged one is reused.  Nothing here runs
+at import time: the CPU tests import every module, and this machine may have
+neither ``nvcc`` nor a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+# per source built in this process: what nvcc and ptxas reported
+# (registers, shared memory, spills)
+build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names: Sequence[str]) -> None:
+    """Compile every named source that has no current library, one ``nvcc``
+    per source, all started together."""
+    pending = {n: _lib_path(n) for n in names if not _lib_path(n).exists()}
+    if not pending:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, out in pending.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failures = []
+    for name, (tmp, out, proc) in procs.items():
+        log, _ = proc.communicate()
+        build_log[name] = log
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent builder sees all or none
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _libs[name] = lib
+    return lib
