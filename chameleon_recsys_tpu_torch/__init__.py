@@ -10,7 +10,10 @@ Float32 parity runs on the card need ``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` off; ``chip_smoke.py`` sets both.
 
 Ported so far: the NAR serving path (``NARServer.recommend`` / ``observe``)
-with the UGRNN forward as a CUDA kernel (``ops/kernels/ugrnn.py``).
+and the NAR eval step (``train.steps.eval_step``: the grid sampler, the pooled
+and ranked forward), with the UGRNN forward (``ops/kernels/ugrnn.py``) and the
+fused candidate scorer forward (``ops/kernels/cand_scorer.py``) as CUDA
+kernels.
 """
 from .config import (
     ArticleFeaturesSchema,

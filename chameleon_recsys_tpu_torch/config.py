@@ -1,10 +1,11 @@
 """Feature schemas and the NAR configuration.
 
-A copy of the serving slice's part of ``chameleon_recsys_tpu/config.py``
-with the same class and field names, so a configuration written for the JAX
-package carries over field by field.  ``use_pallas_rnn`` keeps its name: in
-this package it routes the session RNN through the hand-written CUDA kernel
-(``ops/kernels/ugrnn.py``).
+A copy of the NAR part of ``chameleon_recsys_tpu/config.py`` with the same
+class and field names, so a configuration written for the JAX package
+carries over field by field.  ``use_pallas_rnn`` and ``use_pallas_scorer``
+keep their names: in this package they route the session RNN and the eval
+path's negatives through the hand-written CUDA kernels
+(``ops/kernels/ugrnn.py``, ``ops/kernels/cand_scorer.py``).
 """
 from __future__ import annotations
 
@@ -89,8 +90,8 @@ class InternalFeaturesConfig:
 class NARConfig:
     """NAR model + streaming-state hyperparameters (G1 defaults).
 
-    Fields the serving slice does not read (training, sampling, compaction)
-    are kept so that every JAX configuration converts without loss.
+    Fields the ported paths do not read (training, compaction) are kept so
+    that every JAX configuration converts without loss.
     """
 
     # architecture
@@ -141,8 +142,11 @@ class NARConfig:
 
     # kernels: route the session RNN through the hand-written UGRNN kernel
     use_pallas_rnn: bool = False
-    # fused candidate scorer (pooled path; not ported yet)
+    # pooled grid path: route the negatives through the hand-written fused
+    # scorer kernel (ops/kernels/cand_scorer.py) at three matching layers
     use_pallas_scorer: bool = False
+    # TPU-only approximate top-k in the JAX sampler; this port's sampler is
+    # always exact (ops/sampling.py)
     approx_negative_topk: bool = False
     train_valid_row_capacity: Optional[int] = None
     train_compaction_groups: int = 1

@@ -1,9 +1,15 @@
-"""NAR (Next-Article Recommendation) model, serving forward.
+"""NAR (Next-Article Recommendation) model, inference forward.
 
-Port of ``chameleon_recsys_tpu/models/nar.py::NARModel`` for the serving
-case: ``train=False``, candidates scored at one position per session
-(``candidate_positions``), no shared candidate pool, no row compaction, no
-ranking.  One forward pass:
+Port of ``chameleon_recsys_tpu/models/nar.py::NARModel`` for ``train=False``
+in two cases:
+  * serving: candidates scored at one position per session
+    (``candidate_positions``);
+  * eval: every (session, step) of the grid scored against its negatives
+    from a shared candidate pool (``neg_pool`` / ``neg_pool_idx``), with the
+    masked cross-entropy and, under ``rank``, the ranked candidates.  With
+    ``use_pallas_scorer`` and three matching layers the negatives go through
+    the hand-written fused scorer kernel (``ops/kernels/cand_scorer.py``).
+Training, dropout and row compaction are not ported.  One forward pass:
 
   user-context towers | item features (metadata towers + frozen ACE + item
   embedding + recency/novelty against the click buffer's stats)
@@ -34,6 +40,8 @@ from ..config import (
     SessionFeaturesSchema,
     embedding_dim_for_cardinality,
 )
+from ..ops.embedding import pool_gather
+from ..ops.kernels.cand_scorer import cand_score_kernel
 from ..ops.normalization import log1p_base, log_base, normalize_values
 from ..ops.rnn import StackedUGRNN
 from .towers import FeatureTowers, gather_rows
@@ -53,6 +61,16 @@ class NARAux(NamedTuple):
     metadata: Dict[str, torch.Tensor]  # per-article metadata columns
     recent_pop_norm: torch.Tensor  # [num_items] f32
     buffer_ids: torch.Tensor  # [buffer_size] int32 newest-first
+
+
+class NAROutputs(NamedTuple):
+    items_prob: torch.Tensor  # [B, T, 1+K] f32
+    candidate_ids: torch.Tensor  # [B, T, 1+K] (label first)
+    loss_mask: torch.Tensor  # [B, T] f32
+    ce_loss: torch.Tensor  # scalar
+    nov_reg_loss: torch.Tensor  # scalar (0 when disabled)
+    predicted_ids: Optional[torch.Tensor]  # [B, T, 1+K] ranked by prob desc
+    predicted_probs: Optional[torch.Tensor]  # [B, T, 1+K] sorted probs
 
 
 class NARModel(nn.Module):
@@ -259,32 +277,55 @@ class NARModel(nn.Module):
             x @ self.matching_out_kernel.to(dt) + self.matching_out_bias.to(dt)
         )[..., 0]
 
+    def _item_features(self, item_ids, ref_ts, aux: NARAux):
+        return torch.cat(
+            self._shared_item_feats(item_ids, aux)
+            + self._dynamic_item_feats(item_ids, ref_ts, aux),
+            dim=-1,
+        )
+
     # -- forward -----------------------------------------------------------------
     def forward(
         self,
         batch: Dict[str, torch.Tensor],
         aux: NARAux,
-        neg_items: torch.Tensor,  # [B, 1, K] candidates
+        neg_items: torch.Tensor,  # [B, 1, K] serving / [B, T, K] grid
         *,
         candidate_positions: Optional[torch.Tensor] = None,  # [B]
         train: bool = False,
         rank: bool = False,
-        neg_pool: Optional[torch.Tensor] = None,
+        neg_pool: Optional[torch.Tensor] = None,  # [NC+1] shared pool
+        neg_pool_idx: Optional[torch.Tensor] = None,  # [B, T, K] into neg_pool
         scoring_rows=None,
-    ) -> torch.Tensor:
-        """Softmax over [label slot | K candidates] at each session's
-        candidate position: [B, 1, 1+K] f32."""
-        if (train or rank or neg_pool is not None or scoring_rows is not None
-                or candidate_positions is None):
+    ):
+        """Serving (``candidate_positions`` given): the softmax over
+        [label slot | K candidates] at each session's candidate position,
+        [B, 1, 1+K] f32.  Eval (the grid with a shared candidate pool):
+        ``NAROutputs`` over every (session, step)."""
+        if train or scoring_rows is not None:
             raise NotImplementedError(
-                "only the serving forward is ported: train=False, rank=False, "
-                "candidate_positions given, no neg_pool, no scoring_rows"
+                "training and scoring_rows compaction are not ported"
             )
-        cfg, dt = self.cfg, self.dtype
+        if candidate_positions is not None:
+            if rank or neg_pool is not None:
+                raise NotImplementedError(
+                    "serving takes neither rank nor neg_pool"
+                )
+            return self._serve(batch, aux, neg_items, candidate_positions)
+        if neg_pool is None or neg_pool_idx is None:
+            raise NotImplementedError(
+                "the grid path needs neg_pool and neg_pool_idx: the dense "
+                "per-candidate grid path is not ported"
+            )
+        return self._pooled(batch, aux, neg_items, neg_pool, neg_pool_idx, rank)
+
+    def _encode(self, batch, aux: NARAux):
+        """User context, the positive CAR rows and the session encoder's
+        predicted embedding, all [B, T, ...], with the valid-step mask."""
+        dt = self.dtype
         item_clicked = batch["item_clicked"]  # [B, T]
         next_item_label = batch["label_next_item"]  # [B, T]
         b, t = item_clicked.shape
-        k = neg_items.shape[-1]
         device = item_clicked.device
 
         seq_lengths = batch["session_size"].long() - 1
@@ -327,23 +368,25 @@ class NARModel(nn.Module):
         stacked_car = self._car_tower(stacked)  # [2, B, T, C]
         input_car, pos_car = stacked_car[0], stacked_car[1]
 
-        # candidates at one position per session (dense candidate path)
-        rows = torch.arange(b, device=device)
+        rnn_out = self.rnn(input_car, mask)
+        h = _leaky(self._dense(self.session_FC1, rnn_out))
+        predicted_emb = torch.tanh(self._dense(self.session_FC2, h))  # [B, T, C]
+        return user_ctx, pos_car, predicted_emb, mask, max_event_ts
+
+    def _serve(self, batch, aux, neg_items, candidate_positions):
+        """Candidates at one position per session (the dense candidate
+        path): [B, 1, 1+K] f32."""
+        cfg = self.cfg
+        user_ctx, pos_car, predicted_emb, _, max_event_ts = self._encode(batch, aux)
+        b, k = user_ctx.shape[0], neg_items.shape[-1]
+        rows = torch.arange(b, device=user_ctx.device)
         pos_idx = candidate_positions.long()
         ctx_for_neg = user_ctx[rows, pos_idx][:, None]  # [B, 1, F_u]
-        neg_item_feats = torch.cat(
-            self._shared_item_feats(neg_items, aux)
-            + self._dynamic_item_feats(neg_items, max_event_ts, aux),
-            dim=-1,
-        )  # [B, 1, K, F_i]
+        neg_item_feats = self._item_features(neg_items, max_event_ts, aux)
         user_ctx_tiled = ctx_for_neg[:, :, None, :].expand(b, 1, k, -1)
         neg_car = self._car_tower(
             self._scale_center(torch.cat([user_ctx_tiled, neg_item_feats], -1))
         )  # [B, 1, K, C]
-
-        rnn_out = self.rnn(input_car, mask)
-        h = _leaky(self._dense(self.session_FC1, rnn_out))
-        predicted_emb = torch.tanh(self._dense(self.session_FC2, h))  # [B, T, C]
 
         pred_for_neg = predicted_emb[rows, pos_idx][:, None]  # [B, 1, C]
         pos_for_neg = pos_car[rows, pos_idx][:, None]
@@ -352,3 +395,119 @@ class NARModel(nn.Module):
         all_scores = self._match_score(cand_car * pred_for_neg[:, :, None, :])
         scores = all_scores.float() / cfg.softmax_temperature
         return torch.softmax(scores, dim=-1)
+
+    def _pre_split(self, user_ctx, neg_pool, max_event_ts, aux: NARAux):
+        """The PreCAR projection split in three: the user half [B, T, C], the
+        item half once per pool row [NC+1, C], and the constant
+        beta @ W_pre + b_pre [C]."""
+        dt = self.dtype
+        user_dim = user_ctx.shape[-1]
+        pool_feats = self._item_features(neg_pool, max_event_ts, aux)  # [NC+1, F_i]
+        gamma = self.gamma_scale.to(dt)
+        pre_kernel = self.PreCAR_kernel.to(dt)
+        u_pre = (user_ctx * gamma[:user_dim]) @ pre_kernel[:user_dim]
+        i_pre = (pool_feats * gamma[user_dim:]) @ pre_kernel[user_dim:]
+        const = self.beta_center.to(dt) @ pre_kernel + self.PreCAR_bias.to(dt)
+        return u_pre, i_pre, const
+
+    def _scorer_operands(self, u_pre, i_pre, const, pred, neg_pool_idx):
+        """The fused scorer's operands in its call order: the gathered item
+        rows [B*T*K, C], u_pre + const and pred [B*T, C], the CAR and
+        matching weights and w4 [M3].  Nothing [B*T*K, C]-shaped but the
+        gathered rows is materialised."""
+        dt = self.dtype
+        b, t, c = pred.shape
+        matching = []
+        for name in self.matching_names:
+            matching += [getattr(self, f"{name}_kernel").to(dt),
+                         getattr(self, f"{name}_bias").to(dt)]
+        return (
+            pool_gather(i_pre, neg_pool_idx.reshape(-1)),
+            (u_pre + const).reshape(b * t, c),
+            pred.reshape(b * t, c),
+            self.CAR_kernel.to(dt), self.CAR_bias.to(dt), *matching,
+            self.matching_out_kernel.to(dt)[:, 0].contiguous(),
+        )
+
+    def scorer_operands(self, batch, aux: NARAux, neg_pool, neg_pool_idx):
+        """The fused scorer kernel's operands (without ``alpha``) for one
+        grid batch, as the pooled path passes them: for holding the kernel
+        against its plain twin at the model's own shapes and values."""
+        user_ctx, _, pred, _, max_event_ts = self._encode(batch, aux)
+        return self._scorer_operands(
+            *self._pre_split(user_ctx, neg_pool, max_event_ts, aux),
+            pred, neg_pool_idx,
+        )
+
+    def _pooled(self, batch, aux, neg_items, neg_pool, neg_pool_idx, rank):
+        """Every (session, step) scored against its K negatives from the
+        shared pool: per-item features and the item half of the PreCAR
+        projection run once per pool row, not per (session, step, k)."""
+        cfg, dt = self.cfg, self.dtype
+        user_ctx, pos_car, pred, mask, max_event_ts = self._encode(batch, aux)
+        b, t = mask.shape
+        k = neg_items.shape[-1]
+        u_pre, i_pre, const = self._pre_split(user_ctx, neg_pool, max_event_ts, aux)
+
+        # The JAX package also asks B*T to be a multiple of its 8-row tile,
+        # a Mosaic limit; the CUDA kernel takes any row count.
+        if cfg.use_pallas_scorer and len(cfg.matching_layer_sizes) == 3:
+            pos_score = self._match_score(pos_car * pred)  # [B, T]
+            # one kernel for the gathered rows' PreCAR + CAR + matching MLP
+            neg_score = cand_score_kernel(
+                *self._scorer_operands(u_pre, i_pre, const, pred, neg_pool_idx),
+                _LEAKY_ALPHA,
+            ) + self.matching_out_bias.to(dt)[0].float()
+            neg_score = neg_score.reshape(b, t, k)
+        else:
+            car_w, car_b = self.CAR_kernel.to(dt), self.CAR_bias.to(dt)
+            i_rows = pool_gather(i_pre, neg_pool_idx)  # [B, T, K, C]
+            pre_neg = _leaky(u_pre[:, :, None, :] + i_rows + const)
+            neg_car = torch.tanh(pre_neg @ car_w + car_b)
+            # the positive rides the candidate axis: one matching MLP pass
+            cand_car = torch.cat([pos_car[:, :, None, :], neg_car], dim=2)
+            all_scores = self._match_score(cand_car * pred[:, :, None, :])
+            pos_score, neg_score = all_scores[..., 0], all_scores[..., 1:]
+
+        scores = torch.cat([pos_score[..., None].float(), neg_score.float()], -1)
+        items_prob = torch.softmax(scores / cfg.softmax_temperature, dim=-1)
+
+        # masked XE; the denominator is the batch's valid-click count
+        loss_mask = mask.to(torch.float32)
+        denom = torch.clamp_min(loss_mask.sum(), 1.0)
+        ce_loss = -(torch.log(items_prob[..., 0] + 1e-24) * loss_mask).sum() / denom
+
+        if cfg.novelty_reg_factor > 0.0:
+            neg_prob = torch.softmax(
+                neg_score.float() / cfg.softmax_temperature, dim=-1
+            )
+            neg_novelty = -log_base(
+                gather_rows(aux.recent_pop_norm, neg_items),
+                cfg.popularity_smooth_log_base,
+            )
+            masked_nov = cfg.novelty_reg_factor * (
+                neg_prob * neg_novelty * loss_mask[..., None]
+            ).sum(-1)
+            nov_reg_loss = masked_nov.sum() / denom
+        else:
+            nov_reg_loss = torch.zeros((), device=items_prob.device)
+
+        label = batch["label_next_item"]
+        candidate_ids = torch.cat([label[..., None], neg_items.to(label.dtype)], -1)
+        predicted_ids = predicted_probs = None
+        if rank:
+            # stable: ties (padded negatives share the sentinel row) keep the
+            # lower index first, as lax.top_k orders them
+            predicted_probs, order = torch.sort(
+                items_prob, dim=-1, descending=True, stable=True
+            )
+            predicted_ids = torch.gather(candidate_ids, -1, order)
+        return NAROutputs(
+            items_prob=items_prob,
+            candidate_ids=candidate_ids,
+            loss_mask=loss_mask,
+            ce_loss=ce_loss,
+            nov_reg_loss=nov_reg_loss,
+            predicted_ids=predicted_ids,
+            predicted_probs=predicted_probs,
+        )

@@ -3,22 +3,33 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (``NARServer.observe`` / ``recommend``) at the
-G1 configuration's full width with random weights from a seed, and every
-hand-written kernel of that path:
+Drives the port's two paths at the G1 configuration's full width with random
+weights from a seed, the serving path (``NARServer.observe`` / ``recommend``)
+and the eval step (``train.steps.eval_step``), and every hand-written kernel
+of those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
-   per source, started together) and reports the build time;
-2. holds each kernel against its plain PyTorch twin on the card, at the
-   shapes the serving path gives it, with the tolerance stated;
-3. zeroes the launch counters, observes 2 x 256 synthetic sessions and
-   recommends top-10 of 500 candidates at batch 1 and 32, reads the counters
-   (the UGRNN kernel must launch twice per ``recommend``) and checks every
-   result (shape, finite, ids from the pool, scores sorted);
-4. checks the served scores against the same model on the CPU, where the
-   kernel wrappers run their plain twins, on a small input in float32;
-5. times each kernel, its plain twin and ``recommend`` with CUDA events or a
-   synchronised host clock.
+   per source, started together) and reports the build time and what ptxas
+   says of each (registers, spills);
+2. serving, counted: zeroes the launch counters, observes 2 x 256 synthetic
+   sessions and recommends top-10 of 500 candidates at batch 1 and 32, reads
+   the counters (the UGRNN kernel must launch twice per ``recommend``) and
+   checks every result (shape, finite, ids from the pool, scores sorted);
+3. eval, counted: warms a stream over two synthetic hours, zeroes the
+   counters, runs ``eval_step`` over four batches of 256 sessions of the next
+   hour, reads the counters (per step the fused scorer once, the UGRNN
+   kernel twice) and checks the metrics and rankings;
+4. holds each kernel against its plain PyTorch twin on the card: the UGRNN at
+   the serving shapes, the fused scorer on the operands of the eval path's
+   first step (bf16, rebuilt by ``train.steps.eval_scorer_operands``), on
+   random bf16 operands at the same shape, and at a smaller float32 shape
+   and an odd shape;
+5. checks the served scores and one eval step against the same code on the
+   CPU, where the kernel wrappers run their plain twins, on a small float32
+   input;
+6. times each kernel, its plain twin, ``recommend`` and the eval step with
+   CUDA events or a synchronised host clock, and breaks one request and one
+   eval step down by device kernel (torch profiler).
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 numbers before the last line, and as the last line
@@ -39,9 +50,12 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM
 H100_F32_FLOP_PER_S = 67e12  # CUDA cores, no tensor cores
+H100_BF16_FLOP_PER_S = 989e12  # tensor cores, dense
 SERVE_BATCHES = (1, 32)
 NUM_CANDIDATES = 500
 TOP_K = 10
+EVAL_BATCHES = 4
+KERNELS = ("ugrnn_fwd", "cand_score_fwd")
 
 
 def check(condition, message):
@@ -101,7 +115,8 @@ def g1_setup(port):
 
 
 def tiny_setup(port):
-    """A small float32 configuration for the CPU-vs-card check."""
+    """A small float32 configuration for the CPU-vs-card checks; three
+    matching layers, so that eval reaches the fused scorer."""
     FeatureSpec = port.FeatureSpec
     num_items = 200
     article_schema = port.ArticleFeaturesSchema(features=(
@@ -118,9 +133,10 @@ def tiny_setup(port):
     ))
     cfg = port.NARConfig(
         car_embedding_size=32, rnn_units=24, rnn_num_layers=2,
-        matching_layer_sizes=(16, 8), recent_clicks_buffer_max_size=128,
+        matching_layer_sizes=(16, 8, 8), recent_clicks_buffer_max_size=128,
         recent_clicks_for_normalization=64, batch_size=8, max_session_length=8,
-        use_pallas_rnn=True,
+        eval_negative_samples=5, eval_negative_sample_from_buffer=30,
+        metrics_top_n=4, use_pallas_rnn=True, use_pallas_scorer=True,
     )
     return cfg, session_schema, article_schema
 
@@ -137,6 +153,22 @@ def make_server(port, cfg, session_schema, article_schema, corpus, seed, device)
         cfg, session_schema, article_schema, model.state_dict(), stream,
         corpus.ace_matrix, corpus.metadata, device=device,
     )
+
+
+def to_device(batch, device):
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def warm_stream(stream, batches, cfg, device):
+    """Fold the clicks of collated ``batches`` into ``stream``."""
+    from chameleon_recsys_tpu_torch.state.stream_state import update_stream_state
+    from chameleon_recsys_tpu_torch.train.steps import _batch_all_clicks
+
+    for batch in batches:
+        stream = update_stream_state(
+            stream, *_batch_all_clicks(to_device(batch, device)), cfg
+        )
+    return stream
 
 
 def cuda_ms(fn, iters, warmup=5):
@@ -162,6 +194,12 @@ def ugrnn_inputs(mask, dtype, seed):
     return x.to(dtype).cuda(), w.to(dtype).cuda(), mask.cuda()
 
 
+def bound(n_bytes, n_ops, flop_per_s):
+    """(least ms for the work, what bounds it)."""
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, n_ops / flop_per_s
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
 def ugrnn_bound_ms(x, w, mask):
     """Least time for the recurrence on these inputs: x read at valid steps,
     W_hh and the mask once, every output written once; f32 arithmetic
@@ -173,38 +211,236 @@ def ugrnn_bound_ms(x, w, mask):
     n_bytes = (valid * two_u * size + w.numel() * w.element_size()
                + mask.numel() + b * t * units * size)
     n_ops = valid * units * (2 * two_u + 10)
-    return max(n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_FLOP_PER_S) * 1e3, (
-        "bytes" if n_bytes / H100_BYTES_PER_S > n_ops / H100_F32_FLOP_PER_S
-        else "operations"
-    )
+    return bound(n_bytes, n_ops, H100_F32_FLOP_PER_S)
 
 
-def profile_recommend(server, sessions, pool, p50_ms, bs=32, calls=10):
-    """Device time by kernel over ``calls`` recommend() calls (torch
-    profiler, device-side events only), and that time's share of the
-    unprofiled p50: the share of a request the card is busy."""
+def cand_score_bound_ms(operands):
+    """(least ms, what bounds it, operations) for the fused scorer on these
+    operands: every input read once and the [N] f32 scores written once;
+    2 N (C C + C M1 + M1 M2 + M2 M3) + 2 N M3 operations at the dtype's
+    peak (bf16 tensor cores, or f32 CUDA cores: the kernel uses no TF32)."""
+    i_rows, _, _, _, _, w1, _, w2, _, w3 = operands[:10]
+    n, c = i_rows.shape
+    m1, m2, m3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    n_bytes = sum(t.numel() * t.element_size() for t in operands) + n * 4
+    n_ops = 2 * n * (c * c + c * m1 + m1 * m2 + m2 * m3) + 2 * n * m3
+    rate = (H100_BF16_FLOP_PER_S if i_rows.dtype == torch.bfloat16
+            else H100_F32_FLOP_PER_S)
+    return bound(n_bytes, n_ops, rate) + (n_ops,)
+
+
+def scorer_inputs(bt, k, c, m1, m2, m3, dtype, seed):
+    """Random fused-scorer operands on the card, scaled as the model's
+    initialisers scale them."""
+    g = torch.Generator().manual_seed(seed)
+
+    def mk(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dtype).cuda()
+
+    return [
+        mk(bt * k, c, scale=0.5), mk(bt, c, scale=0.5), mk(bt, c, scale=0.5),
+        mk(c, c, scale=c ** -0.5), mk(c, scale=0.1),
+        mk(c, m1, scale=(2 / c) ** 0.5), mk(m1, scale=0.1),
+        mk(m1, m2, scale=(2 / m1) ** 0.5), mk(m2, scale=0.1),
+        mk(m2, m3, scale=(2 / m2) ** 0.5), mk(m3, scale=0.1),
+        mk(m3, scale=m3 ** -0.5),
+    ]
+
+
+def device_profile(label, fn, calls, host_ms):
+    """Device time by kernel over ``calls`` calls of ``fn`` (torch profiler,
+    device-side events only), and that time's share of the unprofiled
+    ``host_ms`` per call: the share of a call the card is busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cand = np.broadcast_to(pool, (bs, NUM_CANDIDATES))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            server.recommend(sessions[:bs], candidates=cand, top_k=TOP_K)
+            fn()
+        torch.cuda.synchronize()
     kernels = [
         (e.key, e.self_device_time_total, e.count)
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     if not kernels:
-        print("profile: the profiler saw no device time")
+        print(f"profile {label}: the profiler saw no device time")
         return
     busy_us = sum(k[1] for k in kernels) / calls
     launches = sum(k[2] for k in kernels) / calls
-    print(f"profile recommend b{bs}: device busy {busy_us:.1f} us per call, "
+    print(f"profile {label}: device busy {busy_us:.1f} us per call, "
           f"{launches:.0f} device kernels/copies per call; busy share of the "
-          f"unprofiled p50 {busy_us / (p50_ms * 1e3):.3f}")
+          f"unprofiled {host_ms:.3f} ms {busy_us / (host_ms * 1e3):.3f}")
     for name, us, count in sorted(kernels, key=lambda k: -k[1])[:8]:
         print(f"  {us / calls:9.1f} us/call  x{count / calls:<5.1f} {name[:100]}")
+
+
+def check_eval_outputs(step, batch, metrics, fetches, cfg):
+    """One eval step's results at G1: finite metrics that agree with the
+    batch, rankings that permute each step's candidates, probabilities
+    sorted and summing to one, and no negative clicked in its own session."""
+    from chameleon_recsys_tpu_torch.train.steps import valid_click_mask
+
+    for key, value in metrics.items():
+        check(bool(torch.isfinite(value.float()).all()),
+              f"eval step {step}: {key} not finite")
+    mask = valid_click_mask(batch["session_size"], cfg.max_inputs_length)
+    label_count = float(metrics["label_count"])
+    check(label_count == float(mask.sum()),
+          f"eval step {step}: label_count {label_count} != valid clicks")
+    check(0 <= float(metrics["hit_sum"]) <= label_count,
+          f"eval step {step}: hit_sum out of range")
+    ids, probs = fetches["predicted_ids"], fetches["predicted_probs"]
+    cand = torch.cat([fetches["labels"][..., None], fetches["neg_items"]], -1)
+    check(ids.shape == cand.shape == probs.shape
+          and ids.shape[-1] == cfg.eval_negative_samples + 1,
+          f"eval step {step}: shapes {tuple(ids.shape)} {tuple(cand.shape)}")
+    check(torch.equal(ids.sort(-1).values, cand.sort(-1).values),
+          f"eval step {step}: a ranking is not a permutation of its candidates")
+    check(bool((probs[..., 1:] <= probs[..., :-1]).all()),
+          f"eval step {step}: probabilities not sorted")
+    check(float((probs.sum(-1) - 1).abs().max()) <= 1e-5,
+          f"eval step {step}: probabilities do not sum to 1")
+    all_clicked = torch.cat([batch["item_clicked"], batch["label_last_item"]], 1)
+    neg = fetches["neg_items"]
+    own = ((neg[..., None] == all_clicked[:, None, None, :]).any(-1)
+           & (neg != 0) & mask[..., None])
+    check(not bool(own.any()), f"eval step {step}: a negative from its own session")
+
+
+def eval_phase(server, cfg, session_schema, corpus):
+    """The eval path at G1 width, counted: four eval steps in a row, the
+    stream carried from each to the next.  Returns the launch counts of the
+    run, the collated batches, the warm stream the run started from and the
+    fused scorer's operands of the first step."""
+    from chameleon_recsys_tpu_torch.data.collate import batches_from_sessions
+    from chameleon_recsys_tpu_torch.data.synthetic import synthetic_hour_sessions
+    from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer, ugrnn
+    from chameleon_recsys_tpu_torch.state.stream_state import init_stream_state
+    from chameleon_recsys_tpu_torch.train.steps import eval_scorer_operands, eval_step
+
+    b, length = cfg.batch_size, cfg.max_session_length
+
+    def hour(h, n):
+        return list(batches_from_sessions(
+            synthetic_hour_sessions(corpus, session_schema, h, n, length),
+            session_schema, b, length,
+        ))
+
+    warm = warm_stream(
+        init_stream_state(cfg, corpus.num_items, device="cuda"),
+        hour(0, 2 * b) + hour(1, 2 * b), cfg, "cuda",
+    )
+    batches = [to_device(batch, "cuda") for batch in hour(2, EVAL_BATCHES * b)]
+    model = server.model
+    seed = 11
+
+    cand_scorer.launches = 0
+    ugrnn.launches = 0
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    stream = warm
+    per_step = []
+    results = []
+    for batch in batches:
+        before = (cand_scorer.launches, ugrnn.launches)
+        stream, metrics, fetches = eval_step(
+            model, stream, batch, server.ace_matrix, server.metadata,
+            generator=generator,
+        )
+        results.append((metrics, fetches))
+        per_step.append((cand_scorer.launches - before[0],
+                         ugrnn.launches - before[1]))
+    torch.cuda.synchronize()
+    counts = {"cand_score_fwd": cand_scorer.launches, "ugrnn_fwd": ugrnn.launches}
+    print(f"eval path: launches {counts}, per step (cand_score_fwd, ugrnn_fwd) "
+          f"{per_step}")
+    check(per_step == [(1, cfg.rnn_num_layers)] * len(batches),
+          f"kernel launches per eval step {per_step}")
+    for i, (batch, (metrics, fetches)) in enumerate(zip(batches, results)):
+        check_eval_outputs(i, batch, metrics, fetches, cfg)
+        hr = float(metrics["hit_sum"]) / float(metrics["label_count"])
+        print(f"eval step {i}: " + ", ".join(
+            f"{k} {float(v):.6g}" for k, v in metrics.items()
+        ) + f", HR@{cfg.metrics_top_n} {hr:.4f}")
+    # the first step's scorer operands: the same stream, batch and generator
+    # seed draw the same negatives (these launch no kernel)
+    operands = eval_scorer_operands(
+        model, warm, batches[0], server.ace_matrix, server.metadata,
+        generator=torch.Generator(device="cuda").manual_seed(seed),
+    )
+    return counts, batches, warm, operands
+
+
+def eval_cpu_vs_card(port, corpus_fn):
+    """One eval step of a small float32 model on the CPU and on the card,
+    with the same uniforms (numpy, seeded)."""
+    from chameleon_recsys_tpu_torch.data.collate import collate_sessions
+    from chameleon_recsys_tpu_torch.data.synthetic import synthetic_hour_sessions
+    from chameleon_recsys_tpu_torch.ops.sampling import SamplerUniforms
+    from chameleon_recsys_tpu_torch.state.stream_state import init_stream_state
+    from chameleon_recsys_tpu_torch.train.steps import eval_step
+
+    cfg, sess, art = tiny_setup(port)
+    corpus = corpus_fn(art, ace_dim=8)
+    b, length = cfg.batch_size, cfg.max_session_length
+    warm = collate_sessions(synthetic_hour_sessions(corpus, sess, 0, b, length),
+                            sess, b, length)
+    batch = collate_sessions(synthetic_hour_sessions(corpus, sess, 1, b, length),
+                             sess, b, length)
+    m = cfg.eval_negative_sample_from_buffer
+    nc = min(cfg.eval_negative_samples * cfg.neg_sampling_multiplying_factor,
+             b * length + m)
+    rng = np.random.RandomState(5)
+    uniforms = [rng.uniform(size=shape).astype(np.float32) for shape in (
+        (cfg.recent_clicks_buffer_max_size,), (b * length + m,), (b, length, nc)
+    )]
+    model = port.NARModel(cfg, sess, art, corpus.ace_matrix.shape[1])
+    model.reset_parameters(torch.Generator().manual_seed(4))
+    out = {}
+    for device in ("cpu", "cuda"):
+        stream = warm_stream(
+            init_stream_state(cfg, art.num_items, device=device), [warm], cfg, device
+        )
+        out[device] = eval_step(
+            model.to(device), stream, to_device(batch, device),
+            torch.from_numpy(corpus.ace_matrix).to(device),
+            {k: torch.from_numpy(np.asarray(v)).to(device)
+             for k, v in corpus.metadata.items()},
+            generator=torch.Generator(device=device),
+            uniforms=SamplerUniforms(*(torch.from_numpy(u).to(device)
+                                       for u in uniforms)),
+        )
+    (cpu_stream, cpu_metrics, cpu_fetches), (gpu_stream, gpu_metrics, gpu_fetches) = (
+        out["cpu"], out["cuda"]
+    )
+    cpu_probs = cpu_fetches["predicted_probs"].numpy()
+    gpu_probs = gpu_fetches["predicted_probs"].cpu().numpy()
+    gaps = np.abs(np.diff(cpu_probs, axis=-1))
+    separated = np.ones(cpu_probs.shape, bool)
+    separated[..., 1:] &= gaps > 1e-5
+    separated[..., :-1] &= gaps > 1e-5
+    print(f"small f32 eval step, card vs CPU: max prob diff "
+          f"{float(np.abs(gpu_probs - cpu_probs).max()):.3e} (tolerance rtol "
+          f"1e-4 + atol 1e-6); ce_loss {float(gpu_metrics['ce_loss']):.7g} vs "
+          f"{float(cpu_metrics['ce_loss']):.7g}")
+    check(np.allclose(gpu_probs, cpu_probs, rtol=1e-4, atol=1e-6),
+          "small eval: card and CPU probabilities disagree")
+    check((gpu_fetches["predicted_ids"].cpu().numpy()[separated]
+           == cpu_fetches["predicted_ids"].numpy()[separated]).all(),
+          "small eval: card and CPU rankings disagree")
+    for key in ("labels", "neg_items", "clicked_items"):
+        check(torch.equal(gpu_fetches[key].cpu(), cpu_fetches[key]),
+              f"small eval: fetch {key} differs")
+    for key in ("hit_sum", "label_count", "clicks", "sessions"):
+        check(float(gpu_metrics[key]) == float(cpu_metrics[key]),
+              f"small eval: metric {key} differs")
+    # f32 sums of fractions and of logs, added in another order on the card
+    for key, rel in (("rr_sum", 1e-6), ("ce_loss", 1e-4)):
+        a, c = float(gpu_metrics[key]), float(cpu_metrics[key])
+        check(abs(a - c) <= rel * abs(c), f"small eval: metric {key} {a} vs {c}")
+    for name, value in cpu_stream._asdict().items():
+        check(torch.equal(getattr(gpu_stream, name).cpu(), value),
+              f"small eval: stream field {name} differs")
 
 
 def main() -> int:
@@ -217,7 +453,8 @@ def main() -> int:
         make_synthetic_corpus,
         synthetic_hour_sessions,
     )
-    from chameleon_recsys_tpu_torch.ops.kernels import build, ugrnn
+    from chameleon_recsys_tpu_torch.ops.kernels import build, cand_scorer, ugrnn
+    from chameleon_recsys_tpu_torch.train.steps import eval_step
 
     # the card's name and power limit, as nvidia-smi gives them
     print(subprocess.run(
@@ -228,16 +465,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 1. build every kernel of the path ----
+    # ---- 1. build every kernel of the paths ----
     t0 = time.perf_counter()
-    build.build(["ugrnn_fwd"])
-    print(f"build: {time.perf_counter() - t0:.3f} s for ugrnn_fwd")
-    log = build.build_log.get("ugrnn_fwd", "")
-    registers = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
-    if registers:
-        print(f"  ptxas: {len(registers)} instantiations, registers "
-              f"{min(registers)}-{max(registers)}, spill bytes {spills}")
+    build.build(KERNELS)
+    print(f"build: {time.perf_counter() - t0:.3f} s for {', '.join(KERNELS)}")
+    for name in KERNELS:
+        log = build.build_log.get(name, "")
+        registers = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
+        if registers:
+            print(f"  ptxas {name}: {len(registers)} instantiations, registers "
+                  f"{min(registers)}-{max(registers)}, spill bytes {spills}")
 
     # ---- G1 server with a live stream ----
     cfg, session_schema, article_schema = g1_setup(port)
@@ -249,12 +487,13 @@ def main() -> int:
         port, cfg, session_schema, article_schema, corpus, seed=0, device="cuda"
     )
 
-    # ---- 3. the main path, counted ----
+    # ---- 2. the serving path, counted ----
     captured = {}
     hook = server.model.rnn.register_forward_pre_hook(
         lambda module, args: captured.__setitem__(args[0].shape[0], args[1])
     )
     ugrnn.launches = 0
+    cand_scorer.launches = 0
     server.observe(sessions[: cfg.batch_size])
     server.observe(sessions[cfg.batch_size:])
     pool = server.default_candidates(NUM_CANDIDATES)
@@ -266,9 +505,10 @@ def main() -> int:
         results[bs] = server.recommend(sessions[:bs], candidates=cand, top_k=TOP_K)
         per_call.append(ugrnn.launches - before)
     torch.cuda.synchronize()
-    main_launches = ugrnn.launches
+    serve_launches = ugrnn.launches
     hook.remove()
-    print(f"main path: ugrnn_fwd launches {main_launches}, per recommend {per_call}")
+    print(f"serving path: ugrnn_fwd launches {serve_launches}, per recommend "
+          f"{per_call}; cand_score_fwd launches {cand_scorer.launches}")
     check(per_call == [cfg.rnn_num_layers] * len(SERVE_BATCHES),
           f"UGRNN kernel launches per recommend {per_call}")
     check(int((pool != 0).sum()) == NUM_CANDIDATES, "live pool under 500 items")
@@ -284,7 +524,16 @@ def main() -> int:
         print(f"recommend b{bs}: ids[0] {ids[0].tolist()} "
               f"scores[0][:3] {scores[0][:3].tolist()}")
 
-    # ---- 2. each kernel against its plain twin at the serving shapes ----
+    # ---- 3. the eval path, counted ----
+    eval_counts, eval_batches, eval_stream, scorer_operands = eval_phase(
+        server, cfg, session_schema, corpus
+    )
+    main_launches = {
+        "ugrnn_fwd": serve_launches + eval_counts["ugrnn_fwd"],
+        "cand_score_fwd": eval_counts["cand_score_fwd"],
+    }
+
+    # ---- 4. each kernel against its plain twin ----
     serve_mask = captured[max(SERVE_BATCHES)]
     g = torch.Generator().manual_seed(1)
     lengths = torch.randint(1, serve_mask.shape[1] + 1, (256,), generator=g)
@@ -302,8 +551,38 @@ def main() -> int:
             print(f"ugrnn_fwd vs plain [{mask.shape[0]},19,510] {dtype}: "
                   f"max_abs_err {err:.3e} (tolerance {tolerance[dtype]:.0e})")
             check(err <= tolerance[dtype], f"ugrnn_fwd disagrees: {err}")
+    # the fused scorer on the eval path's own operands (bf16, G1 eval shape;
+    # random weights keep those scores under ~0.04, so the tolerance is 2e-2
+    # of the largest score, a few bf16 roundings of it), then on random
+    # operands whose scores are O(1): at the G1 eval shape in bf16 (2e-2), a
+    # smaller float32 shape (1e-5) and an odd shape in both dtypes
+    scorer_cases = [("g1_eval", scorer_operands, None)] + [
+        (f"{'x'.join(map(str, shape))}_{str(dtype)[6:]}",
+         scorer_inputs(*shape, dtype=dtype, seed=3),
+         1e-5 if dtype == torch.float32 else 2e-2)
+        for shape, dtype in (
+            ((4864, 50, 1024, 128, 64, 32), torch.bfloat16),
+            ((256, 50, 1024, 128, 64, 32), torch.float32),
+            ((13, 7, 40, 24, 16, 8), torch.float32),
+            ((13, 7, 40, 24, 16, 8), torch.bfloat16),
+        )
+    ]
+    with torch.inference_mode():
+        for name, operands, tol in scorer_cases:
+            out = cand_scorer.cand_score_kernel(*operands)
+            ref = cand_scorer.cand_score_reference(*operands)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            tol = 2e-2 * scale if tol is None else tol
+            errors[name] = err
+            print(f"cand_score_fwd vs plain {name} {list(operands[0].shape)} "
+                  f"{operands[0].dtype}: max_abs_err {err:.3e} (tolerance "
+                  f"{tol:.3e}), |scores| max {scale:.4f}")
+            check(err <= tol, f"cand_score_fwd disagrees on {name}: {err}")
+        del scorer_cases, operands, out, ref
 
-    # ---- 4. served scores against the CPU on a small float32 input ----
+    # ---- 5. served scores and an eval step against the CPU, small f32 ----
     tcfg, tsess, tart = tiny_setup(port)
     tcorpus = make_synthetic_corpus(tart, ace_dim=8)
     tsessions = synthetic_hour_sessions(tcorpus, tsess, 0, 24, tcfg.max_session_length)
@@ -328,20 +607,45 @@ def main() -> int:
           "small serve: card and CPU scores disagree")
     check((gpu_ids[separated] == cpu_ids[separated]).all(),
           "small serve: card and CPU rankings disagree")
+    eval_cpu_vs_card(port, make_synthetic_corpus)
 
-    # ---- 5. times ----
+    # ---- 6. times ----
     x, w, m = ugrnn_inputs(serve_mask.cpu(), torch.bfloat16, seed=2)
-    kernel_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_kernel(x, w, m), iters=200)
-    plain_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_reference(x, w, m), iters=20)
-    bound_ms, bound_by = ugrnn_bound_ms(x, w, m)
-    print(f"ugrnn_fwd [32,19,510] bf16: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    ugrnn_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_kernel(x, w, m), iters=200)
+    ugrnn_plain_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_reference(x, w, m), iters=20)
+    ugrnn_bound, ugrnn_bound_by = ugrnn_bound_ms(x, w, m)
+    print(f"ugrnn_fwd [32,19,510] bf16: kernel {ugrnn_ms:.4f} ms, plain "
+          f"{ugrnn_plain_ms:.4f} ms, bound {ugrnn_bound:.5f} ms ({ugrnn_bound_by})")
     for mask in (serve_mask[:1].cpu(), train_like_mask):
         xb, wb, mb = ugrnn_inputs(mask, torch.bfloat16, seed=2)
         ms = cuda_ms(lambda: ugrnn.ugrnn_scan_kernel(xb, wb, mb), iters=100)
         bms, _ = ugrnn_bound_ms(xb, wb, mb)
         print(f"ugrnn_fwd [{mask.shape[0]},19,510] bf16: kernel {ms:.4f} ms, "
               f"bound {bms:.5f} ms")
+    with torch.inference_mode():
+        scorer_ms = cuda_ms(
+            lambda: cand_scorer.cand_score_kernel(*scorer_operands), iters=20, warmup=3
+        )
+        scorer_plain_ms = cuda_ms(
+            lambda: cand_scorer.cand_score_reference(*scorer_operands), iters=3,
+            warmup=1,
+        )
+    scorer_bound, scorer_bound_by, scorer_ops = cand_score_bound_ms(scorer_operands)
+    tflop = scorer_ops / 1e12
+    print(f"cand_score_fwd {list(scorer_operands[0].shape)} bf16 (G1 eval): kernel "
+          f"{scorer_ms:.4f} ms ({tflop / scorer_ms * 1e3:.1f} TFLOP/s), plain "
+          f"{scorer_plain_ms:.4f} ms, bound {scorer_bound:.5f} ms ({scorer_bound_by})")
+    # the same row count at other widths: what the CAR product (C^2) and the
+    # matching layers (M) each cost in this kernel
+    for shape in ((4864, 50, 1024, 16, 8, 8), (4864, 50, 512, 128, 64, 32)):
+        operands = scorer_inputs(*shape, dtype=torch.bfloat16, seed=6)
+        ms = cuda_ms(lambda: cand_scorer.cand_score_kernel(*operands), iters=10,
+                     warmup=2)
+        bms, _, ops = cand_score_bound_ms(operands)
+        print(f"cand_score_fwd bf16 BT,K,C,M1,M2,M3={shape}: kernel {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TFLOP/s), bound {bms:.5f} ms")
+        del operands
+
     p50 = {}
     for bs in SERVE_BATCHES:
         cand = np.broadcast_to(pool, (bs, NUM_CANDIDATES))
@@ -356,21 +660,55 @@ def main() -> int:
         print(f"recommend b{bs} (host clock, synchronised): p50 "
               f"{p50[bs]:.3f} ms, p99 {times[98]:.3f} ms, max {times[-1]:.3f} ms "
               f"over {len(times)} calls")
-    profile_recommend(server, sessions, pool, p50[32])
+    cand32 = np.broadcast_to(pool, (32, NUM_CANDIDATES))
+    device_profile(
+        "recommend b32",
+        lambda: server.recommend(sessions[:32], candidates=cand32, top_k=TOP_K),
+        10, p50[32],
+    )
 
-    print(json.dumps({"kernels": [{
-        "name": "ugrnn_fwd",
-        "route": "cuda",
-        "source": "chameleon_recsys_tpu_torch/csrc/ugrnn_fwd.cu",
-        "replaces": "chameleon_recsys_tpu/ops/pallas/ugrnn_pallas.py:51",
-        "launches": main_launches,
-        "max_abs_err": errors[("b32_serve", torch.bfloat16)],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+    generator = torch.Generator(device="cuda").manual_seed(12)
+    step_batch = eval_batches[0]
+
+    def one_eval_step():
+        return eval_step(server.model, eval_stream, step_batch, server.ace_matrix,
+                         server.metadata, generator=generator)
+
+    step_ms = cuda_ms(one_eval_step, iters=20, warmup=3)
+    sessions_per_batch = int((step_batch["session_size"] > 0).sum())
+    print(f"eval_step b{cfg.batch_size} (CUDA events over 20 steps): "
+          f"{step_ms:.3f} ms per batch, {sessions_per_batch / step_ms * 1e3:.1f} "
+          f"sessions/s")
+    device_profile("eval_step", one_eval_step, 5, step_ms)
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "ugrnn_fwd",
+            "route": "cuda",
+            "source": "chameleon_recsys_tpu_torch/csrc/ugrnn_fwd.cu",
+            "replaces": "chameleon_recsys_tpu/ops/pallas/ugrnn_pallas.py:51",
+            "launches": main_launches["ugrnn_fwd"],
+            "max_abs_err": errors[("b32_serve", torch.bfloat16)],
+            "ms": ugrnn_ms,
+            "plain_ms": ugrnn_plain_ms,
+            "bound_ms": ugrnn_bound,
+            "bound_by": ugrnn_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "cand_score_fwd",
+            "route": "cuda",
+            "source": "chameleon_recsys_tpu_torch/csrc/cand_score_fwd.cu",
+            "replaces": "chameleon_recsys_tpu/ops/pallas/cand_scorer.py:172",
+            "launches": main_launches["cand_score_fwd"],
+            "max_abs_err": errors["g1_eval"],
+            "ms": scorer_ms,
+            "plain_ms": scorer_plain_ms,
+            "bound_ms": scorer_bound,
+            "bound_by": scorer_bound_by,
+            "library_ms": None,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

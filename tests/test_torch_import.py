@@ -17,6 +17,7 @@ import sys
 import chameleon_recsys_tpu_torch
 import chameleon_recsys_tpu_torch.convert
 import chameleon_recsys_tpu_torch.data.synthetic
+import chameleon_recsys_tpu_torch.train.steps
 loaded = [m for m in sys.modules
           if m == "chameleon_recsys_tpu" or m.startswith("chameleon_recsys_tpu.")]
 jax = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
