@@ -9,11 +9,13 @@ hand-written kernel's wrapper runs its plain PyTorch twin.
 Float32 parity runs on the card need ``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` off; ``chip_smoke.py`` sets both.
 
-Ported so far: the NAR serving path (``NARServer.recommend`` / ``observe``)
-and the NAR eval step (``train.steps.eval_step``: the grid sampler, the pooled
-and ranked forward), with the UGRNN forward (``ops/kernels/ugrnn.py``) and the
-fused candidate scorer forward (``ops/kernels/cand_scorer.py``) as CUDA
-kernels.
+Ported so far: the NAR serving path (``NARServer.recommend`` / ``observe``),
+the NAR eval step (``train.steps.eval_step``: the grid sampler, the pooled
+and ranked forward) and the NAR train step (``train.steps.train_step``:
+valid-row compaction, the row sampler, the pooled train forward, XE + L2 -
+novelty, Adam, the stream update), with the UGRNN forward and backward
+(``ops/kernels/ugrnn.py``) and the fused candidate scorer's forward, stash
+forward and backward (``ops/kernels/cand_scorer.py``) as CUDA kernels.
 """
 from .config import (
     ArticleFeaturesSchema,

@@ -3,7 +3,7 @@
 A copy of the NAR part of ``chameleon_recsys_tpu/config.py`` with the same
 class and field names, so a configuration written for the JAX package
 carries over field by field.  ``use_pallas_rnn`` and ``use_pallas_scorer``
-keep their names: in this package they route the session RNN and the eval
+keep their names: in this package they route the session RNN and the pooled
 path's negatives through the hand-written CUDA kernels
 (``ops/kernels/ugrnn.py``, ``ops/kernels/cand_scorer.py``).
 """
@@ -90,8 +90,9 @@ class InternalFeaturesConfig:
 class NARConfig:
     """NAR model + streaming-state hyperparameters (G1 defaults).
 
-    Fields the ported paths do not read (training, compaction) are kept so
-    that every JAX configuration converts without loss.
+    Fields the ported paths do not read (``approx_negative_topk``,
+    ``rng_impl``) are kept so that every JAX configuration converts without
+    loss; ``train_compaction_groups > 1`` raises in the train step.
     """
 
     # architecture
@@ -142,8 +143,8 @@ class NARConfig:
 
     # kernels: route the session RNN through the hand-written UGRNN kernel
     use_pallas_rnn: bool = False
-    # pooled grid path: route the negatives through the hand-written fused
-    # scorer kernel (ops/kernels/cand_scorer.py) at three matching layers
+    # pooled path: route the negatives through the hand-written fused scorer
+    # kernels (ops/kernels/cand_scorer.py) at three matching layers
     use_pallas_scorer: bool = False
     # TPU-only approximate top-k in the JAX sampler; this port's sampler is
     # always exact (ops/sampling.py)

@@ -8,11 +8,16 @@ is [in, out], ``nn.Linear.weight`` is [out, in]); the explicit kernels
 (PreCAR, CAR, matching, recurrent) keep their [in, out] layout.  A name that
 matches no rule raises, and so does a tree that lacks or adds a parameter of
 the model it is meant for, so that no weight is silently ignored.
+
+``flax_from_tensors`` goes the other way: a mapping of this package's
+parameter names to tensors (parameters, their gradients, updated values)
+becomes a Flax-shaped nested dict of numpy arrays, transposed back, so that
+a test can hold it leaf by leaf against the JAX package's trees.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +38,47 @@ _RULES = (
     (r"(session_FC[12])/kernel", r"\1.weight", True),
     (r"(session_FC[12])/bias", r"\1.bias", False),
 )
+
+
+# (torch key pattern, flax path template, transpose): the inverse of _RULES
+_INVERSE_RULES = (
+    (r"(gamma_scale|beta_center|(?:PreCAR|CAR)_(?:kernel|bias))", r"\1", False),
+    (r"(matching_(?:\d+|out)_(?:kernel|bias))", r"\1", False),
+    (r"item_clicked_embedding\.weight", "item_clicked_embedding/embedding", False),
+    (r"(article_metadata_towers|user_context_towers)\.embeddings\.(\w+_embedding)"
+     r"\.weight", r"\1/\2/embedding", False),
+    (r"rnn\.layers\.(\d+)\.input_proj\.weight", r"rnn/layer_\1/input_proj/kernel", True),
+    (r"rnn\.layers\.(\d+)\.input_proj\.bias", r"rnn/layer_\1/input_proj/bias", False),
+    (r"rnn\.layers\.(\d+)\.recurrent_kernel", r"rnn/layer_\1/recurrent_kernel", False),
+    (r"(session_FC[12])\.weight", r"\1/kernel", True),
+    (r"(session_FC[12])\.bias", r"\1/bias", False),
+)
+
+
+def _flax_path(key: str) -> Tuple[str, bool]:
+    """This package's parameter name -> (the Flax path, '/'-joined, and
+    whether the array is transposed between the two)."""
+    for pattern, template, transpose in _INVERSE_RULES:
+        match = re.fullmatch(pattern, key)
+        if match:
+            return match.expand(template), transpose
+    raise KeyError(f"no rule maps the parameter {key!r} to a Flax path")
+
+
+def flax_from_tensors(tensors: Mapping[str, torch.Tensor]) -> Dict:
+    """{parameter name: tensor} -> nested dict of float32 numpy arrays in the
+    Flax tree's layout (e.g. ``{n: p.grad for n, p in
+    model.named_parameters()}`` against ``jax.grad``'s tree)."""
+    tree: Dict = {}
+    for key, tensor in tensors.items():
+        path, transpose = _flax_path(key)
+        array = tensor.detach().to("cpu", torch.float32).numpy()
+        node = tree
+        *parents, leaf = path.split("/")
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(array.T if transpose else array)
+    return tree
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:

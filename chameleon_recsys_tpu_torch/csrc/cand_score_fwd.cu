@@ -34,6 +34,12 @@
 // float32 inputs take the same structure on the CUDA cores in full f32 (no
 // TF32), with kRows = 16 so that pre still fits shared memory.
 //
+// Training (the stash variant, replacing _fwd_stash_kernel): with a non-null
+// `nc` pointer the kernel also stores each chunk of the rounded CAR output nc
+// [N, C] in the input dtype, which it holds anyway while it forms prod; the
+// backward kernel (cand_score_bwd.cu) reads it instead of recomputing the CAR
+// product.  A null pointer leaves the eval kernel exactly as it was.
+//
 // Rows, C and the matching widths need no alignment: tiles past an edge load
 // as zeros and rows past N are not written.  16-byte vector loads are used
 // where the row length allows them.
@@ -206,6 +212,7 @@ struct Params {
   const void *i_rows, *u, *pred, *car_w, *car_b, *w1, *b1, *w2, *b2, *w3,
       *b3, *w4;
   float* out;
+  void* nc;  // [n_rows, c] in the input dtype, or null
   long long n_rows;
   int k, c, m1, m2, m3;
   float alpha;
@@ -235,6 +242,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Scalar* w3 = static_cast<const Scalar*>(p.w3);
   const Scalar* b3 = static_cast<const Scalar*>(p.b3);
   const Scalar* w4 = static_cast<const Scalar*>(p.w4);
+  Scalar* nc_out = static_cast<Scalar*>(p.nc);
 
   extern __shared__ __align__(128) unsigned char smem[];
   Scalar* pre = reinterpret_cast<Scalar*>(smem);
@@ -376,6 +384,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (row < p.n_rows && col < C) {
         const float nc = round_to<Scalar>(
             tanhf(stage[r * L.ld_stage + j] + to_f32(car_b[col])));
+        if (nc_out != nullptr) nc_out[row * C + col] = from_f32<Scalar>(nc);
         value = nc * to_f32(pred[(row / p.k) * C + col]);
       }
       prod[r * L.ld_prod + j] = from_f32<Scalar>(value);
@@ -488,7 +497,8 @@ cudaError_t launch_typed(const Params& p, cudaStream_t stream) {
 // dtype codes: 0 = float32, 1 = bfloat16 (every operand has it; the scores
 // are float32).  Shapes: i_rows [n_rows, c] with n_rows = BT * k; u and pred
 // [BT, c]; car_w [c, c]; car_b [c]; w1 [c, m1] (m1 <= 128); b1 [m1];
-// w2 [m1, m2]; b2 [m2]; w3 [m2, m3]; b3 [m3]; w4 [m3]; out [n_rows].
+// w2 [m1, m2]; b2 [m2]; w3 [m2, m3]; b3 [m3]; w4 [m3]; out [n_rows];
+// nc null, or [n_rows, c] in the operands' dtype (the training stash).
 // Every pointer is 16-byte aligned and every array contiguous.  Returns the
 // cudaError_t of the launch (0 on success); the kernel runs on `stream` and
 // is not waited for.
@@ -497,7 +507,8 @@ extern "C" int cand_score_fwd(const void* i_rows, const void* u,
                               const void* car_b, const void* w1,
                               const void* b1, const void* w2, const void* b2,
                               const void* w3, const void* b3, const void* w4,
-                              void* out, long long n_rows, int k, int c,
+                              void* out, void* nc, long long n_rows, int k,
+                              int c,
                               int m1, int m2, int m3, int dtype, float alpha,
                               void* stream) {
   if (n_rows <= 0 || k <= 0 || n_rows % k != 0 || c <= 0 || m1 <= 0 ||
@@ -505,7 +516,8 @@ extern "C" int cand_score_fwd(const void* i_rows, const void* u,
     return cudaErrorInvalidValue;
   if ((n_rows + 15) / 16 > 0x7fffffffLL) return cudaErrorInvalidValue;
   const Params p{i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4,
-                 static_cast<float*>(out), n_rows, k, c, m1, m2, m3, alpha};
+                 static_cast<float*>(out), nc, n_rows, k, c, m1, m2, m3,
+                 alpha};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_typed<float>(p, s);
   if (dtype == 1) return launch_typed<__nv_bfloat16>(p, s);

@@ -10,7 +10,9 @@
 // x_proj and W_hh are read in their dtype (bf16 or f32, the same for both)
 // and widened to f32; h and all gate math stay f32 for the whole sequence;
 // the output is written in that dtype.  These are the Pallas kernel's
-// numerics.
+// numerics.  In training a non-null `hs32` also receives every state in f32
+// [B, T, U]: the residual from which the backward kernel (ugrnn_bwd.cu)
+// recomputes the gates, as the Pallas VJP keeps its f32 padded output.
 //
 // What bounds it: the recurrence is 19 dependent steps (G1 sessions), each a
 // [rows, U] x [U, 2U] product that needs the previous step's h.  At serving
@@ -60,7 +62,8 @@ template <typename Scalar>
 __global__ void ugrnn_fwd_kernel(const Scalar* __restrict__ x,
                                  const Scalar* __restrict__ w,
                                  const uint8_t* __restrict__ mask,
-                                 Scalar* __restrict__ out, int B, int T,
+                                 Scalar* __restrict__ out,
+                                 float* __restrict__ hs32, int B, int T,
                                  int U, float forget_bias) {
   extern __shared__ float h_smem[];
   const int j = threadIdx.x;
@@ -109,6 +112,7 @@ __global__ void ugrnn_fwd_kernel(const Scalar* __restrict__ x,
         }
         h_next[r * U + j] = h_new;
         out[bt * U + j] = from_f32<Scalar>(h_new);
+        if (hs32 != nullptr) hs32[bt * U + j] = h_new;
       }
     }
     __syncthreads();
@@ -118,33 +122,37 @@ __global__ void ugrnn_fwd_kernel(const Scalar* __restrict__ x,
 
 template <typename Scalar>
 cudaError_t launch_typed(const void* x, const void* w, const void* mask,
-                         void* out, int B, int T, int U, float forget_bias,
-                         cudaStream_t stream) {
+                         void* out, float* hs32, int B, int T, int U,
+                         float forget_bias, cudaStream_t stream) {
   const int threads = ((U + 31) / 32) * 32;
   const int blocks = (B + kRows - 1) / kRows;
   const size_t smem = 2u * kRows * U * sizeof(float);  // <= 16 KB at U <= 1024
   ugrnn_fwd_kernel<Scalar><<<blocks, threads, smem, stream>>>(
       static_cast<const Scalar*>(x), static_cast<const Scalar*>(w),
-      static_cast<const uint8_t*>(mask), static_cast<Scalar*>(out), B, T, U,
-      forget_bias);
+      static_cast<const uint8_t*>(mask), static_cast<Scalar*>(out), hs32, B, T,
+      U, forget_bias);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (x_proj, W_hh and the output share
-// it).  Returns the cudaError_t of the launch (0 on success); the kernel runs
+// it); hs32 is null or a float32 [B, T, U] copy of the states.  Returns the
+// cudaError_t of the launch (0 on success); the kernel runs
 // on `stream` and is not waited for.
 extern "C" int ugrnn_fwd(const void* x_proj, const void* w_hh,
-                         const void* mask, void* out, int B, int T, int U,
-                         int dtype, float forget_bias, void* stream) {
+                         const void* mask, void* out, void* hs32, int B,
+                         int T, int U, int dtype, float forget_bias,
+                         void* stream) {
   if (B <= 0 || T <= 0 || U <= 0 || U > 1024) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_typed<float>(x_proj, w_hh, mask, out, B, T, U, forget_bias,
-                               s);
+    return launch_typed<float>(x_proj, w_hh, mask, out,
+                               static_cast<float*>(hs32), B, T, U,
+                               forget_bias, s);
   if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(x_proj, w_hh, mask, out, B, T, U,
+    return launch_typed<__nv_bfloat16>(x_proj, w_hh, mask, out,
+                                       static_cast<float*>(hs32), B, T, U,
                                        forget_bias, s);
   return cudaErrorInvalidValue;
 }

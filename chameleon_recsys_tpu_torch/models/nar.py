@@ -1,15 +1,19 @@
-"""NAR (Next-Article Recommendation) model, inference forward.
+"""NAR (Next-Article Recommendation) model.
 
-Port of ``chameleon_recsys_tpu/models/nar.py::NARModel`` for ``train=False``
-in two cases:
+Port of ``chameleon_recsys_tpu/models/nar.py::NARModel`` in three cases:
   * serving: candidates scored at one position per session
     (``candidate_positions``);
   * eval: every (session, step) of the grid scored against its negatives
     from a shared candidate pool (``neg_pool`` / ``neg_pool_idx``), with the
-    masked cross-entropy and, under ``rank``, the ranked candidates.  With
-    ``use_pallas_scorer`` and three matching layers the negatives go through
-    the hand-written fused scorer kernel (``ops/kernels/cand_scorer.py``).
-Training, dropout and row compaction are not ported.  One forward pass:
+    masked cross-entropy and, under ``rank``, the ranked candidates;
+  * training (``train=True``) on the same pooled path, over the grid or over
+    the (session, step) rows that the train step's compaction selected
+    (``scoring_rows``); gradients come from autograd and the kernels'
+    ``autograd.Function``s.
+With ``use_pallas_scorer`` and three matching layers the negatives go
+through the hand-written fused scorer kernels (``ops/kernels/cand_scorer.py``).
+Dropout (``keep_prob < 1``) and the dense per-candidate grid path it takes
+are not ported.  One forward pass:
 
   user-context towers | item features (metadata towers + frozen ACE + item
   embedding + recency/novelty against the click buffer's stats)
@@ -27,7 +31,7 @@ compute dtype at each use; activations kept in it between ops), not
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +45,7 @@ from ..config import (
     embedding_dim_for_cardinality,
 )
 from ..ops.embedding import pool_gather
-from ..ops.kernels.cand_scorer import cand_score_kernel
+from ..ops.kernels.cand_scorer import cand_score
 from ..ops.normalization import log1p_base, log_base, normalize_values
 from ..ops.rnn import StackedUGRNN
 from .towers import FeatureTowers, gather_rows
@@ -54,6 +58,11 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, _LEAKY_ALPHA)
 
 
+def _select_rows(x: torch.Tensor, rows_sel: torch.Tensor) -> torch.Tensor:
+    """[B, T, ...] -> [M, ...]: the selected rows of the flat B*T grid."""
+    return x.reshape((-1,) + x.shape[2:])[rows_sel]
+
+
 class NARAux(NamedTuple):
     """Non-trainable inputs to the forward pass."""
 
@@ -64,8 +73,8 @@ class NARAux(NamedTuple):
 
 
 class NAROutputs(NamedTuple):
-    items_prob: torch.Tensor  # [B, T, 1+K] f32
-    candidate_ids: torch.Tensor  # [B, T, 1+K] (label first)
+    items_prob: torch.Tensor  # [B, T, 1+K] f32 ([M, 1+K] with scoring_rows)
+    candidate_ids: torch.Tensor  # [B, T, 1+K] / [M, 1+K] (label first)
     loss_mask: torch.Tensor  # [B, T] f32
     ce_loss: torch.Tensor  # scalar
     nov_reg_loss: torch.Tensor  # scalar (0 when disabled)
@@ -295,29 +304,41 @@ class NARModel(nn.Module):
         train: bool = False,
         rank: bool = False,
         neg_pool: Optional[torch.Tensor] = None,  # [NC+1] shared pool
-        neg_pool_idx: Optional[torch.Tensor] = None,  # [B, T, K] into neg_pool
-        scoring_rows=None,
+        neg_pool_idx: Optional[torch.Tensor] = None,  # [B, T, K] / [M, K]
+        scoring_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
         """Serving (``candidate_positions`` given): the softmax over
         [label slot | K candidates] at each session's candidate position,
-        [B, 1, 1+K] f32.  Eval (the grid with a shared candidate pool):
-        ``NAROutputs`` over every (session, step)."""
-        if train or scoring_rows is not None:
+        [B, 1, 1+K] f32.  The grid with a shared candidate pool (eval, or
+        training): ``NAROutputs`` over every (session, step), or with
+        ``scoring_rows`` = (rows_sel [M] flat indices into the B*T grid,
+        row_mask [M] f32) over those M rows only, ``neg_items`` and
+        ``neg_pool_idx`` then [M, K].  ``train`` changes nothing at
+        ``keep_prob`` 1 (dropout of rate 0 is the identity); autograd records
+        whenever grad is enabled."""
+        if train and self.cfg.keep_prob < 1.0:
             raise NotImplementedError(
-                "training and scoring_rows compaction are not ported"
+                "dropout (keep_prob < 1) and the dense train path it takes "
+                "are not ported"
             )
         if candidate_positions is not None:
-            if rank or neg_pool is not None:
+            if rank or neg_pool is not None or scoring_rows is not None:
                 raise NotImplementedError(
-                    "serving takes neither rank nor neg_pool"
+                    "serving takes neither rank, neg_pool nor scoring_rows"
                 )
             return self._serve(batch, aux, neg_items, candidate_positions)
+        if scoring_rows is not None and rank:
+            raise ValueError(
+                "scoring_rows supports the train path only (rank=False, no "
+                "candidate_positions)"
+            )
         if neg_pool is None or neg_pool_idx is None:
             raise NotImplementedError(
                 "the grid path needs neg_pool and neg_pool_idx: the dense "
                 "per-candidate grid path is not ported"
             )
-        return self._pooled(batch, aux, neg_items, neg_pool, neg_pool_idx, rank)
+        return self._pooled(batch, aux, neg_items, neg_pool, neg_pool_idx, rank,
+                            scoring_rows)
 
     def _encode(self, batch, aux: NARAux):
         """User context, the positive CAR rows and the session encoder's
@@ -412,70 +433,85 @@ class NARModel(nn.Module):
 
     def _scorer_operands(self, u_pre, i_pre, const, pred, neg_pool_idx):
         """The fused scorer's operands in its call order: the gathered item
-        rows [B*T*K, C], u_pre + const and pred [B*T, C], the CAR and
-        matching weights and w4 [M3].  Nothing [B*T*K, C]-shaped but the
-        gathered rows is materialised."""
+        rows [R*K, C], u_pre + const and pred [R, C] (R = B*T, or the M
+        compacted rows), the CAR and matching weights and w4 [M3].  Nothing
+        [R*K, C]-shaped but the gathered rows is materialised."""
         dt = self.dtype
-        b, t, c = pred.shape
+        c = pred.shape[-1]
         matching = []
         for name in self.matching_names:
             matching += [getattr(self, f"{name}_kernel").to(dt),
                          getattr(self, f"{name}_bias").to(dt)]
         return (
             pool_gather(i_pre, neg_pool_idx.reshape(-1)),
-            (u_pre + const).reshape(b * t, c),
-            pred.reshape(b * t, c),
+            (u_pre + const).reshape(-1, c),
+            pred.reshape(-1, c),
             self.CAR_kernel.to(dt), self.CAR_bias.to(dt), *matching,
             self.matching_out_kernel.to(dt)[:, 0].contiguous(),
         )
 
-    def scorer_operands(self, batch, aux: NARAux, neg_pool, neg_pool_idx):
+    def scorer_operands(self, batch, aux: NARAux, neg_pool, neg_pool_idx,
+                        scoring_rows=None):
         """The fused scorer kernel's operands (without ``alpha``) for one
-        grid batch, as the pooled path passes them: for holding the kernel
-        against its plain twin at the model's own shapes and values."""
+        batch, as the pooled path passes them (over the grid, or over the
+        ``scoring_rows`` selection): for holding the kernels against their
+        plain twins at the model's own shapes and values."""
         user_ctx, _, pred, _, max_event_ts = self._encode(batch, aux)
+        if scoring_rows is not None:
+            user_ctx, pred = (_select_rows(x, scoring_rows[0]) for x in (user_ctx, pred))
         return self._scorer_operands(
             *self._pre_split(user_ctx, neg_pool, max_event_ts, aux),
             pred, neg_pool_idx,
         )
 
-    def _pooled(self, batch, aux, neg_items, neg_pool, neg_pool_idx, rank):
-        """Every (session, step) scored against its K negatives from the
-        shared pool: per-item features and the item half of the PreCAR
-        projection run once per pool row, not per (session, step, k)."""
+    def _pooled(self, batch, aux, neg_items, neg_pool, neg_pool_idx, rank,
+                scoring_rows=None):
+        """Every (session, step), or the ``scoring_rows`` selection of them,
+        scored against its K negatives from the shared pool: per-item
+        features and the item half of the PreCAR projection run once per
+        pool row, not per (row, k)."""
         cfg, dt = self.cfg, self.dtype
         user_ctx, pos_car, pred, mask, max_event_ts = self._encode(batch, aux)
         b, t = mask.shape
         k = neg_items.shape[-1]
+        loss_mask = mask.to(torch.float32)
+        labels = batch["label_next_item"]
+        ce_mask = loss_mask
+        if scoring_rows is not None:
+            rows_sel, ce_mask = scoring_rows
+            user_ctx, pos_car, pred, labels = (
+                _select_rows(x, rows_sel) for x in (user_ctx, pos_car, pred, labels)
+            )
         u_pre, i_pre, const = self._pre_split(user_ctx, neg_pool, max_event_ts, aux)
 
-        # The JAX package also asks B*T to be a multiple of its 8-row tile,
-        # a Mosaic limit; the CUDA kernel takes any row count.
+        # The JAX package also asks the row count to be a multiple of its
+        # 8-row tile, a Mosaic limit; the CUDA kernels take any row count.
         if cfg.use_pallas_scorer and len(cfg.matching_layer_sizes) == 3:
-            pos_score = self._match_score(pos_car * pred)  # [B, T]
+            pos_score = self._match_score(pos_car * pred)  # [B, T] / [M]
             # one kernel for the gathered rows' PreCAR + CAR + matching MLP
-            neg_score = cand_score_kernel(
+            neg_score = cand_score(
                 *self._scorer_operands(u_pre, i_pre, const, pred, neg_pool_idx),
                 _LEAKY_ALPHA,
             ) + self.matching_out_bias.to(dt)[0].float()
-            neg_score = neg_score.reshape(b, t, k)
+            neg_score = neg_score.reshape(pred.shape[:-1] + (k,))
         else:
             car_w, car_b = self.CAR_kernel.to(dt), self.CAR_bias.to(dt)
-            i_rows = pool_gather(i_pre, neg_pool_idx)  # [B, T, K, C]
-            pre_neg = _leaky(u_pre[:, :, None, :] + i_rows + const)
+            i_rows = pool_gather(i_pre, neg_pool_idx)  # [B, T, K, C] / [M, K, C]
+            pre_neg = _leaky(u_pre[..., None, :] + i_rows + const)
             neg_car = torch.tanh(pre_neg @ car_w + car_b)
             # the positive rides the candidate axis: one matching MLP pass
-            cand_car = torch.cat([pos_car[:, :, None, :], neg_car], dim=2)
-            all_scores = self._match_score(cand_car * pred[:, :, None, :])
+            cand_car = torch.cat([pos_car[..., None, :], neg_car], dim=-2)
+            all_scores = self._match_score(cand_car * pred[..., None, :])
             pos_score, neg_score = all_scores[..., 0], all_scores[..., 1:]
 
         scores = torch.cat([pos_score[..., None].float(), neg_score.float()], -1)
         items_prob = torch.softmax(scores / cfg.softmax_temperature, dim=-1)
 
-        # masked XE; the denominator is the batch's valid-click count
-        loss_mask = mask.to(torch.float32)
+        # masked XE over the scored rows; the denominator is the whole
+        # batch's valid-click count, so with every valid row selected the
+        # compacted loss is the grid's
         denom = torch.clamp_min(loss_mask.sum(), 1.0)
-        ce_loss = -(torch.log(items_prob[..., 0] + 1e-24) * loss_mask).sum() / denom
+        ce_loss = -(torch.log(items_prob[..., 0] + 1e-24) * ce_mask).sum() / denom
 
         if cfg.novelty_reg_factor > 0.0:
             neg_prob = torch.softmax(
@@ -486,14 +522,13 @@ class NARModel(nn.Module):
                 cfg.popularity_smooth_log_base,
             )
             masked_nov = cfg.novelty_reg_factor * (
-                neg_prob * neg_novelty * loss_mask[..., None]
+                neg_prob * neg_novelty * ce_mask[..., None]
             ).sum(-1)
             nov_reg_loss = masked_nov.sum() / denom
         else:
             nov_reg_loss = torch.zeros((), device=items_prob.device)
 
-        label = batch["label_next_item"]
-        candidate_ids = torch.cat([label[..., None], neg_items.to(label.dtype)], -1)
+        candidate_ids = torch.cat([labels[..., None], neg_items.to(labels.dtype)], -1)
         predicted_ids = predicted_probs = None
         if rank:
             # stable: ties (padded negatives share the sentinel row) keep the

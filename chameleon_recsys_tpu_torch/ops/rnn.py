@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .kernels.ugrnn import ugrnn_scan_kernel
+from .kernels.ugrnn import UGRNNScan, ugrnn_scan_kernel
 
 
 def ugrnn_scan(
@@ -43,7 +43,9 @@ def ugrnn_scan(
 
 class UGRNNLayer(nn.Module):
     """One UGRNN layer.  ``use_kernel`` runs the recurrence through the
-    hand-written CUDA kernel (f32 state, as the TPU kernel keeps it)."""
+    hand-written CUDA kernels (f32 state, as the TPU kernel keeps it): the
+    forward alone with grad off, ``UGRNNScan`` (forward and backward
+    kernels) with grad on."""
 
     def __init__(
         self,
@@ -67,15 +69,16 @@ class UGRNNLayer(nn.Module):
         )
         w_hh = self.recurrent_kernel.to(dt)
         if self.use_kernel:
-            return ugrnn_scan_kernel(
-                x_proj.contiguous(), w_hh.contiguous(), mask, self.forget_bias
-            )
+            operands = (x_proj.contiguous(), w_hh.contiguous(), mask)
+            if torch.is_grad_enabled():
+                return UGRNNScan.apply(*operands, self.forget_bias)
+            return ugrnn_scan_kernel(*operands, self.forget_bias)
         return ugrnn_scan(x_proj, w_hh, mask, forget_bias=self.forget_bias)
 
 
 class StackedUGRNN(nn.Module):
-    """Stacked UGRNN; outputs at padded steps are zeroed.  Inference only:
-    the per-layer output dropout of training is not ported yet."""
+    """Stacked UGRNN; outputs at padded steps are zeroed.  The per-layer
+    output dropout of training (``keep_prob < 1``) is not ported."""
 
     def __init__(
         self,

@@ -1,8 +1,10 @@
 """Fixed-shape, vectorised negative sampling (the grid sampler).
 
 Port of ``chameleon_recsys_tpu/ops/sampling.py``: ``sample_from_buffer``,
-the candidate pool, the per-click selection and ``sample_negatives_pooled``
-/ ``sample_negatives``.  The semantics are the reference's in-graph sampler:
+the candidate pool, the per-click selection, ``sample_negatives_pooled`` /
+``sample_negatives`` (the grid) and ``sample_negatives_pooled_rows`` (only
+the (session, click) rows the train step's compaction selected; one group,
+the layout without a mesh).  The semantics are the reference's in-graph sampler:
 
   1. candidates = the batch's clicks (with repetition, hence popularity
      bias) and a random sample of the recent-clicks buffer, shuffled, the
@@ -43,7 +45,7 @@ class SamplerUniforms(NamedTuple):
 
     buffer: torch.Tensor  # [buffer_size]: shuffle keys of the click buffer
     pool: torch.Tensor  # [B * L + buffer_sample_size]: shuffle keys of the pool
-    click: torch.Tensor  # [B, L, NC]: per-click selection keys
+    click: torch.Tensor  # [B, L, NC] (grid) or [M, NC] (rows): selection keys
 
 
 def _smallest_k(keys: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,20 +105,17 @@ def _build_candidate_pool(
     return nc, new_seg, seg_end, valid_sorted, pool_ext
 
 
-def _per_click_idx(u_click, new_seg, seg_end, valid_sorted, num_negatives):
-    """[B, L, NC] uniforms -> [B, L, K] positions in the value-sorted pool
-    (NC where fewer than K candidates are valid)."""
+def _per_click_idx(u_click, new_seg, seg_end, valid, num_negatives):
+    """[..., NC] uniforms -> [..., K] positions in the value-sorted pool (NC
+    where fewer than K candidates are valid); ``valid`` [..., NC] in the
+    value-sorted layout broadcasts against ``u_click``."""
     nc = new_seg.shape[0]
     pos = torch.arange(nc, dtype=torch.int32, device=new_seg.device)
     seg_start = torch.cummax(torch.where(new_seg, pos, 0), dim=0).values
     seg_len = (pos - seg_start + 1).to(torch.float32)
     # one Exp(m)-ranked key per segment end; validity is constant within a
     # segment because session exclusion is by value
-    key = torch.where(
-        (seg_end[None, :] & valid_sorted)[:, None, :],
-        -torch.log1p(-u_click) / seg_len,
-        torch.inf,
-    )
+    key = torch.where(seg_end & valid, -torch.log1p(-u_click) / seg_len, torch.inf)
     values, idx = _smallest_k(key, num_negatives)
     return torch.where(torch.isfinite(values), idx, nc)
 
@@ -124,9 +123,11 @@ def _per_click_idx(u_click, new_seg, seg_end, valid_sorted, num_negatives):
 def draw_uniforms(
     generator: torch.Generator, b: int, l: int, buffer_size: int, *,
     num_negatives: int, buffer_sample_size: int, mult: int = 20,
+    rows: Optional[int] = None,
 ) -> SamplerUniforms:
     """Draw the uniforms of one sampler call from ``generator``, on its
-    device."""
+    device: per click of the [B, L] grid, or per selected row when ``rows``
+    (M) is given."""
     nc = min(num_negatives * mult, b * l + buffer_sample_size)
     device = generator.device
 
@@ -136,7 +137,7 @@ def draw_uniforms(
     return SamplerUniforms(
         buffer=uniform(buffer_size),
         pool=uniform(b * l + buffer_sample_size),
-        click=uniform(b, l, nc),
+        click=uniform(b, l, nc) if rows is None else uniform(rows, nc),
     )
 
 
@@ -179,9 +180,55 @@ def sample_negatives_pooled(
             f"click uniforms must be [{b}, {l}, {nc}], got "
             f"{tuple(uniforms.click.shape)}"
         )
-    idx = _per_click_idx(uniforms.click, new_seg, seg_end, valid_sorted,
-                         num_negatives)
+    idx = _per_click_idx(uniforms.click, new_seg, seg_end,
+                         valid_sorted[:, None, :], num_negatives)
     neg_idx = torch.where((all_clicked_items != 0)[..., None], idx, nc)
+    return pool_ext, neg_idx, pool_ext[neg_idx]
+
+
+def sample_negatives_pooled_rows(
+    all_clicked_items: torch.Tensor,  # [B, L] int32, 0-padded
+    buffer_ids: torch.Tensor,  # [buffer_size] int32, newest-first
+    row_session: torch.Tensor,  # [M] session index of each selected row
+    row_click: torch.Tensor,  # [M] the row's click id (0: a padding row)
+    *,
+    num_negatives: int,
+    buffer_sample_size: int,
+    mult: int = 20,
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[SamplerUniforms] = None,
+):
+    """Negatives for the M selected (session, click) rows only, from the same
+    shared pool as ``sample_negatives_pooled``: the pool and the session
+    exclusion are the grid sampler's, the per-click selection runs M times
+    with one [M, NC] array of uniforms.  A row whose click is 0 gets only
+    the sentinel.
+
+    Returns (pool_ext [NC+1], neg_idx int64 [M, K], neg_ids int32 [M, K]).
+    """
+    b, l = all_clicked_items.shape
+    m = row_session.shape[0]
+    if uniforms is None:
+        if generator is None:
+            raise ValueError(
+                "sample_negatives_pooled_rows needs a generator or uniforms"
+            )
+        uniforms = draw_uniforms(
+            generator, b, l, buffer_ids.shape[0], num_negatives=num_negatives,
+            buffer_sample_size=buffer_sample_size, mult=mult, rows=m,
+        )
+    nc, new_seg, seg_end, valid_sorted, pool_ext = _build_candidate_pool(
+        uniforms.buffer, uniforms.pool, all_clicked_items, buffer_ids,
+        num_negatives=num_negatives, buffer_sample_size=buffer_sample_size,
+        mult=mult,
+    )
+    if tuple(uniforms.click.shape) != (m, nc):
+        raise ValueError(
+            f"click uniforms must be [{m}, {nc}], got {tuple(uniforms.click.shape)}"
+        )
+    idx = _per_click_idx(uniforms.click, new_seg, seg_end,
+                         valid_sorted[row_session.long()], num_negatives)
+    neg_idx = torch.where((row_click != 0)[:, None], idx, nc)
     return pool_ext, neg_idx, pool_ext[neg_idx]
 
 

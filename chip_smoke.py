@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the G1 configuration's full width with random
-weights from a seed, the serving path (``NARServer.observe`` / ``recommend``)
-and the eval step (``train.steps.eval_step``), and every hand-written kernel
-of those paths:
+Drives the port's three paths at the G1 configuration's full width with random
+weights from a seed, the serving path (``NARServer.observe`` / ``recommend``),
+the eval step (``train.steps.eval_step``) and the train step
+(``train.steps.train_step``, valid-row compaction at the bench's capacity),
+and every hand-written kernel of those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
    per source, started together) and reports the build time and what ptxas
@@ -19,17 +20,27 @@ of those paths:
    counters, runs ``eval_step`` over four batches of 256 sessions of the next
    hour, reads the counters (per step the fused scorer once, the UGRNN
    kernel twice) and checks the metrics and rankings;
-4. holds each kernel against its plain PyTorch twin on the card: the UGRNN at
-   the serving shapes, the fused scorer on the operands of the eval path's
-   first step (bf16, rebuilt by ``train.steps.eval_scorer_operands``), on
-   random bf16 operands at the same shape, and at a smaller float32 shape
-   and an odd shape;
-5. checks the served scores and one eval step against the same code on the
-   CPU, where the kernel wrappers run their plain twins, on a small float32
-   input;
-6. times each kernel, its plain twin, ``recommend`` and the eval step with
-   CUDA events or a synchronised host clock, and breaks one request and one
-   eval step down by device kernel (torch profiler).
+4. train, counted: warms a stream over two synthetic hours, sizes the
+   valid-row capacity as ``bench.py`` does (the largest valid-click count of
+   the batches, rounded up to 128, at most B*T), zeroes the counters, runs
+   two train steps (per step the scorer's stash forward once, its backward
+   once, the UGRNN forward and backward twice each, no eval forward), checks
+   that no click is dropped and every loss is finite, then trains 20 steps
+   on one batch and checks that the loss falls;
+5. holds each kernel against its plain PyTorch twin on the card: the UGRNN
+   forward and backward at the serving and train shapes, the fused scorer
+   forward on the operands of the eval path's first step (bf16, rebuilt by
+   ``train.steps.eval_scorer_operands``), its stash forward and backward on
+   the operands of the train path's first step (``train_scorer_operands``),
+   and all three on random operands at the G1 shapes, a float32 shape and an
+   odd shape;
+6. checks the served scores, one eval step and one train step against the
+   same code on the CPU, where the kernel wrappers run their plain twins, on
+   a small float32 input;
+7. times each kernel, its plain twin, ``recommend``, the eval step and the
+   train step with CUDA events or a synchronised host clock, and breaks one
+   request, one eval step and one train step down by device kernel (torch
+   profiler).
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 numbers before the last line, and as the last line
@@ -38,6 +49,7 @@ without a CUDA device it exits 1 before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -55,7 +67,11 @@ SERVE_BATCHES = (1, 32)
 NUM_CANDIDATES = 500
 TOP_K = 10
 EVAL_BATCHES = 4
-KERNELS = ("ugrnn_fwd", "cand_score_fwd")
+TRAIN_STEPS = 2  # counted, over two batches
+LOSS_STEPS = 20  # on one batch: the loss must fall
+KERNELS = ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd", "cand_score_bwd")
+SCORER_GRADS = ("di", "du", "dp", "dcar_w", "dcar_b", "dw1", "db1", "dw2",
+                "db2", "dw3", "db3", "dw4")
 
 
 def check(condition, message):
@@ -136,6 +152,7 @@ def tiny_setup(port):
         matching_layer_sizes=(16, 8, 8), recent_clicks_buffer_max_size=128,
         recent_clicks_for_normalization=64, batch_size=8, max_session_length=8,
         eval_negative_samples=5, eval_negative_sample_from_buffer=30,
+        negative_samples=5, negative_sample_from_buffer=30,
         metrics_top_n=4, use_pallas_rnn=True, use_pallas_scorer=True,
     )
     return cfg, session_schema, article_schema
@@ -229,6 +246,98 @@ def cand_score_bound_ms(operands):
     return bound(n_bytes, n_ops, rate) + (n_ops,)
 
 
+def _scorer_rate(dtype):
+    return H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_F32_FLOP_PER_S
+
+
+def cand_score_stash_bound_ms(operands):
+    """(least ms, what bounds it) for the training forward: the forward's
+    work, plus the [N, C] nc written once."""
+    i_rows = operands[0]
+    _, _, n_ops = cand_score_bound_ms(operands)
+    n_bytes = (sum(t.numel() * t.element_size() for t in operands)
+               + i_rows.shape[0] * 4 + i_rows.numel() * i_rows.element_size())
+    return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype))
+
+
+def cand_score_bwd_bound_ms(operands):
+    """(least ms, what bounds it) for the scorer's backward: the 12
+    operands, nc and the f32 cotangent read once, the 12 gradients written
+    once; 2 N (2 C C + 3 C M1 + 3 M1 M2 + 3 M2 M3) operations (the two
+    C-wide products of the CAR layer, three of each matching layer)."""
+    i_rows, _, _, _, _, w1, _, w2, _, w3 = operands[:10]
+    n, c = i_rows.shape
+    m1, m2, m3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    operand_bytes = sum(t.numel() * t.element_size() for t in operands)
+    n_bytes = 2 * operand_bytes + i_rows.numel() * i_rows.element_size() + n * 4
+    n_ops = 2 * n * (2 * c * c + 3 * c * m1 + 3 * m1 * m2 + 3 * m2 * m3)
+    return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype))
+
+
+def ugrnn_bwd_bound_ms(x, w, mask):
+    """Least time for the UGRNN backward on these inputs: x read at valid
+    steps, W_hh and the mask once, the f32 states and the cotangent read
+    once, dx_proj and dW_hh written once; f32 arithmetic of the gate
+    recompute, the carry and dW_hh (3 x 2 U 2U) and the gates at valid
+    steps only."""
+    b, t, two_u = x.shape
+    units = two_u // 2
+    valid = int(mask.sum())
+    size = x.element_size()
+    n_bytes = (valid * two_u * size + 2 * w.numel() * w.element_size()
+               + mask.numel() + b * t * units * (4 + size) + b * t * two_u * size)
+    n_ops = valid * units * (3 * 2 * two_u + 20)
+    return bound(n_bytes, n_ops, H100_F32_FLOP_PER_S)
+
+
+def close_normwise(out, ref, tol, outliers=1e-4):
+    """(ok, max abs error, normwise error, elements off): ||out - ref|| within
+    tol ||ref|| and at most a share ``outliers`` of the elements off by more
+    than tol max|ref| (leaky_relu's derivative jumps at 0, and a
+    pre-activation within f32 summation noise of 0 takes the other slope in
+    one of the two sums)."""
+    diff = (out.float() - ref.float()).abs()
+    scale = max(ref.float().abs().max().item(), 1e-30)
+    norm_err = (diff.norm() / ref.float().norm().clamp_min(1e-30)).item()
+    off = int((diff > tol * scale).sum())
+    ok = norm_err <= tol and off <= outliers * diff.numel()
+    return ok, diff.max().item(), norm_err, off
+
+
+def check_scorer_train_kernels(name, operands, g, tol):
+    """The stash forward and the backward against their twins on one set of
+    operands; returns (nc max error, the backward's largest max error)."""
+    from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer
+
+    scores, nc = cand_scorer.cand_score_kernel(*operands, return_nc=True)
+    ref_scores, ref_nc = cand_scorer.cand_score_reference(*operands, return_nc=True)
+    torch.cuda.synchronize()
+    nc_tol = 1e-5 if nc.dtype == torch.float32 else 2.0 ** -8
+    nc_err = (nc.float() - ref_nc.float()).abs().max().item()
+    score_err = (scores - ref_scores).abs().max().item()
+    score_tol = tol * max(ref_scores.abs().max().item(), 1e-30)
+    print(f"cand_score_fwd (stash) vs plain {name} {list(operands[0].shape)} "
+          f"{operands[0].dtype}: nc max_abs_err {nc_err:.3e} (tolerance "
+          f"{nc_tol:.3e}), scores {score_err:.3e} (tolerance {score_tol:.3e})")
+    check(nc_err <= nc_tol and score_err <= score_tol,
+          f"cand_score_fwd (stash) disagrees on {name}")
+    del scores, nc, ref_scores
+    grads = cand_scorer.cand_score_bwd_kernel(*operands, ref_nc, g)
+    ref = cand_scorer.cand_score_bwd_reference(*operands, ref_nc, g)
+    torch.cuda.synchronize()
+    worst = 0.0
+    report = []
+    for gname, got, want in zip(SCORER_GRADS, grads, ref):
+        ok, err, norm_err, off = close_normwise(got, want, tol)
+        worst = max(worst, err)
+        report.append(f"{gname} {err:.2e}/{norm_err:.1e}/{off}")
+        check(ok, f"cand_score_bwd disagrees on {name}: {gname} max {err:.3e}, "
+                  f"normwise {norm_err:.3e}, {off} elements off")
+    print(f"cand_score_bwd vs plain {name} {operands[0].dtype} (output max_abs_err/"
+          f"normwise/elements beyond {tol} x max|ref|): " + ", ".join(report))
+    return nc_err, worst
+
+
 def scorer_inputs(bt, k, c, m1, m2, m3, dtype, seed):
     """Random fused-scorer operands on the card, scaled as the model's
     initialisers scale them."""
@@ -308,35 +417,220 @@ def check_eval_outputs(step, batch, metrics, fetches, cfg):
     check(not bool(own.any()), f"eval step {step}: a negative from its own session")
 
 
+def hour_batches(corpus, session_schema, cfg, hour, n):
+    """Collated (numpy) batches of ``n`` synthetic sessions of ``hour``."""
+    from chameleon_recsys_tpu_torch.data.collate import batches_from_sessions
+    from chameleon_recsys_tpu_torch.data.synthetic import synthetic_hour_sessions
+
+    b, length = cfg.batch_size, cfg.max_session_length
+    return list(batches_from_sessions(
+        synthetic_hour_sessions(corpus, session_schema, hour, n, length),
+        session_schema, b, length,
+    ))
+
+
+def launch_counts():
+    from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer, ugrnn
+
+    return {
+        "cand_score_fwd": cand_scorer.launches,
+        "cand_score_fwd_stash": cand_scorer.stash_launches,
+        "cand_score_bwd": cand_scorer.bwd_launches,
+        "ugrnn_fwd": ugrnn.launches,
+        "ugrnn_bwd": ugrnn.bwd_launches,
+    }
+
+
+def zero_launch_counts():
+    from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer, ugrnn
+
+    cand_scorer.launches = cand_scorer.stash_launches = cand_scorer.bwd_launches = 0
+    ugrnn.launches = ugrnn.bwd_launches = 0
+
+
+def train_capacity(batches, cfg):
+    """``bench.py``'s capacity: the largest valid-click count of the
+    batches, rounded up to 128 rows, at most B*T."""
+    from chameleon_recsys_tpu_torch.train.steps import valid_click_mask
+
+    t = cfg.max_inputs_length
+    max_valid = max(int(valid_click_mask(b["session_size"], t).sum()) for b in batches)
+    return min(-(-max_valid // 128) * 128, cfg.batch_size * t)
+
+
+def train_phase(port, server, cfg, session_schema, article_schema, corpus):
+    """The train path at G1 width, counted: a stream warmed over two hours,
+    two train steps over two batches of the next hour, then 20 steps on one
+    batch.  Returns the launch counts of the counted run, the train state
+    after it all, the batches, the first step's scorer operands and the
+    capacity."""
+    from chameleon_recsys_tpu_torch.state.stream_state import init_stream_state
+    from chameleon_recsys_tpu_torch.train.steps import (
+        init_train_state,
+        train_scorer_operands,
+        train_step,
+    )
+
+    b = cfg.batch_size
+    warm = warm_stream(
+        init_stream_state(cfg, corpus.num_items, device="cuda"),
+        hour_batches(corpus, session_schema, cfg, 0, 2 * b)
+        + hour_batches(corpus, session_schema, cfg, 1, 2 * b), cfg, "cuda",
+    )
+    batches = [to_device(batch, "cuda") for batch in
+               hour_batches(corpus, session_schema, cfg, 3, TRAIN_STEPS * b)]
+    capacity = train_capacity(batches, cfg)
+    tcfg = dataclasses.replace(cfg, train_valid_row_capacity=capacity)
+    model = port.NARModel(tcfg, session_schema, article_schema,
+                          corpus.ace_matrix.shape[1]).to("cuda")
+    model.load_state_dict(server.model.state_dict())
+    seed = 21
+    # the first step's scorer operands: the same model, stream, batch and
+    # generator seed draw the same negatives (the UGRNN forward runs here,
+    # before the counters are zeroed)
+    operands = train_scorer_operands(
+        model, warm, batches[0], server.ace_matrix, server.metadata,
+        generator=torch.Generator(device="cuda").manual_seed(seed),
+    )
+    torch.cuda.synchronize()
+
+    zero_launch_counts()
+    state = init_train_state(model, warm, torch.Generator(device="cuda").manual_seed(seed))
+    per_step = []
+    for i in range(TRAIN_STEPS):
+        before = launch_counts()
+        state, metrics = train_step(state, batches[i % len(batches)],
+                                    server.ace_matrix, server.metadata)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        values = {k: float(v) for k, v in metrics.items()}
+        print(f"train step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in values.items()))
+        check(all(np.isfinite(v) for v in values.values()),
+              f"train step {i}: a metric is not finite")
+        check(values["dropped_clicks"] == 0, f"train step {i}: clicks dropped")
+        check(values["clicks"] <= capacity, f"train step {i}: clicks over capacity")
+    counts = launch_counts()
+    expected = {"cand_score_fwd": 0, "cand_score_fwd_stash": 1, "cand_score_bwd": 1,
+                "ugrnn_fwd": cfg.rnn_num_layers, "ugrnn_bwd": cfg.rnn_num_layers}
+    print(f"train path (capacity {capacity} rows of {b * cfg.max_inputs_length}): "
+          f"launches {counts}, per step {per_step}")
+    check(per_step == [expected] * TRAIN_STEPS,
+          f"kernel launches per train step {per_step}")
+
+    losses = []
+    for _ in range(LOSS_STEPS):
+        state, metrics = train_step(state, batches[0], server.ace_matrix,
+                                    server.metadata)
+        losses.append(float(metrics["loss"]))
+    print(f"loss over {LOSS_STEPS} steps on one batch: {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f} (min {min(losses):.6f})")
+    check(all(np.isfinite(losses)), "train: a loss is not finite")
+    check(losses[-1] < losses[0], "train: the loss does not fall on one batch")
+    return counts, state, batches, operands, capacity
+
+
+def train_cpu_vs_card(port, corpus_fn):
+    """One train step of a small float32 model with compaction on the CPU
+    and on the card, with the same uniforms (numpy, seeded): the loss, every
+    gradient and the stream."""
+    from chameleon_recsys_tpu_torch.data.collate import collate_sessions
+    from chameleon_recsys_tpu_torch.data.synthetic import synthetic_hour_sessions
+    from chameleon_recsys_tpu_torch.ops.sampling import SamplerUniforms
+    from chameleon_recsys_tpu_torch.state.stream_state import init_stream_state
+    from chameleon_recsys_tpu_torch.train.steps import init_train_state, train_step
+
+    cfg, sess, art = tiny_setup(port)
+    corpus = corpus_fn(art, ace_dim=8)
+    b, length = cfg.batch_size, cfg.max_session_length
+    warm = collate_sessions(synthetic_hour_sessions(corpus, sess, 0, b, length),
+                            sess, b, length)
+    batch = collate_sessions(synthetic_hour_sessions(corpus, sess, 1, b, length),
+                             sess, b, length)
+    capacity = -(-train_capacity([batch], cfg) // 8) * 8
+    cfg = dataclasses.replace(cfg, train_valid_row_capacity=min(capacity, 48),
+                              novelty_reg_factor=0.1)
+    rows = min(cfg.train_valid_row_capacity, b * cfg.max_inputs_length)
+    m = cfg.negative_sample_from_buffer
+    nc = min(cfg.negative_samples * cfg.neg_sampling_multiplying_factor, b * length + m)
+    rng = np.random.RandomState(6)
+    uniforms = [rng.uniform(size=shape).astype(np.float32) for shape in (
+        (cfg.recent_clicks_buffer_max_size,), (b * length + m,), (rows, nc)
+    )]
+    base = port.NARModel(cfg, sess, art, corpus.ace_matrix.shape[1])
+    base.reset_parameters(torch.Generator().manual_seed(4))
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = port.NARModel(cfg, sess, art, corpus.ace_matrix.shape[1]).to(device)
+        model.load_state_dict(base.state_dict())
+        stream = warm_stream(
+            init_stream_state(cfg, art.num_items, device=device), [warm], cfg, device
+        )
+        before = launch_counts()
+        state, metrics = train_step(
+            init_train_state(model, stream, torch.Generator(device=device)),
+            to_device(batch, device), torch.from_numpy(corpus.ace_matrix).to(device),
+            {k: torch.from_numpy(np.asarray(v)).to(device)
+             for k, v in corpus.metadata.items()},
+            uniforms=SamplerUniforms(*(torch.from_numpy(u).to(device) for u in uniforms)),
+        )
+        after = launch_counts()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            check(after["cand_score_bwd"] - before["cand_score_bwd"] == 1
+                  and after["ugrnn_bwd"] - before["ugrnn_bwd"] == cfg.rnn_num_layers,
+                  "small train step: the card step did not run the backward kernels")
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        out[device] = (state.stream, metrics, grads)
+    (cpu_stream, cpu_metrics, cpu_grads), (gpu_stream, gpu_metrics, gpu_grads) = (
+        out["cpu"], out["cuda"]
+    )
+    # per leaf ||card - cpu|| <= 1e-4 ||cpu|| + 1e-5: the floor is for leaves
+    # whose gradient is 0 in exact arithmetic (matching_out_bias: the softmax
+    # ignores a shift of every score), f32 noise on either side (9.5e-7
+    # apart on an H100)
+    excess = {
+        n: ((gpu_grads[n] - g).norm() - 1e-4 * g.norm()).item()
+        for n, g in cpu_grads.items()
+    }
+    worst = max(excess, key=excess.get)
+    print(f"small f32 train step, card vs CPU: loss {float(gpu_metrics['loss']):.7g} "
+          f"vs {float(cpu_metrics['loss']):.7g}; gradients: largest "
+          f"||card - cpu|| - 1e-4 ||cpu|| is {excess[worst]:.3e} ({worst}; "
+          f"tolerance 1e-5)")
+    for key in ("loss", "ce_loss", "reg_loss"):
+        a, c = float(gpu_metrics[key]), float(cpu_metrics[key])
+        check(abs(a - c) <= 1e-5 * abs(c), f"small train: {key} {a} vs {c}")
+    for key in ("sessions", "clicks", "dropped_clicks"):
+        check(float(gpu_metrics[key]) == float(cpu_metrics[key]),
+              f"small train: metric {key} differs")
+    check(excess[worst] <= 1e-5, "small train: card and CPU gradients disagree")
+    for name, value in cpu_stream._asdict().items():
+        check(torch.equal(getattr(gpu_stream, name).cpu(), value),
+              f"small train: stream field {name} differs")
+
+
 def eval_phase(server, cfg, session_schema, corpus):
     """The eval path at G1 width, counted: four eval steps in a row, the
     stream carried from each to the next.  Returns the launch counts of the
     run, the collated batches, the warm stream the run started from and the
     fused scorer's operands of the first step."""
-    from chameleon_recsys_tpu_torch.data.collate import batches_from_sessions
-    from chameleon_recsys_tpu_torch.data.synthetic import synthetic_hour_sessions
     from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer, ugrnn
     from chameleon_recsys_tpu_torch.state.stream_state import init_stream_state
     from chameleon_recsys_tpu_torch.train.steps import eval_scorer_operands, eval_step
 
-    b, length = cfg.batch_size, cfg.max_session_length
-
-    def hour(h, n):
-        return list(batches_from_sessions(
-            synthetic_hour_sessions(corpus, session_schema, h, n, length),
-            session_schema, b, length,
-        ))
-
+    b = cfg.batch_size
     warm = warm_stream(
         init_stream_state(cfg, corpus.num_items, device="cuda"),
-        hour(0, 2 * b) + hour(1, 2 * b), cfg, "cuda",
+        hour_batches(corpus, session_schema, cfg, 0, 2 * b)
+        + hour_batches(corpus, session_schema, cfg, 1, 2 * b), cfg, "cuda",
     )
-    batches = [to_device(batch, "cuda") for batch in hour(2, EVAL_BATCHES * b)]
+    batches = [to_device(batch, "cuda") for batch in
+               hour_batches(corpus, session_schema, cfg, 2, EVAL_BATCHES * b)]
     model = server.model
     seed = 11
 
-    cand_scorer.launches = 0
-    ugrnn.launches = 0
+    zero_launch_counts()
     generator = torch.Generator(device="cuda").manual_seed(seed)
     stream = warm
     per_step = []
@@ -492,8 +786,7 @@ def main() -> int:
     hook = server.model.rnn.register_forward_pre_hook(
         lambda module, args: captured.__setitem__(args[0].shape[0], args[1])
     )
-    ugrnn.launches = 0
-    cand_scorer.launches = 0
+    zero_launch_counts()
     server.observe(sessions[: cfg.batch_size])
     server.observe(sessions[cfg.batch_size:])
     pool = server.default_candidates(NUM_CANDIDATES)
@@ -528,12 +821,20 @@ def main() -> int:
     eval_counts, eval_batches, eval_stream, scorer_operands = eval_phase(
         server, cfg, session_schema, corpus
     )
+    # ---- 4. the train path, counted ----
+    train_counts, train_state, train_batches, train_operands, capacity = train_phase(
+        port, server, cfg, session_schema, article_schema, corpus
+    )
     main_launches = {
-        "ugrnn_fwd": serve_launches + eval_counts["ugrnn_fwd"],
+        "ugrnn_fwd": serve_launches + eval_counts["ugrnn_fwd"]
+        + train_counts["ugrnn_fwd"],
+        "ugrnn_bwd": train_counts["ugrnn_bwd"],
         "cand_score_fwd": eval_counts["cand_score_fwd"],
+        "cand_score_fwd_stash": train_counts["cand_score_fwd_stash"],
+        "cand_score_bwd": train_counts["cand_score_bwd"],
     }
 
-    # ---- 4. each kernel against its plain twin ----
+    # ---- 5. each kernel against its plain twin ----
     serve_mask = captured[max(SERVE_BATCHES)]
     g = torch.Generator().manual_seed(1)
     lengths = torch.randint(1, serve_mask.shape[1] + 1, (256,), generator=g)
@@ -582,7 +883,58 @@ def main() -> int:
             check(err <= tol, f"cand_score_fwd disagrees on {name}: {err}")
         del scorer_cases, operands, out, ref
 
-    # ---- 5. served scores and an eval step against the CPU, small f32 ----
+    # the UGRNN backward at the train batch, bf16 and f32 (tolerance tied to
+    # the largest |ref| of each output: 2e-2 bf16, 2e-4 f32)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, m = ugrnn_inputs(train_like_mask, dtype, seed=7)
+        _, hs = ugrnn.ugrnn_scan_kernel(x, w, m, return_state=True)
+        g_out = (torch.randn(x.shape[0], x.shape[1], w.shape[0],
+                             generator=torch.Generator().manual_seed(8))
+                 .to(dtype).cuda())
+        got = ugrnn.ugrnn_scan_bwd_kernel(x, w, m, hs, g_out)
+        ref = ugrnn.ugrnn_scan_bwd_reference(x, w, m, hs, g_out)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+        errs = []
+        for gname, a, e in zip(("dx_proj", "dW_hh"), got, ref):
+            err = (a.float() - e.float()).abs().max().item()
+            scale = e.float().abs().max().item()
+            errs.append(err)
+            print(f"ugrnn_bwd vs plain [256,19,510] {dtype} {gname}: max_abs_err "
+                  f"{err:.3e} (tolerance {tol * scale:.3e})")
+            check(err <= tol * scale, f"ugrnn_bwd disagrees: {gname} {err}")
+        errors[("ugrnn_bwd", dtype)] = max(errs)
+
+    # the stash forward and the backward on the train path's own operands
+    # (bf16, the compacted G1 shape) with a cotangent of the size the loss
+    # gives (N(0, 1) / (rows * temperature)), then on random operands whose
+    # scores are O(1): the G1 train shape in bf16, a float32 shape (the
+    # CUDA-core branch) and the odd shape in both dtypes
+    def cotangent(operands, seed):
+        bt, k = operands[1].shape[0], operands[0].shape[0] // operands[1].shape[0]
+        g = torch.randn(bt, k, generator=torch.Generator().manual_seed(seed))
+        return (g / (bt * cfg.softmax_temperature)).cuda()
+
+    train_cases = [("g1_train", train_operands, 2e-2)] + [
+        (f"{'x'.join(map(str, shape))}_{str(dtype)[6:]}",
+         scorer_inputs(*shape, dtype=dtype, seed=9),
+         2e-4 if dtype == torch.float32 else 2e-2)
+        for shape, dtype in (
+            ((capacity, 50, 1024, 128, 64, 32), torch.bfloat16),
+            ((256, 50, 1024, 128, 64, 32), torch.float32),
+            ((13, 7, 40, 24, 16, 8), torch.float32),
+            ((13, 7, 40, 24, 16, 8), torch.bfloat16),
+        )
+    ]
+    with torch.no_grad():
+        for i, (name, operands, tol) in enumerate(train_cases):
+            nc_err, bwd_err = check_scorer_train_kernels(
+                name, operands, cotangent(operands, 10 + i), tol)
+            errors[("stash", name)] = nc_err
+            errors[("bwd", name)] = bwd_err
+    del train_cases
+
+    # ---- 6. served scores, an eval and a train step against the CPU ----
     tcfg, tsess, tart = tiny_setup(port)
     tcorpus = make_synthetic_corpus(tart, ace_dim=8)
     tsessions = synthetic_hour_sessions(tcorpus, tsess, 0, 24, tcfg.max_session_length)
@@ -608,8 +960,9 @@ def main() -> int:
     check((gpu_ids[separated] == cpu_ids[separated]).all(),
           "small serve: card and CPU rankings disagree")
     eval_cpu_vs_card(port, make_synthetic_corpus)
+    train_cpu_vs_card(port, make_synthetic_corpus)
 
-    # ---- 6. times ----
+    # ---- 7. times ----
     x, w, m = ugrnn_inputs(serve_mask.cpu(), torch.bfloat16, seed=2)
     ugrnn_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_kernel(x, w, m), iters=200)
     ugrnn_plain_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_reference(x, w, m), iters=20)
@@ -681,6 +1034,62 @@ def main() -> int:
           f"sessions/s")
     device_profile("eval_step", one_eval_step, 5, step_ms)
 
+    # the train path's kernels at the compacted G1 train shape
+    with torch.no_grad():
+        ops = train_operands
+        stash_ms = cuda_ms(lambda: cand_scorer.cand_score_kernel(*ops, return_nc=True),
+                           iters=10, warmup=2)
+        stash_plain_ms = cuda_ms(
+            lambda: cand_scorer.cand_score_reference(*ops, return_nc=True),
+            iters=2, warmup=1)
+        _, nc = cand_scorer.cand_score_kernel(*ops, return_nc=True)
+        g = cotangent(ops, 30)
+        bwd_ms = cuda_ms(lambda: cand_scorer.cand_score_bwd_kernel(*ops, nc, g),
+                         iters=5, warmup=2)
+        bwd_plain_ms = cuda_ms(lambda: cand_scorer.cand_score_bwd_reference(*ops, nc, g),
+                               iters=1, warmup=1)
+        del nc
+    stash_bound, stash_bound_by = cand_score_stash_bound_ms(train_operands)
+    bwd_bound, bwd_bound_by = cand_score_bwd_bound_ms(train_operands)
+    n_rows, c = train_operands[0].shape
+    m1, m2, m3 = (train_operands[i].shape[1] for i in (5, 7, 9))
+    bwd_ops = 2 * n_rows * (2 * c * c + 3 * c * m1 + 3 * m1 * m2 + 3 * m2 * m3)
+    print(f"cand_score_fwd (stash) {list(train_operands[0].shape)} bf16 (G1 train): "
+          f"kernel {stash_ms:.4f} ms, plain {stash_plain_ms:.4f} ms, bound "
+          f"{stash_bound:.5f} ms ({stash_bound_by})")
+    print(f"cand_score_bwd {list(train_operands[0].shape)} bf16 (G1 train): kernel "
+          f"{bwd_ms:.4f} ms ({bwd_ops / bwd_ms / 1e9:.1f} TFLOP/s), plain "
+          f"{bwd_plain_ms:.4f} ms, bound {bwd_bound:.5f} ms ({bwd_bound_by})")
+    xb, wb, mb = ugrnn_inputs(train_like_mask, torch.bfloat16, seed=7)
+    _, hsb = ugrnn.ugrnn_scan_kernel(xb, wb, mb, return_state=True)
+    gb = torch.randn(xb.shape[0], xb.shape[1], wb.shape[0],
+                     generator=torch.Generator().manual_seed(8)).to(torch.bfloat16).cuda()
+    ugrnn_bwd_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_bwd_kernel(xb, wb, mb, hsb, gb),
+                           iters=50)
+    ugrnn_bwd_plain_ms = cuda_ms(
+        lambda: ugrnn.ugrnn_scan_bwd_reference(xb, wb, mb, hsb, gb), iters=5, warmup=1)
+    ugrnn_bwd_bound, ugrnn_bwd_bound_by = ugrnn_bwd_bound_ms(xb, wb, mb)
+    print(f"ugrnn_bwd [256,19,510] bf16: kernel {ugrnn_bwd_ms:.4f} ms, plain "
+          f"{ugrnn_bwd_plain_ms:.4f} ms, bound {ugrnn_bwd_bound:.5f} ms "
+          f"({ugrnn_bwd_bound_by})")
+
+    train_holder = [train_state]
+    train_batch = train_batches[0]
+
+    def one_train_step():
+        from chameleon_recsys_tpu_torch.train.steps import train_step
+
+        train_holder[0], _ = train_step(train_holder[0], train_batch,
+                                        server.ace_matrix, server.metadata)
+
+    train_ms = cuda_ms(one_train_step, iters=10, warmup=2)
+    train_sessions = int((train_batch["session_size"] > 0).sum())
+    print(f"train_step b{cfg.batch_size} capacity {capacity} (CUDA events over 10 "
+          f"steps): {train_ms:.3f} ms per batch, "
+          f"{train_sessions / train_ms * 1e3:.1f} sessions/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    device_profile("train_step", one_train_step, 3, train_ms)
+
     print(json.dumps({"kernels": [
         {
             "name": "ugrnn_fwd",
@@ -696,6 +1105,19 @@ def main() -> int:
             "library_ms": None,
         },
         {
+            "name": "ugrnn_bwd",
+            "route": "cuda",
+            "source": "chameleon_recsys_tpu_torch/csrc/ugrnn_bwd.cu",
+            "replaces": "chameleon_recsys_tpu/ops/pallas/ugrnn_pallas.py:80",
+            "launches": main_launches["ugrnn_bwd"],
+            "max_abs_err": errors[("ugrnn_bwd", torch.bfloat16)],
+            "ms": ugrnn_bwd_ms,
+            "plain_ms": ugrnn_bwd_plain_ms,
+            "bound_ms": ugrnn_bwd_bound,
+            "bound_by": ugrnn_bwd_bound_by,
+            "library_ms": None,
+        },
+        {
             "name": "cand_score_fwd",
             "route": "cuda",
             "source": "chameleon_recsys_tpu_torch/csrc/cand_score_fwd.cu",
@@ -706,6 +1128,32 @@ def main() -> int:
             "plain_ms": scorer_plain_ms,
             "bound_ms": scorer_bound,
             "bound_by": scorer_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "cand_score_fwd_stash",
+            "route": "cuda",
+            "source": "chameleon_recsys_tpu_torch/csrc/cand_score_fwd.cu",
+            "replaces": "chameleon_recsys_tpu/ops/pallas/cand_scorer.py:291",
+            "launches": main_launches["cand_score_fwd_stash"],
+            "max_abs_err": errors[("stash", "g1_train")],
+            "ms": stash_ms,
+            "plain_ms": stash_plain_ms,
+            "bound_ms": stash_bound,
+            "bound_by": stash_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "cand_score_bwd",
+            "route": "cuda",
+            "source": "chameleon_recsys_tpu_torch/csrc/cand_score_bwd.cu",
+            "replaces": "chameleon_recsys_tpu/ops/pallas/cand_scorer.py:283",
+            "launches": main_launches["cand_score_bwd"],
+            "max_abs_err": errors[("bwd", "g1_train")],
+            "ms": bwd_ms,
+            "plain_ms": bwd_plain_ms,
+            "bound_ms": bwd_bound,
+            "bound_by": bwd_bound_by,
             "library_ms": None,
         },
     ]}))

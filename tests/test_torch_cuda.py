@@ -13,6 +13,18 @@ bfloat16 candidate scores at 2e-2, the bf16 tolerance of the JAX package's
 own scorer test.  The eval step on the card is held against the same step on
 the CPU (f32, the same injected uniforms): probabilities at rtol 1e-4 /
 atol 1e-6, ranked ids where the scores are separated, everything else exactly.
+
+The backward kernels are held against their twins output by output, at a
+tolerance tied to the largest magnitude of that output: float32 at 2e-4
+(sums over thousands of rows in another order), bfloat16 at 2e-2 (a value
+next to a rounding boundary of the cotangent chain may round the other way
+and carry into the sums).  The scorer's backward is held normwise
+(||out - ref|| <= tol ||ref||) with at most 1e-4 of the elements outside
+tol * max|ref|: leaky_relu's derivative jumps at 0, and among millions of
+pre-activations a few lie within f32 summation noise of 0, so the kernel and
+the twin take different slopes there and that row's cotangents differ
+outright.  The stashed ``nc`` and the f32 UGRNN states are
+the forward's own values: float32 within 1e-5, bfloat16 within one rounding.
 """
 import numpy as np
 import pytest
@@ -77,6 +89,62 @@ def test_ugrnn_kernel_rejects_what_it_cannot_take(card):
         ugrnn.ugrnn_scan_kernel(x, w.to(torch.bfloat16), mask)
 
 
+def _close_to_scale(out, ref, tol, name):
+    """max |out - ref| within ``tol`` times the largest |ref|."""
+    scale = max(ref.float().abs().max().item(), 1e-30)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * scale, f"{name}: max error {err:.3e}, largest |ref| {scale:.3e}"
+
+
+def _close_normwise(out, ref, tol, name, outliers=1e-4):
+    """||out - ref|| within ``tol`` ||ref||, and at most a share
+    ``outliers`` of the elements off by more than ``tol`` max|ref|."""
+    diff = (out.float() - ref.float()).abs()
+    scale = max(ref.float().abs().max().item(), 1e-30)
+    norm_err = (diff.norm() / ref.float().norm().clamp_min(1e-30)).item()
+    off = int((diff > tol * scale).sum())
+    assert norm_err <= tol and off <= outliers * diff.numel(), (
+        f"{name}: normwise error {norm_err:.3e}, {off} of {diff.numel()} "
+        f"elements beyond {tol} x {scale:.3e} (max error {diff.max().item():.3e})"
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,t,units", [(256, 19, 255), (5, 7, 9), (3, 4, 1024)]
+)
+def test_ugrnn_bwd_kernel_matches_reference(card, dtype, b, t, units):
+    x, w, mask = (v.to(card) for v in _inputs(b, t, units, dtype, seed=1))
+    out, hs = ugrnn.ugrnn_scan_kernel(x, w, mask, return_state=True)
+    ref_out, ref_hs = ugrnn.ugrnn_scan_reference(x, w, mask, return_state=True)
+    torch.testing.assert_close(hs, ref_hs, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, ref_hs.to(dtype), rtol=0,
+                               atol=1e-5 if dtype == torch.float32 else 8e-3)
+    g = (torch.randn(b, t, units, generator=torch.Generator().manual_seed(2))
+         .to(dtype).to(card))
+    before = ugrnn.bwd_launches
+    dx, dw = ugrnn.ugrnn_scan_bwd_kernel(x, w, mask, hs, g)
+    torch.cuda.synchronize()
+    assert ugrnn.bwd_launches == before + 1
+    assert dx.dtype == dtype and dw.dtype == dtype
+    ref_dx, ref_dw = ugrnn.ugrnn_scan_bwd_reference(x, w, mask, hs, g)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    _close_to_scale(dx, ref_dx, tol, "dx_proj")
+    _close_to_scale(dw, ref_dw, tol, "dW_hh")
+
+
+def test_ugrnn_scan_function_on_card_matches_cpu(card):
+    x, w, mask = _inputs(4, 6, 12, torch.float32, seed=3)
+    g = torch.randn(4, 6, 12, generator=torch.Generator().manual_seed(4))
+    grads = {}
+    for device in ("cpu", card):
+        xs, ws = (v.detach().clone().to(device).requires_grad_() for v in (x, w))
+        (ugrnn.UGRNNScan.apply(xs, ws, mask.to(device), 1.0) * g.to(device)).sum().backward()
+        grads[str(device)] = (xs.grad.cpu(), ws.grad.cpu())
+    for got, want in zip(grads[str(card)], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
 def _scorer_inputs(bt, k, c, m1, m2, m3, dtype, seed=0):
     g = torch.Generator().manual_seed(seed)
     mk = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dtype)
@@ -108,6 +176,56 @@ def test_cand_score_kernel_matches_reference(card, dtype, shape):
     ref = cand_scorer.cand_score_reference(*operands)
     atol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out, ref, rtol=0, atol=atol)
+
+
+SCORER_GRADS = ("di", "du", "dp", "dcar_w", "dcar_b", "dw1", "db1", "dw2",
+                "db2", "dw3", "db3", "dw4")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2688, 50, 1024, 128, 64, 32),  # the compacted G1 train shape
+    (13, 7, 40, 24, 16, 8),
+    (5, 3, 37, 9, 5, 3),
+])
+def test_cand_score_stash_and_bwd_match_reference(card, dtype, shape):
+    if dtype == torch.float32 and shape[0] > 1000:
+        shape = (256,) + shape[1:]  # the CUDA-core branch at a smaller BT
+    bt, k = shape[:2]
+    operands = [t.to(card) for t in _scorer_inputs(*shape, dtype=dtype, seed=5)]
+    before = (cand_scorer.launches, cand_scorer.stash_launches)
+    scores, nc = cand_scorer.cand_score_kernel(*operands, return_nc=True)
+    torch.cuda.synchronize()
+    assert (cand_scorer.launches, cand_scorer.stash_launches) == (
+        before[0], before[1] + 1)
+    ref_scores, ref_nc = cand_scorer.cand_score_reference(*operands, return_nc=True)
+    assert nc.dtype == dtype and nc.shape == (bt * k, shape[2])
+    torch.testing.assert_close(nc.float(), ref_nc.float(), rtol=0,
+                               atol=1e-5 if dtype == torch.float32 else 8e-3)
+    torch.testing.assert_close(scores, ref_scores, rtol=0,
+                               atol=1e-5 if dtype == torch.float32 else 2e-2)
+    g = torch.randn(bt, k, generator=torch.Generator().manual_seed(6)).to(card)
+    before = cand_scorer.bwd_launches
+    grads = cand_scorer.cand_score_bwd_kernel(*operands, ref_nc, g)
+    torch.cuda.synchronize()
+    assert cand_scorer.bwd_launches == before + 1
+    ref = cand_scorer.cand_score_bwd_reference(*operands, ref_nc, g)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for name, got, want, operand in zip(SCORER_GRADS, grads, ref, operands):
+        assert got.dtype == operand.dtype and got.shape == operand.shape, name
+        _close_normwise(got, want, tol, name)
+
+
+def test_cand_score_function_on_card_matches_cpu(card):
+    operands = _scorer_inputs(13, 7, 40, 24, 16, 8, torch.float32, seed=7)
+    g = torch.randn(13, 7, generator=torch.Generator().manual_seed(8))
+    grads = {}
+    for device in ("cpu", card):
+        leaves = [t.detach().clone().to(device).requires_grad_() for t in operands]
+        (cand_scorer.cand_score(*leaves) * g.to(device)).sum().backward()
+        grads[str(device)] = [t.grad.cpu() for t in leaves]
+    for name, got, want in zip(SCORER_GRADS, grads[str(card)], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-6, msg=name)
 
 
 def test_cand_score_kernel_rejects_what_it_cannot_take(card):

@@ -419,9 +419,15 @@ def test_pooled_forward_matches_jax(world, fused):
 
 def test_forward_raises_on_paths_not_ported(world):
     model = port_model(world, config())
+    # training with dropout takes the dense per-candidate path, not ported
+    dropout = port_model(world, config(keep_prob=0.8))
+    with pytest.raises(NotImplementedError, match="dropout"):
+        dropout({}, None, torch.zeros(1, 1, 1), train=True)
+    # compacted rows serve the train path only, as in the JAX package
+    with pytest.raises(ValueError, match="scoring_rows"):
+        model({}, None, torch.zeros(1, 1, 1), rank=True, scoring_rows=(None, None))
     with pytest.raises(NotImplementedError):
-        model({}, None, torch.zeros(1, 1, 1), train=True)
-    with pytest.raises(NotImplementedError):
-        model({}, None, torch.zeros(1, 1, 1), scoring_rows=(None, None))
+        model({}, None, torch.zeros(1, 1, 1), candidate_positions=torch.zeros(1),
+              scoring_rows=(None, None))
     with pytest.raises(NotImplementedError, match="neg_pool"):
         model({}, None, torch.zeros(1, 1, 1))

@@ -6,8 +6,14 @@ wrapper runs for CPU tensors) is held against the Pallas kernel
 so float32 agrees at rtol 1e-5 / atol 1e-6 (sums in another order) and
 bfloat16 at atol 2e-2 (one rounding of the output, on either side of a
 bf16 step).  The plain ``ugrnn_scan`` is held against ``ops/rnn.py::ugrnn_scan``.
-The CUDA kernel itself is tested on the card by ``test_torch_cuda.py``.
+The backward twin ``ugrnn_scan_bwd_reference`` is held against ``jax.vjp``
+of ``ugrnn_scan_pallas`` at the gradient tolerances of
+``tests/test_pallas_ugrnn.py`` (rtol 1e-4 / atol 1e-5, f32), with units 9
+and 255 and padded steps, and in bf16 at 2e-2; ``UGRNNScan`` against
+autograd through the forward twin.  The CUDA kernels themselves are tested
+on the card by ``test_torch_cuda.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +24,9 @@ from chameleon_recsys_tpu.ops.rnn import ugrnn_scan as jax_ugrnn_scan
 
 from chameleon_recsys_tpu_torch.ops.kernels import ugrnn
 from chameleon_recsys_tpu_torch.ops.kernels.ugrnn import (
+    UGRNNScan,
+    ugrnn_scan_bwd_kernel,
+    ugrnn_scan_bwd_reference,
     ugrnn_scan_kernel,
     ugrnn_scan_reference,
 )
@@ -125,3 +134,62 @@ def test_stacked_zeroes_padded_steps_and_routes_to_kernel():
     assert (out_plain[~mask] == 0).all()
     # in f32 the plain scan and the kernel's twin are the same arithmetic
     torch.testing.assert_close(out_routed, out_plain, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,t,units,partial",
+    [(4, 6, 12, True), (3, 4, 9, False), (5, 7, 9, True), (3, 5, 255, True)],
+)
+def test_bwd_twin_matches_pallas_vjp(dtype, b, t, units, partial):
+    jax_args, (x, w, m) = _to_both(*_inputs(b + t + units, b, t, units, partial), dtype)
+    g = np.random.RandomState(units).randn(b, t, units).astype(np.float32) * 0.3
+    jdt = _DTYPES[dtype][1]
+    _, vjp = jax.vjp(lambda xx, ww: ugrnn_scan_pallas(xx, ww, jax_args[2], 1.0, True),
+                     jax_args[0], jax_args[1])
+    jg = jnp.asarray(g, jdt)
+    expected = vjp(jg)
+    _, hs = ugrnn_scan_reference(x, w, m, 1.0, return_state=True)
+    got = ugrnn_scan_bwd_reference(
+        x, w, m, hs, torch.from_numpy(np.array(jg.astype(jnp.float32))).to(x.dtype)
+    )
+    before = ugrnn.bwd_launches
+    wrapped = ugrnn_scan_bwd_kernel(
+        x, w, m, hs, torch.from_numpy(np.array(jg.astype(jnp.float32))).to(x.dtype)
+    )
+    assert ugrnn.bwd_launches == before  # the CPU path runs the twin
+    for name, a, a2, e in zip(("dx_proj", "dW_hh"), got, wrapped, expected):
+        assert a.dtype == x.dtype, name
+        torch.testing.assert_close(a2, a, rtol=0, atol=0)
+        e = np.asarray(e.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(a.numpy(), e, rtol=1e-4, atol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_allclose(a.float().numpy(), e, rtol=2e-2, atol=2e-2,
+                                       err_msg=name)
+
+
+def test_ugrnn_scan_function_matches_autograd_of_the_twin():
+    x, w, mask = (torch.from_numpy(v) for v in _inputs(12, 5, 7, 9))
+    g = torch.from_numpy(np.random.RandomState(13).randn(5, 7, 9).astype(np.float32))
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (UGRNNScan.apply(xa, wa, mask, 1.0) * g).sum().backward()
+    (ugrnn_scan_reference(xb, wb, mask, 1.0) * g).sum().backward()
+    torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(wa.grad, wb.grad, rtol=1e-5, atol=1e-6)
+
+
+def test_layer_records_through_the_function_only_with_grad():
+    torch.manual_seed(1)
+    layer = StackedUGRNN(8, 6, num_layers=2, use_kernel=True)
+    for p in layer.parameters():
+        torch.nn.init.uniform_(p, -0.3, 0.3)
+    x = torch.randn(3, 5, 8)
+    mask = torch.ones(3, 5, dtype=torch.bool)
+    out = layer(x, mask)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert all(p.grad is not None for p in layer.parameters())
+    with torch.no_grad():
+        assert layer(x, mask).grad_fn is None
