@@ -1,8 +1,8 @@
-"""Feature schemas and the NAR configuration.
+"""Feature schemas, the NAR configuration and the run configuration.
 
-A copy of the NAR part of ``chameleon_recsys_tpu/config.py`` with the same
-class and field names, so a configuration written for the JAX package
-carries over field by field.  ``use_pallas_rnn`` and ``use_pallas_scorer``
+A copy of the NAR part of ``chameleon_recsys_tpu/config.py`` and of its
+``RunConfig``, with the same class and field names, so a configuration
+written for the JAX package carries over field by field.  ``use_pallas_rnn`` and ``use_pallas_scorer``
 keep their names: in this package they route the session RNN and the pooled
 path's negatives through the hand-written CUDA kernels
 (``ops/kernels/ugrnn.py``, ``ops/kernels/cand_scorer.py``).
@@ -157,3 +157,17 @@ class NARConfig:
     def max_inputs_length(self) -> int:
         """T = session length minus the final click (label-only)."""
         return self.max_session_length - 1
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Temporal train/eval protocol (reference nar_trainer_gcom.py:505-525)."""
+
+    model_dir: str = "/tmp/chameleon_tpu"
+    training_hours_for_each_eval: int = 5
+    train_files_from: int = 0
+    train_files_up_to: int = 0  # 0 = all
+    save_results_each_n_evals: int = 1
+    checkpoint_every_n_hours: int = 10
+    random_seed: int = 42
+    enable_profiler: bool = False

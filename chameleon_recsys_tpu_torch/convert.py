@@ -13,11 +13,17 @@ the model it is meant for, so that no weight is silently ignored.
 parameter names to tensors (parameters, their gradients, updated values)
 becomes a Flax-shaped nested dict of numpy arrays, transposed back, so that
 a test can hold it leaf by leaf against the JAX package's trees.
+
+``checkpoint_from_jax`` turns a JAX harness checkpoint, given as numpy trees
+(unpickling the JAX file needs the JAX package, which this one never
+imports), into a checkpoint of this package's format: the params through
+``params_from_flax``, optax's Adam state into torch Adam's, the stream
+through ``stream_from_numpy``, the host fields as they are.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -146,3 +152,63 @@ def stream_from_numpy(fields: Mapping, device="cuda") -> StreamState:
         name: torch.tensor(np.asarray(fields[name]), dtype=dtype, device=device)
         for name, dtype in _STREAM_DTYPES.items()
     })
+
+
+_HOST_FIELDS = ("hours_trained", "evals_done", "metrics_log", "host_cooccurrence",
+                "host_first_click_step", "host_current_step",
+                "host_benchmarks_states")
+
+
+def adam_state_from_optax(count, mu: Mapping, nu: Mapping, model: nn.Module) -> Dict:
+    """optax's ``ScaleByAdamState`` (``count`` and the Flax-shaped moment
+    trees ``mu``, ``nu``) -> the ``state`` of torch Adam over
+    ``model.parameters()``: per parameter index ``step`` = count (optax
+    counts the updates taken, as torch's ``step``), ``exp_avg`` = mu and
+    ``exp_avg_sq`` = nu, laid out as ``params_from_flax`` lays the params."""
+    exp_avg = params_from_flax(mu, model)
+    exp_avg_sq = params_from_flax(nu, model)
+    return {
+        index: {"step": np.array(count, np.float32).reshape(()),
+                "exp_avg": exp_avg[name].numpy(),
+                "exp_avg_sq": exp_avg_sq[name].numpy()}
+        for index, (name, _) in enumerate(model.named_parameters())
+    }
+
+
+def checkpoint_from_jax(jax_checkpoint: Mapping[str, Any],
+                        model: nn.Module) -> Dict[str, Any]:
+    """A JAX harness checkpoint (``chameleon_recsys_tpu/train/temporal.py``,
+    ``save_checkpoint``) as numpy trees -> a checkpoint of this package's
+    format (``train/checkpoint.py``).  ``jax_checkpoint`` holds
+
+      * ``params``: the Flax param tree;
+      * ``adam``: ``{"count", "mu", "nu"}``, optax's ``ScaleByAdamState``;
+      * ``stream``: the ``StreamState`` fields; ``step``: the state's step;
+      * the JAX payload's host fields (``hours_trained``, ``evals_done``,
+        ``metrics_log``, ``host_*``), passed through as they are.
+
+    ``model`` is a ``NARModel`` of the checkpoint's configuration (Adam's
+    hyperparameters come from its ``cfg``, as ``init_train_state`` sets
+    them).  JAX's random key has no torch counterpart: the checkpoint
+    carries no generator state, and the loading harness keeps its own
+    generator, seeded from ``run_cfg.random_seed``."""
+    from .train.checkpoint import FORMAT
+    from .train.steps import init_train_state
+
+    adam = jax_checkpoint["adam"]
+    optimizer = init_train_state(model, None, None).optimizer
+    payload = {
+        "format": FORMAT,
+        "model": {k: v.numpy() for k, v in
+                  params_from_flax(jax_checkpoint["params"], model).items()},
+        "optimizer": {
+            "state": adam_state_from_optax(adam["count"], adam["mu"], adam["nu"],
+                                           model),
+            "param_groups": optimizer.state_dict()["param_groups"],
+        },
+        "stream": {k: np.asarray(v) for k, v in jax_checkpoint["stream"].items()},
+        "generator": None,
+        "step": int(jax_checkpoint["step"]),
+    }
+    payload.update({k: jax_checkpoint[k] for k in _HOST_FIELDS})
+    return payload

@@ -42,6 +42,22 @@
 // car_W (2 MB in bf16) and W1 are re-read from L2 by every row block, as in
 // the forward kernel.  The float32 path has the same structure on the CUDA
 // cores in full f32 (no TF32), with kRows = 16.
+//
+// The recompute variant (a null `nc`) replaces the TPU kernel
+// chameleon_recsys_tpu/ops/pallas/cand_scorer.py::_bwd_kernel (_bwd_body
+// with nc_ref=None, run when _STASH_NC is off).  It reads no [N, C] stash and
+// adds 2 N C^2 operations (the CAR product once more).  The design keeps the
+// row kernel's shared memory as it is: the row block first stages pre over
+// its prod buffer and forms nc = [d] tanh(pre car_W + car_b) in 128-column
+// chunks on the tensor cores, exactly as the forward forms it (the same WMMA
+// tiles in the same k order, + car_b, tanhf, one rounding), and writes it
+// into its own rows of di, which is nc's home until di is written.  The
+// rest of the row kernel then reads nc from there as K1b reads the stash.
+// dW1 needs prod = nc * pred over all rows after the row kernel, so the row
+// kernel stops before dpre; dW1's transposed product runs; a second launch
+// of the row kernel reloads dncp_c and forms dpre and di over nc.  No buffer
+// beyond K1b's scratch is allocated, and given the forward's nc the
+// gradients are K1b's bit for bit (every sum in the same order).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -172,9 +188,9 @@ template <typename Scalar>
 struct RowLayout {
   static constexpr int R = Traits<Scalar>::kRows;
   static constexpr int P = Traits<Scalar>::kPad;
-  int c_pad, m1_pad, ld_buf, ld_w1, ld_car, ld_stage, ld_a1, ld_da1;
-  // c_pad is a multiple of kChunk; the dpre loop runs over c_pad rounded up
-  // to kCarChunk, its last chunk's tail columns masked
+  int c_pad, m1_pad, ld_buf, ld_w1, ld_car, ld_nc, ld_stage, ld_a1, ld_da1;
+  // c_pad is a multiple of kChunk; the dpre and nc loops run over c_pad
+  // rounded up to kCarChunk, their last chunk's tail columns masked
   size_t off_w, off_stage, off_a1, off_x1, off_small, off_da1, bytes;
 
   __host__ __device__ RowLayout(int c, int m1, int m2, int m3) {
@@ -183,13 +199,17 @@ struct RowLayout {
     ld_buf = c_pad + P;
     ld_w1 = m1_pad + P;
     ld_car = kDepth + P;
+    ld_nc = kCarChunk + P;
     ld_stage = kCarChunk + 4;
     ld_a1 = m1_pad + 4;
     ld_da1 = m1_pad + P;
     const size_t w1_tile = (size_t)kDepth * ld_w1 * sizeof(Scalar);
     const size_t car_tile = (size_t)kCarChunk * ld_car * sizeof(Scalar);
+    const size_t nc_tile = (size_t)kDepth * ld_nc * sizeof(Scalar);
+    size_t w_tile = w1_tile > car_tile ? w1_tile : car_tile;
+    w_tile = w_tile > nc_tile ? w_tile : nc_tile;
     off_w = align128((size_t)R * ld_buf * sizeof(Scalar));
-    off_stage = off_w + align128(w1_tile > car_tile ? w1_tile : car_tile);
+    off_stage = off_w + align128(w_tile);
     off_a1 = off_stage + align128((size_t)R * ld_stage * sizeof(float));
     off_x1 = off_a1 + align128((size_t)R * ld_a1 * sizeof(float));
     off_small = off_x1 + align128((size_t)R * ld_a1 * sizeof(float));
@@ -199,6 +219,11 @@ struct RowLayout {
   }
 };
 
+// What one launch of the row kernel does: all of it from the stash (K1b);
+// the front of the recompute variant (nc into di, then everything up to
+// dncp_c); or its back (dpre and di from the dncp_c the front wrote).
+enum RowMode { kRowAll = 0, kRowFront = 1, kRowDpre = 2 };
+
 struct RowParams {
   const void *i_rows, *u, *pred, *car_w, *car_b, *w1, *b1, *w2, *b2, *w3,
       *b3, *w4, *nc;
@@ -207,7 +232,236 @@ struct RowParams {
   long long n_rows;
   int k, c, m1, m2, m3;
   float alpha;
+  int mode;  // a RowMode; with kRowFront, nc points at di
 };
+
+// The recompute variant's nc for the block's rows, written to their rows of
+// p.di: pre = [d] leaky(i + u) staged in the prod buffer, then
+// nc = [d] tanh(pre @ car_W + car_b) in kCarChunk-column chunks, formed as
+// cand_score_fwd.cu forms it (16 x 16 WMMA tiles, or f32 fmaf chains, over
+// k in increasing order from 0; + car_b; tanhf; one rounding).
+template <typename Scalar>
+__device__ __forceinline__ void recompute_nc(const RowParams& p,
+                                             const RowLayout<Scalar>& L,
+                                             unsigned char* smem) {
+  constexpr bool kTensor = std::is_same<Scalar, __nv_bfloat16>::value;
+  constexpr int R = Traits<Scalar>::kRows;
+  constexpr int kVec = 16 / sizeof(Scalar);
+  using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+  const int C = p.c, K = p.k;
+  const float alpha = p.alpha;
+  const long long row0 = (long long)blockIdx.x * R;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const bool c_vec = C % kVec == 0;
+  const Scalar* i_rows = static_cast<const Scalar*>(p.i_rows);
+  const Scalar* u = static_cast<const Scalar*>(p.u);
+  const Scalar* car_w = static_cast<const Scalar*>(p.car_w);
+  const Scalar* car_b = static_cast<const Scalar*>(p.car_b);
+  Scalar* nc = static_cast<Scalar*>(p.di);
+  Scalar* buf = reinterpret_cast<Scalar*>(smem);
+  Scalar* wt = reinterpret_cast<Scalar*>(smem + L.off_w);
+  float* stage = reinterpret_cast<float*>(smem + L.off_stage);
+
+  {
+    const int vecs_per_row = L.c_pad / kVec;
+    for (int v = tid; v < R * vecs_per_row; v += kThreads) {
+      const int r = v / vecs_per_row;
+      const int col = (v % vecs_per_row) * kVec;
+      const long long row = row0 + r;
+      uint4 packed = make_uint4(0, 0, 0, 0);
+      if (row < p.n_rows && col < C) {
+        float iv[kVec], uv[kVec];
+        load_f32(i_rows + row * C + col, C - col, c_vec, iv);
+        load_f32(u + (row / K) * C + col, C - col, c_vec, uv);
+        Scalar* out = reinterpret_cast<Scalar*>(&packed);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          out[e] = from_f32<Scalar>(leaky(iv[e] + uv[e], alpha));
+      }
+      *reinterpret_cast<uint4*>(buf + r * L.ld_buf + col) = packed;
+    }
+  }
+  for (int j0 = 0; j0 < L.c_pad; j0 += kCarChunk) {
+    // tensor path: warp w owns tiles (w % 2, 2 * (w / 2) + {0, 1}) of the
+    // [32 x 128] chunk
+    Frag acc[2];
+    wmma::fill_fragment(acc[0], 0.f);
+    wmma::fill_fragment(acc[1], 0.f);
+    constexpr int kPer = R * kCarChunk / kThreads;
+    float acc_c[kTensor ? 1 : kPer];
+    if constexpr (!kTensor) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) acc_c[i] = 0.f;
+    }
+    for (int k0 = 0; k0 < L.c_pad; k0 += kDepth) {
+      __syncthreads();  // pre complete / the previous tile and stage consumed
+      // car_W rows k0..k0+63, columns j0..j0+127: a row-major [64 x 128]
+      // operand with leading dimension ld_nc
+      stage_tile<Scalar, kDepth, kCarChunk>(wt, L.ld_nc, car_w, C, C, k0, j0,
+                                            kCarChunk, c_vec);
+      __syncthreads();
+      if constexpr (kTensor) {
+        const int rt = warp % 2, ct = 2 * (warp / 2);
+#pragma unroll
+        for (int kk = 0; kk < kDepth; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major>
+              a;
+          wmma::load_matrix_sync(a, buf + 16 * rt * L.ld_buf + k0 + kk,
+                                 L.ld_buf);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                           wmma::row_major>
+                b;
+            wmma::load_matrix_sync(b, wt + kk * L.ld_nc + 16 * (ct + j),
+                                   L.ld_nc);
+            wmma::mma_sync(acc[j], a, b, acc[j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int v = tid + i * kThreads;
+          const Scalar* a_row = buf + (v / kCarChunk) * L.ld_buf + k0;
+          const Scalar* b_col = wt + v % kCarChunk;
+          float s = acc_c[i];
+#pragma unroll 8
+          for (int kk = 0; kk < kDepth; ++kk)
+            s = fmaf(to_f32(a_row[kk]), to_f32(b_col[kk * L.ld_nc]), s);
+          acc_c[i] = s;
+        }
+      }
+    }
+    if constexpr (kTensor) {
+      const int rt = warp % 2, ct = 2 * (warp / 2);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(stage + 16 * rt * L.ld_stage + 16 * (ct + j),
+                                acc[j], L.ld_stage, wmma::mem_row_major);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int v = tid + i * kThreads;
+        stage[(v / kCarChunk) * L.ld_stage + v % kCarChunk] = acc_c[i];
+      }
+    }
+    __syncthreads();
+    for (int v = tid; v < R * kCarChunk; v += kThreads) {
+      const int r = v / kCarChunk, j = v % kCarChunk;
+      const long long row = row0 + r;
+      const int col = j0 + j;
+      if (row < p.n_rows && col < C)
+        nc[row * C + col] = from_f32<Scalar>(
+            tanhf(stage[r * L.ld_stage + j] + to_f32(car_b[col])));
+    }
+  }
+  __syncthreads();  // the block's nc rows are written; pre is no longer read
+}
+
+// dpre = dncp_c @ car_W^T in column chunks, with dncp_c in the block's
+// shared buffer, and di = [d] dpre leaky'(i + u) for the block's rows.
+template <typename Scalar>
+__device__ __forceinline__ void dpre_and_di(const RowParams& p,
+                                            const RowLayout<Scalar>& L,
+                                            unsigned char* smem) {
+  constexpr bool kTensor = std::is_same<Scalar, __nv_bfloat16>::value;
+  constexpr int R = Traits<Scalar>::kRows;
+  constexpr int kVec = 16 / sizeof(Scalar);
+  using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+  const int C = p.c, K = p.k;
+  const float alpha = p.alpha;
+  const long long row0 = (long long)blockIdx.x * R;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const bool c_vec = C % kVec == 0;
+  const Scalar* i_rows = static_cast<const Scalar*>(p.i_rows);
+  const Scalar* u = static_cast<const Scalar*>(p.u);
+  const Scalar* car_w = static_cast<const Scalar*>(p.car_w);
+  Scalar* di = static_cast<Scalar*>(p.di);
+  const Scalar* buf = reinterpret_cast<const Scalar*>(smem);
+  Scalar* wt = reinterpret_cast<Scalar*>(smem + L.off_w);
+  float* stage = reinterpret_cast<float*>(smem + L.off_stage);
+
+  for (int j0 = 0; j0 < L.c_pad; j0 += kCarChunk) {
+    // tensor path: warp w owns tiles (w % 2, 2 * (w / 2) + {0, 1}) of the
+    // [32 x 128] chunk
+    Frag acc[2];
+    wmma::fill_fragment(acc[0], 0.f);
+    wmma::fill_fragment(acc[1], 0.f);
+    constexpr int kPer = R * kCarChunk / kThreads;
+    float acc_c[kTensor ? 1 : kPer];
+    if constexpr (!kTensor) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) acc_c[i] = 0.f;
+    }
+    for (int k0 = 0; k0 < L.c_pad; k0 += kDepth) {
+      __syncthreads();  // dncp_c complete / the previous tile is consumed
+      // car_W rows j0..j0+127, columns k0..k0+63: as a [64 (k) x 128 (j)]
+      // operand it is column-major with leading dimension ld_car
+      stage_tile<Scalar, kCarChunk, kDepth>(wt, L.ld_car, car_w, C, C, j0, k0,
+                                            kDepth, c_vec);
+      __syncthreads();
+      if constexpr (kTensor) {
+        const int rt = warp % 2, ct = 2 * (warp / 2);
+#pragma unroll
+        for (int kk = 0; kk < kDepth; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major>
+              a;
+          wmma::load_matrix_sync(a, buf + 16 * rt * L.ld_buf + k0 + kk,
+                                 L.ld_buf);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                           wmma::col_major>
+                b;
+            wmma::load_matrix_sync(b, wt + 16 * (ct + j) * L.ld_car + kk,
+                                   L.ld_car);
+            wmma::mma_sync(acc[j], a, b, acc[j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int v = tid + i * kThreads;
+          const Scalar* a_row = buf + (v / kCarChunk) * L.ld_buf + k0;
+          const Scalar* b_row = wt + (v % kCarChunk) * L.ld_car;
+          float s = acc_c[i];
+#pragma unroll 8
+          for (int kk = 0; kk < kDepth; ++kk)
+            s = fmaf(to_f32(a_row[kk]), to_f32(b_row[kk]), s);
+          acc_c[i] = s;
+        }
+      }
+    }
+    __syncthreads();  // every read of the stage of the last chunk is done
+    if constexpr (kTensor) {
+      const int rt = warp % 2, ct = 2 * (warp / 2);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(stage + 16 * rt * L.ld_stage + 16 * (ct + j),
+                                acc[j], L.ld_stage, wmma::mem_row_major);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int v = tid + i * kThreads;
+        stage[(v / kCarChunk) * L.ld_stage + v % kCarChunk] = acc_c[i];
+      }
+    }
+    __syncthreads();
+    for (int v = tid; v < R * kCarChunk; v += kThreads) {
+      const int r = v / kCarChunk, j = v % kCarChunk;
+      const long long row = row0 + r;
+      const int col = j0 + j;
+      if (row < p.n_rows && col < C) {
+        const float a0 = to_f32(i_rows[row * C + col]) +
+                         to_f32(u[(row / K) * C + col]);
+        di[row * C + col] = from_f32<Scalar>(stage[r * L.ld_stage + j] *
+                                             dleaky(a0, alpha));
+      }
+    }
+  }
+}
 
 template <typename Scalar>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -222,10 +476,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long row0 = (long long)blockIdx.x * R;
   const int tid = threadIdx.x, warp = tid / 32;
 
-  const Scalar* i_rows = static_cast<const Scalar*>(p.i_rows);
-  const Scalar* u = static_cast<const Scalar*>(p.u);
   const Scalar* pred = static_cast<const Scalar*>(p.pred);
-  const Scalar* car_w = static_cast<const Scalar*>(p.car_w);
   const Scalar* w1 = static_cast<const Scalar*>(p.w1);
   const Scalar* b1 = static_cast<const Scalar*>(p.b1);
   const Scalar* w2 = static_cast<const Scalar*>(p.w2);
@@ -234,7 +485,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Scalar* b3 = static_cast<const Scalar*>(p.b3);
   const Scalar* w4 = static_cast<const Scalar*>(p.w4);
   const Scalar* nc = static_cast<const Scalar*>(p.nc);
-  Scalar* di = static_cast<Scalar*>(p.di);
   Scalar* dp_rep = static_cast<Scalar*>(p.dp_rep);
   Scalar* dncp_g = static_cast<Scalar*>(p.dncp_c);
 
@@ -255,6 +505,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool c_vec = C % kVec == 0;
   const bool m1_vec = M1 % kVec == 0;
   const int m1_tiles = L.m1_pad / 16;
+
+  if (p.mode == kRowFront) recompute_nc<Scalar>(p, L, smem);
 
   // ---- prod = [d] nc * pred for the block's rows ----
   {
@@ -483,86 +735,41 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  // ---- dpre = dncp_c @ car_W^T in column chunks; di ----
-  for (int j0 = 0; j0 < L.c_pad; j0 += kCarChunk) {
-    // tensor path: warp w owns tiles (w % 2, 2 * (w / 2) + {0, 1}) of the
-    // [32 x 128] chunk
-    Frag acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    constexpr int kPer = R * kCarChunk / kThreads;
-    float acc_c[kTensor ? 1 : kPer];
-    if constexpr (!kTensor) {
+  // the recompute variant's front stops here: dW1 reads nc (in di) first
+  if (p.mode == kRowFront) return;
+  dpre_and_di<Scalar>(p, L, smem);
+}
+
+// The back of the recompute variant: the block's rows of dncp_c, written by
+// the front launch, back into shared memory, then dpre and di.
+template <typename Scalar>
+__global__ void __launch_bounds__(kThreads, 1)
+    cand_score_bwd_dpre_kernel(const RowParams p) {
+  constexpr int R = Traits<Scalar>::kRows;
+  constexpr int kVec = 16 / sizeof(Scalar);
+  const RowLayout<Scalar> L(p.c, p.m1, p.m2, p.m3);
+  const int C = p.c;
+  const long long row0 = (long long)blockIdx.x * R;
+  const Scalar* dncp_g = static_cast<const Scalar*>(p.dncp_c);
+  extern __shared__ __align__(128) unsigned char smem[];
+  Scalar* buf = reinterpret_cast<Scalar*>(smem);
+  const bool c_vec = C % kVec == 0;
+  const int vecs_per_row = L.c_pad / kVec;
+  for (int v = threadIdx.x; v < R * vecs_per_row; v += kThreads) {
+    const int r = v / vecs_per_row;
+    const int col = (v % vecs_per_row) * kVec;
+    const long long row = row0 + r;
+    uint4 packed = make_uint4(0, 0, 0, 0);
+    if (row < p.n_rows && col < C) {
+      float x[kVec];
+      load_f32(dncp_g + row * C + col, C - col, c_vec, x);
+      Scalar* out = reinterpret_cast<Scalar*>(&packed);
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) acc_c[i] = 0.f;
+      for (int e = 0; e < kVec; ++e) out[e] = from_f32<Scalar>(x[e]);
     }
-    for (int k0 = 0; k0 < L.c_pad; k0 += kDepth) {
-      __syncthreads();  // dncp_c complete / the previous tile is consumed
-      // car_W rows j0..j0+127, columns k0..k0+63: as a [64 (k) x 128 (j)]
-      // operand it is column-major with leading dimension ld_car
-      stage_tile<Scalar, kCarChunk, kDepth>(wt, L.ld_car, car_w, C, C, j0, k0,
-                                            kDepth, c_vec);
-      __syncthreads();
-      if constexpr (kTensor) {
-        const int rt = warp % 2, ct = 2 * (warp / 2);
-#pragma unroll
-        for (int kk = 0; kk < kDepth; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              a;
-          wmma::load_matrix_sync(a, buf + 16 * rt * L.ld_buf + k0 + kk,
-                                 L.ld_buf);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::col_major>
-                b;
-            wmma::load_matrix_sync(b, wt + 16 * (ct + j) * L.ld_car + kk,
-                                   L.ld_car);
-            wmma::mma_sync(acc[j], a, b, acc[j]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const int v = tid + i * kThreads;
-          const Scalar* a_row = buf + (v / kCarChunk) * L.ld_buf + k0;
-          const Scalar* b_row = wt + (v % kCarChunk) * L.ld_car;
-          float s = acc_c[i];
-#pragma unroll 8
-          for (int kk = 0; kk < kDepth; ++kk)
-            s = fmaf(to_f32(a_row[kk]), to_f32(b_row[kk]), s);
-          acc_c[i] = s;
-        }
-      }
-    }
-    __syncthreads();  // every read of the stage of the last chunk is done
-    if constexpr (kTensor) {
-      const int rt = warp % 2, ct = 2 * (warp / 2);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(stage + 16 * rt * L.ld_stage + 16 * (ct + j),
-                                acc[j], L.ld_stage, wmma::mem_row_major);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int v = tid + i * kThreads;
-        stage[(v / kCarChunk) * L.ld_stage + v % kCarChunk] = acc_c[i];
-      }
-    }
-    __syncthreads();
-    for (int v = tid; v < R * kCarChunk; v += kThreads) {
-      const int r = v / kCarChunk, j = v % kCarChunk;
-      const long long row = row0 + r;
-      const int col = j0 + j;
-      if (row < p.n_rows && col < C) {
-        const float a0 = to_f32(i_rows[row * C + col]) +
-                         to_f32(u[(row / K) * C + col]);
-        di[row * C + col] = from_f32<Scalar>(stage[r * L.ld_stage + j] *
-                                             dleaky(a0, alpha));
-      }
-    }
+    *reinterpret_cast<uint4*>(buf + r * L.ld_buf + col) = packed;
   }
+  dpre_and_di<Scalar>(p, L, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -913,8 +1120,33 @@ cudaError_t launch_typed(const RowParams& rp_in, const Outputs& o,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)layout.bytes);
   if (err != cudaSuccess) return err;
   constexpr int R = Traits<Scalar>::kRows;
-  cand_score_bwd_rows_kernel<Scalar>
-      <<<(unsigned)div_up(rp.n_rows, R), kThreads, layout.bytes, stream>>>(rp);
+  const unsigned row_blocks = (unsigned)div_up(rp.n_rows, R);
+  auto part = [&](size_t off) { return reinterpret_cast<float*>(scratch + off); };
+  const bool recompute = rp.nc == nullptr;
+  if (recompute) {
+    // nc lives in di from the front launch until the dpre launch writes di
+    rp.nc = o.di;
+    rp.mode = kRowFront;
+    cand_score_bwd_rows_kernel<Scalar>
+        <<<row_blocks, kThreads, layout.bytes, stream>>>(rp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = tn_product<Scalar>(plan, plan.w1, kProd, rp.nc, rp.pred,
+                                  rp.da1, part(plan.off_part_w1),
+                                  static_cast<Scalar*>(o.dw1), rp.k, rp.alpha,
+                                  stream)) != cudaSuccess)
+      return err;
+    err = cudaFuncSetAttribute(cand_score_bwd_dpre_kernel<Scalar>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)layout.bytes);
+    if (err != cudaSuccess) return err;
+    rp.mode = kRowDpre;
+    cand_score_bwd_dpre_kernel<Scalar>
+        <<<row_blocks, kThreads, layout.bytes, stream>>>(rp);
+  } else {
+    rp.mode = kRowAll;
+    cand_score_bwd_rows_kernel<Scalar>
+        <<<row_blocks, kThreads, layout.bytes, stream>>>(rp);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const long long bt = rp.n_rows / rp.k;
@@ -927,13 +1159,13 @@ cudaError_t launch_typed(const RowParams& rp_in, const Outputs& o,
       rp.k, rp.c);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  auto part = [&](size_t off) { return reinterpret_cast<float*>(scratch + off); };
   if ((err = tn_product<Scalar>(plan, plan.car, kPre, rp.i_rows, rp.u,
                                 rp.dncp_c, part(plan.off_part_car),
                                 static_cast<Scalar*>(o.dcar_w), rp.k, rp.alpha,
                                 stream)) != cudaSuccess)
     return err;
-  if ((err = tn_product<Scalar>(plan, plan.w1, kProd, rp.nc, rp.pred, rp.da1,
+  if (!recompute &&
+      (err = tn_product<Scalar>(plan, plan.w1, kProd, rp.nc, rp.pred, rp.da1,
                                 part(plan.off_part_w1),
                                 static_cast<Scalar*>(o.dw1), rp.k, rp.alpha,
                                 stream)) != cudaSuccess)
@@ -992,7 +1224,7 @@ extern "C" long long cand_score_bwd_scratch_bytes(long long n_rows, int k,
 
 // dtype codes: 0 = float32, 1 = bfloat16 (every operand and every gradient
 // has it; g is float32).  Operands as for cand_score_fwd, plus nc [n_rows, c]
-// (the forward's stash) and g [n_rows].  Outputs: di [n_rows, c], du and dp
+// (the forward's stash), or null for the recompute variant, and g [n_rows].  Outputs: di [n_rows, c], du and dp
 // [n_rows / k, c], dcar_w [c, c], dcar_b [c], dw1 [c, m1], db1 [m1],
 // dw2 [m1, m2], db2 [m2], dw3 [m2, m3], db3 [m3], dw4 [m3].  `scratch` holds
 // cand_score_bwd_scratch_bytes(...) bytes, 128-byte aligned.  Every pointer
@@ -1011,7 +1243,7 @@ extern "C" int cand_score_bwd(
   const RowParams rp{i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3,
                      w4, nc, static_cast<const float*>(g), nullptr, nullptr,
                      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, n_rows, k, c, m1, m2, m3, alpha};
+                     nullptr, n_rows, k, c, m1, m2, m3, alpha, kRowAll};
   const Outputs o{di, du, dp, dcar_w, dcar_b, dw1, db1, dw2, db2, dw3, db3,
                   dw4};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -5,12 +5,16 @@
 ``stash_nc=False``) and, with ``return_nc=True``, ``_fwd_stash_kernel``
 (training), which also returns the CAR output ``nc``.  Both launch
 ``csrc/cand_score_fwd.cu``.  ``cand_score_bwd_kernel`` replaces the backward
-``_bwd_kernel_stash`` (``_bwd_vjp``) and launches ``csrc/cand_score_bwd.cu``.
-On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
-runs its plain PyTorch twin (``cand_score_reference``,
-``cand_score_bwd_reference``).  ``cand_score`` is the differentiable entry:
-``CandScore`` stashes ``nc`` in the forward and runs the backward kernel; with
-grad off it calls the eval forward.
+``_bwd_kernel_stash`` (``_bwd_vjp``) and ``cand_score_bwd_recompute_kernel``
+the backward ``_bwd_kernel``, which recomputes nc instead of reading the
+stash; both launch ``csrc/cand_score_bwd.cu``.  On a CUDA tensor a wrapper
+launches its kernel or raises; on a CPU tensor it runs its plain PyTorch twin
+(``cand_score_reference``, ``cand_score_bwd_reference``).  ``cand_score`` is
+the differentiable entry: with ``_STASH_NC`` on (the default, read at call
+time as the JAX module reads it), ``CandScore`` stashes ``nc`` in the
+forward and runs the stash backward; with it off the forward is the eval
+forward and the backward recomputes nc, which saves the [N, C] stash between
+the two.  With grad off ``cand_score`` calls the eval forward.
 
 For each candidate row r of ``i_rows`` [BT*K, C], with bt = r // K:
 
@@ -46,10 +50,15 @@ _BWD_SOURCE = "cand_score_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_M1 = 128  # the first matching layer's accumulators live in registers
 
+# The training forward stashes nc for the backward (True), or the backward
+# recomputes it (False), as ``_STASH_NC`` of the JAX module.
+_STASH_NC = True
+
 # Launches of the CUDA kernels in this process; the CPU path does not count.
 launches = 0  # the eval forward (no stash)
 stash_launches = 0  # the training forward, which also writes nc
-bwd_launches = 0  # the backward (one per call, whatever grids it runs)
+bwd_launches = 0  # the stash backward (one per call, whatever grids it runs)
+bwd_recompute_launches = 0  # the backward that recomputes nc
 
 
 def _dleaky(x: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -86,12 +95,17 @@ def cand_score_bwd_reference(
     i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4, nc, g,
     alpha=0.2,
 ):
-    """Plain PyTorch twin of the backward kernel, line by line the Pallas
-    ``_bwd_body`` on the stashed ``nc``: the cotangent chain rounded to the
-    input dtype where Pallas rounds it, tanh' from the rounded nc, every
-    product and sum in f32.  ``g`` is the scores' cotangent [BT, K].
-    Returns the 12 gradients (di, du, dp, dcar_w, dcar_b, dw1, db1, dw2,
-    db2, dw3, db3, dw4), each in its operand's dtype."""
+    """Plain PyTorch twin of the backward kernels, line by line the Pallas
+    ``_bwd_body``: on the stashed ``nc``, or with ``nc=None`` on nc
+    recomputed by ``cand_score_reference`` (the same roundings, so the two
+    give the same bits); the cotangent chain rounded to the input dtype
+    where Pallas rounds it, tanh' from the rounded nc, every product and sum
+    in f32.  ``g`` is the scores' cotangent [BT, K].  Returns the 12
+    gradients (di, du, dp, dcar_w, dcar_b, dw1, db1, dw2, db2, dw3, db3,
+    dw4), each in its operand's dtype."""
+    if nc is None:
+        _, nc = cand_score_reference(i_rows, u, pred, car_w, car_b, w1, b1, w2,
+                                     b2, w3, b3, w4, alpha=alpha, return_nc=True)
     bt, c = u.shape
     n = i_rows.shape[0]
     k = n // bt
@@ -251,29 +265,25 @@ def cand_score_kernel(
     return out.reshape(bt, n_rows // bt)
 
 
-def cand_score_bwd_kernel(
-    i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4, nc, g,
-    alpha=0.2,
-):
-    """The 12 gradients of the fused scorer (see
-    ``cand_score_bwd_reference``) from the stashed ``nc`` and the scores'
-    cotangent ``g`` [BT, K]."""
-    global bwd_launches
-    operands = _check(i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4)
+def _bwd(operands, nc, g, alpha):
+    """The backward on a CPU tensor (the twin) or a CUDA tensor (the kernel;
+    a null nc launches the recompute variant); (grads, launched)."""
+    i_rows, u, w1 = operands[0], operands[1], operands[5]
     bt = u.shape[0]
-    if tuple(nc.shape) != tuple(i_rows.shape) or nc.dtype != i_rows.dtype:
+    if nc is not None and (tuple(nc.shape) != tuple(i_rows.shape)
+                           or nc.dtype != i_rows.dtype):
         raise ValueError("nc must be [BT*K, C] in the operands' dtype")
     if g.numel() != i_rows.shape[0] or g.device != i_rows.device:
         raise ValueError("g must hold one cotangent per candidate row")
     g = g.reshape(-1).float().contiguous()
     if i_rows.device.type == "cpu":
         return cand_score_bwd_reference(*operands, nc, g.reshape(bt, -1),
-                                        alpha=alpha)
+                                        alpha=alpha), False
     if i_rows.device.type != "cuda":
         raise ValueError(f"unsupported device {i_rows.device}")
-    _check_launchable(operands + (nc, g), w1)
+    _check_launchable(operands + ((g,) if nc is None else (nc, g)), w1)
     n_rows, c = i_rows.shape
-    m1, m2, m3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    m1, m2, m3 = w1.shape[1], operands[7].shape[1], operands[9].shape[1]
     grads = tuple(torch.empty_like(t) for t in operands)
     fn, size = _bwd_library()
     dtype = _DTYPE_CODES[i_rows.dtype]
@@ -283,33 +293,72 @@ def cand_score_bwd_kernel(
     scratch = torch.empty(n_bytes, dtype=torch.uint8, device=i_rows.device)
     with torch.cuda.device(i_rows.device):
         err = fn(
-            *(t.data_ptr() for t in operands), nc.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in operands),
+            None if nc is None else nc.data_ptr(), g.data_ptr(),
             *(t.data_ptr() for t in grads), scratch.data_ptr(),
             n_rows, n_rows // bt, c, m1, m2, m3, dtype, float(alpha),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "cand_score_bwd")
-    bwd_launches += 1
+    return grads, True
+
+
+def cand_score_bwd_kernel(
+    i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4, nc, g,
+    alpha=0.2,
+):
+    """The 12 gradients of the fused scorer (see
+    ``cand_score_bwd_reference``) from the stashed ``nc`` and the scores'
+    cotangent ``g`` [BT, K]."""
+    global bwd_launches
+    operands = _check(i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4)
+    grads, launched = _bwd(operands, nc, g, alpha)
+    bwd_launches += launched
+    return grads
+
+
+def cand_score_bwd_recompute_kernel(
+    i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4, g, alpha=0.2,
+):
+    """The 12 gradients of the fused scorer from the operands and the
+    scores' cotangent ``g`` [BT, K] alone: nc is recomputed, as the forward
+    forms it, inside the backward (``_bwd_kernel``)."""
+    global bwd_recompute_launches
+    operands = _check(i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4)
+    grads, launched = _bwd(operands, None, g, alpha)
+    bwd_recompute_launches += launched
     return grads
 
 
 class CandScore(torch.autograd.Function):
-    """The fused scorer with the Pallas kernel's custom VJP: the forward
-    stashes nc (K1fs), the backward runs the backward kernel (K1b) on it, or
-    the twins on the CPU.  ``alpha`` gets no gradient."""
+    """The fused scorer with the Pallas kernel's custom VJP.  With
+    ``_STASH_NC`` on, the forward stashes nc (K1fs) and the backward runs the
+    stash backward (K1b) on it; with it off, the forward is the eval forward
+    (K1f) and the backward recomputes nc (K1b'); on the CPU the twins.
+    ``alpha`` gets no gradient."""
 
     @staticmethod
     def forward(ctx, i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3,
                 w4, alpha):
         operands = (i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4)
-        scores, nc = cand_score_kernel(*operands, alpha=alpha, return_nc=True)
-        ctx.save_for_backward(*operands, nc)
+        ctx.stash = _STASH_NC
+        if ctx.stash:
+            scores, nc = cand_score_kernel(*operands, alpha=alpha, return_nc=True)
+            ctx.save_for_backward(*operands, nc)
+        else:
+            scores = cand_score_kernel(*operands, alpha=alpha)
+            ctx.save_for_backward(*operands)
         ctx.alpha = alpha
         return scores
 
     @staticmethod
     def backward(ctx, g):
-        return cand_score_bwd_kernel(*ctx.saved_tensors, g, alpha=ctx.alpha) + (None,)
+        if ctx.stash:
+            grads = cand_score_bwd_kernel(*ctx.saved_tensors, g, alpha=ctx.alpha)
+        else:
+            grads = cand_score_bwd_recompute_kernel(*ctx.saved_tensors, g,
+                                                    alpha=ctx.alpha)
+        return grads + (None,)
 
 
 def cand_score(i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4,

@@ -10,6 +10,9 @@ popularity and recency features track the live stream.
   * candidates default to the click buffer's most recent distinct items;
   * a candidate id 0 is padding and scores -inf.
 
+``from_checkpoint`` serves the parameters and stream of a checkpoint in this
+package's format (``train/checkpoint.py``).
+
 With ``cfg.use_pallas_rnn`` the session RNN runs through the hand-written
 CUDA kernel, two launches per ``recommend`` at two layers.
 """
@@ -21,9 +24,12 @@ import numpy as np
 import torch
 
 from .config import ArticleFeaturesSchema, NARConfig, SessionFeaturesSchema
+from .convert import stream_from_numpy
 from .data.collate import Session
 from .models.nar import NARAux, NARModel
 from .state.stream_state import StreamState, update_stream_state
+from .train.checkpoint import model_params
+from .utils.io import deserialize
 
 
 class NARServer:
@@ -56,6 +62,27 @@ class NARServer:
         self.model.load_state_dict(params, strict=True)
         self.model.to(self.device).eval()
         self.stream = StreamState(*(x.to(self.device) for x in stream))
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        checkpoint_path,
+        cfg: NARConfig,
+        session_schema: SessionFeaturesSchema,
+        article_schema: ArticleFeaturesSchema,
+        ace_matrix,
+        metadata,
+        device="cuda",
+    ) -> "NARServer":
+        """A server from a checkpoint of this package's format
+        (``TemporalHarness.save_checkpoint``, ``convert.checkpoint_from_jax``):
+        its model parameters and streaming state."""
+        payload = deserialize(checkpoint_path)
+        return cls(
+            cfg, session_schema, article_schema, model_params(payload),
+            stream_from_numpy(payload["stream"], device=device), ace_matrix,
+            metadata, device=device,
+        )
 
     # ------------------------------------------------------------------
     def _collate_serving(self, sessions: Sequence[Session]) -> Dict[str, torch.Tensor]:

@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at the G1 configuration's full width with random
+Drives the port's paths at the G1 configuration's full width with random
 weights from a seed, the serving path (``NARServer.observe`` / ``recommend``),
-the eval step (``train.steps.eval_step``) and the train step
-(``train.steps.train_step``, valid-row compaction at the bench's capacity),
-and every hand-written kernel of those paths:
+the eval step (``train.steps.eval_step``), the train step
+(``train.steps.train_step``, valid-row compaction at the bench's capacity,
+with the fused scorer's nc stash and without it) and the temporal harness
+(``train.temporal.TemporalHarness``: hour-by-hour train and eval with two
+baselines, checkpoint/resume, ``NARServer.from_checkpoint``), and every
+hand-written kernel of those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
    per source, started together) and reports the build time and what ptxas
@@ -26,20 +29,36 @@ and every hand-written kernel of those paths:
    two train steps (per step the scorer's stash forward once, its backward
    once, the UGRNN forward and backward twice each, no eval forward), checks
    that no click is dropped and every loss is finite, then trains 20 steps
-   on one batch and checks that the loss falls;
-5. holds each kernel against its plain PyTorch twin on the card: the UGRNN
+   on one batch and checks that the loss falls; then measures the peak
+   device memory of one step with the stash on and off and runs two
+   counted steps with ``_STASH_NC`` off (per step the eval forward and the
+   backward that recomputes nc once each, no stash forward or backward);
+5. the temporal harness, counted: hours 0-3 of 512 synthetic sessions, one
+   training hour per eval, recently popular and sequential rules beside
+   CHAMELEON; checks the launches, the device HR/MRR against the host
+   suite's and the stream's restore after every eval, and prints each eval
+   row, the train throughput and each eval hour's wall time and phases;
+   then saves a checkpoint, loads it into a fresh harness, serves a
+   batch-32 request from the file (``NARServer.from_checkpoint``) against a
+   server on the live model, and trains and evaluates one more hour on
+   both harnesses, then on two resumes with a planted fault (the sampler's
+   generator re-seeded, Adam's state dropped) that the resume check must
+   catch;
+6. holds each kernel against its plain PyTorch twin on the card: the UGRNN
    forward and backward at the serving and train shapes, the fused scorer
    forward on the operands of the eval path's first step (bf16, rebuilt by
-   ``train.steps.eval_scorer_operands``), its stash forward and backward on
-   the operands of the train path's first step (``train_scorer_operands``),
-   and all three on random operands at the G1 shapes, a float32 shape and an
-   odd shape;
-6. checks the served scores, one eval step and one train step against the
+   ``train.steps.eval_scorer_operands``), its stash forward, backward and
+   recompute backward on the operands of the train path's first step
+   (``train_scorer_operands``; the recompute backward also bit for bit
+   against the stash backward on the stash forward's nc), and all of them on
+   random operands at the G1 shapes, a float32 shape and an odd shape;
+7. checks the served scores, one eval step and one train step against the
    same code on the CPU, where the kernel wrappers run their plain twins, on
    a small float32 input;
-7. times each kernel, its plain twin, ``recommend``, the eval step and the
-   train step with CUDA events or a synchronised host clock, and breaks one
-   request, one eval step and one train step down by device kernel (torch
+8. times each kernel, its plain twin, ``recommend``, the eval step and the
+   train step (with the stash and without) with CUDA events or a
+   synchronised host clock, and breaks one request, one eval step and one
+   train step with the stash and one without down by device kernel (torch
    profiler).
 
 Prints the card's name and power limit first, a JSON line of per-kernel
@@ -55,7 +74,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -69,7 +90,20 @@ TOP_K = 10
 EVAL_BATCHES = 4
 TRAIN_STEPS = 2  # counted, over two batches
 LOSS_STEPS = 20  # on one batch: the loss must fall
-KERNELS = ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd", "cand_score_bwd")
+HARNESS_SESSIONS = 512  # sessions an hour: two batches of 256
+HARNESS_HOURS = 4  # hours 0-3: train four hours, evaluate three
+# a resumed hour against the original: the loss's relative difference, HR's
+# and MRR's, the largest parameter difference after the hour's training.
+# pool_gather's index_add_ backward sums with atomics on the card, so a
+# sound resume may differ in the last f32 bits (read on an H100: parameters
+# 5.2e-7, the rest 0); a re-seeded generator or dropped Adam state read
+# loss >= 2.2e-4, HR >= 3.9e-4, MRR >= 1.7e-3, parameters >= 2.8e-4.  HR and
+# MRR allow about one ranked click of ~5,000 to flip
+RESUME_TOL = {"loss": 1e-5, "hr": 2.5e-4, "mrr": 2.5e-4, "param": 1e-5}
+KERNELS = ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd", "cand_score_bwd")  # sources
+KERNEL_NAMES = ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd", "cand_score_fwd_stash",
+                "cand_score_bwd", "cand_score_bwd_recompute")
+ROOT = Path(__file__).resolve().parent
 SCORER_GRADS = ("di", "du", "dp", "dcar_w", "dcar_b", "dw1", "db1", "dw2",
                 "db2", "dw3", "db3", "dw4")
 
@@ -274,6 +308,20 @@ def cand_score_bwd_bound_ms(operands):
     return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype))
 
 
+def cand_score_bwd_recompute_bound_ms(operands):
+    """(least ms, what bounds it) for the backward that recomputes nc: the
+    12 operands and the f32 cotangent read once, the 12 gradients written
+    once (no nc read); K1b's operations plus the CAR product once more,
+    2 N (3 C C + 3 C M1 + 3 M1 M2 + 3 M2 M3)."""
+    i_rows, _, _, _, _, w1, _, w2, _, w3 = operands[:10]
+    n, c = i_rows.shape
+    m1, m2, m3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    operand_bytes = sum(t.numel() * t.element_size() for t in operands)
+    n_bytes = 2 * operand_bytes + n * 4
+    n_ops = 2 * n * (3 * c * c + 3 * c * m1 + 3 * m1 * m2 + 3 * m2 * m3)
+    return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype))
+
+
 def ugrnn_bwd_bound_ms(x, w, mask):
     """Least time for the UGRNN backward on these inputs: x read at valid
     steps, W_hh and the mask once, the f32 states and the cotangent read
@@ -336,6 +384,39 @@ def check_scorer_train_kernels(name, operands, g, tol):
     print(f"cand_score_bwd vs plain {name} {operands[0].dtype} (output max_abs_err/"
           f"normwise/elements beyond {tol} x max|ref|): " + ", ".join(report))
     return nc_err, worst
+
+
+def check_recompute_kernel(name, operands, g, tol):
+    """The backward that recomputes nc against its twin (K1b's normwise
+    tolerance and outlier share), and against the stash backward on the nc
+    the stash forward writes, which it must equal bit for bit; returns the
+    largest max error against the twin."""
+    from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer
+
+    grads = cand_scorer.cand_score_bwd_recompute_kernel(*operands, g)
+    ref = cand_scorer.cand_score_bwd_reference(*operands, None, g)
+    torch.cuda.synchronize()
+    worst = 0.0
+    report = []
+    for gname, got, want in zip(SCORER_GRADS, grads, ref):
+        ok, err, norm_err, off = close_normwise(got, want, tol)
+        worst = max(worst, err)
+        report.append(f"{gname} {err:.2e}/{norm_err:.1e}/{off}")
+        check(ok, f"cand_score_bwd_recompute disagrees on {name}: {gname} max "
+                  f"{err:.3e}, normwise {norm_err:.3e}, {off} elements off")
+    del ref
+    _, nc = cand_scorer.cand_score_kernel(*operands, return_nc=True)
+    stash = cand_scorer.cand_score_bwd_kernel(*operands, nc, g)
+    torch.cuda.synchronize()
+    vs_stash = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(grads, stash))
+    print(f"cand_score_bwd_recompute vs plain {name} {operands[0].dtype} (output "
+          f"max_abs_err/normwise/elements beyond {tol} x max|ref|): "
+          + ", ".join(report) + f"; largest difference from cand_score_bwd on "
+          f"the stash forward's nc: {vs_stash:.3e}")
+    check(vs_stash == 0.0, f"cand_score_bwd_recompute differs from cand_score_bwd "
+                           f"on {name} by {vs_stash:.3e}")
+    return worst
 
 
 def scorer_inputs(bt, k, c, m1, m2, m3, dtype, seed):
@@ -436,6 +517,7 @@ def launch_counts():
         "cand_score_fwd": cand_scorer.launches,
         "cand_score_fwd_stash": cand_scorer.stash_launches,
         "cand_score_bwd": cand_scorer.bwd_launches,
+        "cand_score_bwd_recompute": cand_scorer.bwd_recompute_launches,
         "ugrnn_fwd": ugrnn.launches,
         "ugrnn_bwd": ugrnn.bwd_launches,
     }
@@ -445,6 +527,7 @@ def zero_launch_counts():
     from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer, ugrnn
 
     cand_scorer.launches = cand_scorer.stash_launches = cand_scorer.bwd_launches = 0
+    cand_scorer.bwd_recompute_launches = 0
     ugrnn.launches = ugrnn.bwd_launches = 0
 
 
@@ -512,7 +595,8 @@ def train_phase(port, server, cfg, session_schema, article_schema, corpus):
         check(values["clicks"] <= capacity, f"train step {i}: clicks over capacity")
     counts = launch_counts()
     expected = {"cand_score_fwd": 0, "cand_score_fwd_stash": 1, "cand_score_bwd": 1,
-                "ugrnn_fwd": cfg.rnn_num_layers, "ugrnn_bwd": cfg.rnn_num_layers}
+                "cand_score_bwd_recompute": 0, "ugrnn_fwd": cfg.rnn_num_layers,
+                "ugrnn_bwd": cfg.rnn_num_layers}
     print(f"train path (capacity {capacity} rows of {b * cfg.max_inputs_length}): "
           f"launches {counts}, per step {per_step}")
     check(per_step == [expected] * TRAIN_STEPS,
@@ -528,6 +612,242 @@ def train_phase(port, server, cfg, session_schema, article_schema, corpus):
     check(all(np.isfinite(losses)), "train: a loss is not finite")
     check(losses[-1] < losses[0], "train: the loss does not fall on one batch")
     return counts, state, batches, operands, capacity
+
+
+def recompute_phase(state, batches, server, cfg):
+    """The train path with ``_STASH_NC`` off, counted: the peak device memory
+    of one train step with the stash on and with it off, then two counted
+    steps (per step the eval forward once, the recompute backward once, the
+    UGRNN forward and backward twice each, no stash forward or stash
+    backward).  Returns the launch counts of the counted run, the state and
+    the peaks in bytes."""
+    from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer
+    from chameleon_recsys_tpu_torch.train.steps import train_step
+
+    peaks = {}
+    for stash in (True, False):
+        cand_scorer._STASH_NC = stash
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = train_step(state, batches[0], server.ace_matrix, server.metadata)
+        torch.cuda.synchronize()
+        peaks[stash] = torch.cuda.max_memory_allocated()
+    print(f"peak device memory of one G1 train step: stash on "
+          f"{peaks[True] / 2**30:.4f} GiB, off {peaks[False] / 2**30:.4f} GiB "
+          f"({(peaks[True] - peaks[False]) / 2**20:.1f} MiB less)")
+
+    zero_launch_counts()
+    per_step = []
+    for i in range(TRAIN_STEPS):
+        before = launch_counts()
+        state, metrics = train_step(state, batches[i % len(batches)],
+                                    server.ace_matrix, server.metadata)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        values = {k: float(v) for k, v in metrics.items()}
+        print(f"train step without the stash {i}: "
+              + ", ".join(f"{k} {v:.6g}" for k, v in values.items()))
+        check(all(np.isfinite(v) for v in values.values()),
+              f"train step without the stash {i}: a metric is not finite")
+        check(values["dropped_clicks"] == 0, f"train step {i}: clicks dropped")
+    cand_scorer._STASH_NC = True
+    counts = launch_counts()
+    expected = {"cand_score_fwd": 1, "cand_score_fwd_stash": 0, "cand_score_bwd": 0,
+                "cand_score_bwd_recompute": 1, "ugrnn_fwd": cfg.rnn_num_layers,
+                "ugrnn_bwd": cfg.rnn_num_layers}
+    print(f"train path without the stash: launches {counts}, per step {per_step}")
+    check(per_step == [expected] * TRAIN_STEPS,
+          f"kernel launches per train step without the stash {per_step}")
+    return counts, state, peaks
+
+
+def harness_phase(port, cfg, session_schema, article_schema, corpus, model_dir):
+    """The temporal harness at G1 width, counted: synthetic hours of
+    HARNESS_SESSIONS sessions, one training hour per eval, hours 0-3 (train
+    4 hours, evaluate 3) with recently popular and sequential rules, the
+    capacity sized as ``train_capacity`` over the hours it trains.  Checks
+    the launches (per train step the train path's, per eval step the eval
+    path's), the reference's cross-check (device HR/MRR against the host
+    suite's CHAMELEON columns) and that every eval restores the stream.
+    Returns the harness, its hour source, a factory of fresh harnesses of
+    the same configuration and the launch counts."""
+    from chameleon_recsys_tpu_torch.baselines import (
+        RecentlyPopularRecommender,
+        SequentialRulesRecommender,
+    )
+    from chameleon_recsys_tpu_torch.config import RunConfig
+    from chameleon_recsys_tpu_torch.data.synthetic import synthetic_hour_sessions
+    from chameleon_recsys_tpu_torch.train.temporal import BenchmarkSpec, TemporalHarness
+
+    n, hours = HARNESS_SESSIONS, range(HARNESS_HOURS)
+    capacity = train_capacity(
+        [b for h in hours for b in hour_batches(corpus, session_schema, cfg, h, n)], cfg)
+    hcfg = dataclasses.replace(cfg, train_valid_row_capacity=capacity)
+    run_cfg = RunConfig(model_dir=str(model_dir), training_hours_for_each_eval=1,
+                        random_seed=31)
+
+    def source(hour):
+        return synthetic_hour_sessions(corpus, session_schema, hour, n,
+                                       cfg.max_session_length)
+
+    def make():
+        return TemporalHarness(
+            hcfg, run_cfg, session_schema, article_schema, corpus.ace_matrix,
+            corpus.metadata,
+            benchmarks=[BenchmarkSpec(RecentlyPopularRecommender, {}),
+                        BenchmarkSpec(SequentialRulesRecommender,
+                                      {"max_clicks_dist": 10,
+                                       "dist_between_clicks_decay": "div"})],
+            device="cuda",
+        )
+
+    harness = make()
+    walls = {"train": [], "eval": []}
+    train_hour, evaluate_hour = harness.train_hour, harness.evaluate_hour
+
+    def timed_train_hour(sessions):
+        t0 = time.perf_counter()
+        stats = train_hour(sessions)
+        torch.cuda.synchronize()
+        walls["train"].append(time.perf_counter() - t0)
+        return stats
+
+    def checked_evaluate_hour(sessions):
+        before = {k: v.clone() for k, v in harness.state.stream._asdict().items()}
+        t0 = time.perf_counter()
+        row = evaluate_hour(sessions)
+        torch.cuda.synchronize()
+        walls["eval"].append(time.perf_counter() - t0)
+        restored = all(torch.equal(getattr(harness.state.stream, k), v)
+                       for k, v in before.items())
+        print(f"harness eval hour {len(walls['eval'])}: {walls['eval'][-1]:.3f} s "
+              f"wall; phases (s) " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in harness.last_eval_phase_seconds.items())
+              + f"; stream restored {restored}")
+        check(restored, "harness: the stream after an eval is not its snapshot")
+        return row
+
+    harness.train_hour = timed_train_hour
+    harness.evaluate_hour = checked_evaluate_hour
+    zero_launch_counts()
+    rows = harness.run(source, hours)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    train_steps = HARNESS_HOURS * -(-n // cfg.batch_size)
+    eval_steps = (HARNESS_HOURS - 1) * -(-n // cfg.batch_size)
+    layers = cfg.rnn_num_layers
+    expected = {"cand_score_fwd": eval_steps, "cand_score_fwd_stash": train_steps,
+                "cand_score_bwd": train_steps, "cand_score_bwd_recompute": 0,
+                "ugrnn_fwd": layers * (train_steps + eval_steps),
+                "ugrnn_bwd": layers * train_steps}
+    print(f"harness (G1, {n} sessions an hour, capacity {capacity}, hours "
+          f"{list(hours)}): launches {counts}; train hours "
+          + ", ".join(f"{w:.3f}" for w in walls["train"]) + " s wall")
+    check(counts == expected, f"harness launches {counts}, expected {expected}")
+    check(len(rows) == HARNESS_HOURS - 1, f"harness: {len(rows)} eval rows")
+    for i, row in enumerate(rows):
+        columns = {k: v for k, v in row.items()
+                   if k.endswith(("_chameleon", "_pop_recent", "_sr"))}
+        print(f"harness eval row {i}: hitrate_at_n {row['hitrate_at_n']:.6f}, "
+              f"mrr_at_n {row['mrr_at_n']:.6f}, clicks {row['clicks_count']}, "
+              f"train_sessions_per_s {row['train_sessions_per_s']}; "
+              + ", ".join(f"{k} {v:.6f}" for k, v in columns.items()))
+        check(all(np.isfinite(v) for v in columns.values()),
+              f"harness eval row {i}: a column is not finite")
+        # the device's hit count and the host suite's are the same integers;
+        # the reciprocal ranks are f32 sums on the card, f64 on the host
+        check(row["hitrate_at_n"] == row["hitrate_at_n_chameleon"],
+              f"harness eval row {i}: device HR != host HR")
+        check(abs(row["mrr_at_n"] - row["mrr_at_n_chameleon"])
+              <= 1e-5 * row["mrr_at_n_chameleon"],
+              f"harness eval row {i}: device MRR != host MRR")
+    return harness, source, make, counts
+
+
+def checkpoint_phase(port, harness, source, make, corpus):
+    """Checkpoint and resume at G1 width: save, load into a fresh harness,
+    serve from the file against a server on the live model and stream, then
+    train and evaluate one more hour on both harnesses and hold them to
+    ``RESUME_TOL``; then two resumes with a planted fault each, which the
+    same tolerances must catch."""
+    t0 = time.perf_counter()
+    path = harness.save_checkpoint()
+    save_s = time.perf_counter() - t0
+    resumed = make()
+    t0 = time.perf_counter()
+    resumed.load_checkpoint(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    print(f"checkpoint: {path.stat().st_size} bytes, save {save_s:.3f} s, load "
+          f"{load_s:.3f} s")
+    check((resumed.hours_trained, resumed.evals_done)
+          == (harness.hours_trained, harness.evals_done), "checkpoint: cursors differ")
+
+    args = (harness.cfg, harness.session_schema, harness.article_schema)
+    live = port.NARServer(*args, harness.state.model.state_dict(),
+                          harness.state.stream, corpus.ace_matrix, corpus.metadata,
+                          device="cuda")
+    loaded = port.NARServer.from_checkpoint(path, *args, corpus.ace_matrix,
+                                            corpus.metadata, device="cuda")
+    request = source(HARNESS_HOURS)[:32]
+    candidates = np.broadcast_to(live.default_candidates(NUM_CANDIDATES),
+                                 (len(request), NUM_CANDIDATES))
+    ids, scores = live.recommend(request, candidates=candidates, top_k=TOP_K)
+    got_ids, got_scores = loaded.recommend(request, candidates=candidates, top_k=TOP_K)
+    print(f"from_checkpoint b32: top-10 equal to the live server's "
+          f"{np.array_equal(got_ids, ids)}, largest score difference "
+          f"{float(np.abs(got_scores - scores).max()):.3e}")
+    check(np.array_equal(got_ids, ids) and np.array_equal(got_scores, scores),
+          "from_checkpoint: the served top-10 differs from the live server's")
+
+    def next_hour(h):
+        stats = h.train_hour(source(HARNESS_HOURS))
+        return stats, h.evaluate_hour(source(HARNESS_HOURS + 1))
+
+    original = next_hour(harness)
+    params = [p.detach().clone() for p in harness.state.model.parameters()]
+
+    def readings(h, label):
+        """One more hour on ``h`` against the original harness's: the loss's
+        relative difference, HR's and MRR's, and the largest parameter
+        difference after the hour's training."""
+        (stats_a, row_a), (stats_b, row_b) = original, next_hour(h)
+        diffs = {
+            "loss": abs(stats_a["avg_ce_loss"] - stats_b["avg_ce_loss"])
+            / abs(stats_a["avg_ce_loss"]),
+            "hr": abs(row_a["hitrate_at_n"] - row_b["hitrate_at_n"]),
+            "mrr": abs(row_a["mrr_at_n"] - row_b["mrr_at_n"]),
+            "param": max((p - q).abs().max().item()
+                         for p, q in zip(params, h.state.model.parameters())),
+        }
+        print(f"resume ({label}), one more hour: avg_ce_loss "
+              f"{stats_b['avg_ce_loss']:.7f} vs {stats_a['avg_ce_loss']:.7f}, "
+              f"hitrate_at_n {row_b['hitrate_at_n']:.6f} vs {row_a['hitrate_at_n']:.6f}, "
+              f"mrr_at_n {row_b['mrr_at_n']:.6f} vs {row_a['mrr_at_n']:.6f}; "
+              "differences " + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()))
+        return diffs
+
+    def beyond(diffs):
+        return sorted(k for k, v in diffs.items() if v > RESUME_TOL[k])
+
+    sound = beyond(readings(resumed, "sound"))
+    check(not sound, f"resume: the next hour differs beyond the tolerance in {sound}")
+    # planted faults: a resume that re-seeds the sampler's generator, and one
+    # that starts Adam afresh; the tolerances must tell each from a sound one
+    del resumed
+    faults = {
+        "generator re-seeded": lambda h: h.state.generator.manual_seed(
+            h.run_cfg.random_seed),
+        "Adam state dropped": lambda h: h.state.optimizer.state.clear(),
+    }
+    for label, plant in faults.items():
+        faulty = make()
+        faulty.load_checkpoint(path)
+        plant(faulty)
+        caught = beyond(readings(faulty, f"planted fault: {label}"))
+        check(caught, f"resume: the planted fault '{label}' passes the tolerances")
+        del faulty
 
 
 def train_cpu_vs_card(port, corpus_fn):
@@ -821,20 +1141,26 @@ def main() -> int:
     eval_counts, eval_batches, eval_stream, scorer_operands = eval_phase(
         server, cfg, session_schema, corpus
     )
-    # ---- 4. the train path, counted ----
+    # ---- 4. the train path, counted, with the stash and without ----
     train_counts, train_state, train_batches, train_operands, capacity = train_phase(
         port, server, cfg, session_schema, article_schema, corpus
     )
-    main_launches = {
-        "ugrnn_fwd": serve_launches + eval_counts["ugrnn_fwd"]
-        + train_counts["ugrnn_fwd"],
-        "ugrnn_bwd": train_counts["ugrnn_bwd"],
-        "cand_score_fwd": eval_counts["cand_score_fwd"],
-        "cand_score_fwd_stash": train_counts["cand_score_fwd_stash"],
-        "cand_score_bwd": train_counts["cand_score_bwd"],
-    }
+    recompute_counts, train_state, peaks = recompute_phase(
+        train_state, train_batches, server, cfg
+    )
+    # ---- 5. the temporal harness at G1 width, counted; checkpoint/resume ----
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
+        harness, source, make, harness_counts = harness_phase(
+            port, cfg, session_schema, article_schema, corpus, workdir
+        )
+        checkpoint_phase(port, harness, source, make, corpus)
+        del harness, make
+    paths = ({"ugrnn_fwd": serve_launches}, eval_counts, train_counts,
+             recompute_counts, harness_counts)
+    main_launches = {k: sum(path.get(k, 0) for path in paths) for k in KERNEL_NAMES}
+    print(f"launches over the counted paths: {main_launches}")
 
-    # ---- 5. each kernel against its plain twin ----
+    # ---- 6. each kernel against its plain twin ----
     serve_mask = captured[max(SERVE_BATCHES)]
     g = torch.Generator().manual_seed(1)
     lengths = torch.randint(1, serve_mask.shape[1] + 1, (256,), generator=g)
@@ -928,13 +1254,15 @@ def main() -> int:
     ]
     with torch.no_grad():
         for i, (name, operands, tol) in enumerate(train_cases):
-            nc_err, bwd_err = check_scorer_train_kernels(
-                name, operands, cotangent(operands, 10 + i), tol)
+            g_case = cotangent(operands, 10 + i)
+            nc_err, bwd_err = check_scorer_train_kernels(name, operands, g_case, tol)
             errors[("stash", name)] = nc_err
             errors[("bwd", name)] = bwd_err
+            errors[("recompute", name)] = check_recompute_kernel(
+                name, operands, g_case, tol)
     del train_cases
 
-    # ---- 6. served scores, an eval and a train step against the CPU ----
+    # ---- 7. served scores, an eval and a train step against the CPU ----
     tcfg, tsess, tart = tiny_setup(port)
     tcorpus = make_synthetic_corpus(tart, ace_dim=8)
     tsessions = synthetic_hour_sessions(tcorpus, tsess, 0, 24, tcfg.max_session_length)
@@ -962,7 +1290,7 @@ def main() -> int:
     eval_cpu_vs_card(port, make_synthetic_corpus)
     train_cpu_vs_card(port, make_synthetic_corpus)
 
-    # ---- 7. times ----
+    # ---- 8. times ----
     x, w, m = ugrnn_inputs(serve_mask.cpu(), torch.bfloat16, seed=2)
     ugrnn_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_kernel(x, w, m), iters=200)
     ugrnn_plain_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_reference(x, w, m), iters=20)
@@ -1037,6 +1365,9 @@ def main() -> int:
     # the train path's kernels at the compacted G1 train shape
     with torch.no_grad():
         ops = train_operands
+        # the eval forward at the train shape: the stash-off train step's forward
+        fwd_train_ms = cuda_ms(lambda: cand_scorer.cand_score_kernel(*ops), iters=10,
+                               warmup=2)
         stash_ms = cuda_ms(lambda: cand_scorer.cand_score_kernel(*ops, return_nc=True),
                            iters=10, warmup=2)
         stash_plain_ms = cuda_ms(
@@ -1049,17 +1380,36 @@ def main() -> int:
         bwd_plain_ms = cuda_ms(lambda: cand_scorer.cand_score_bwd_reference(*ops, nc, g),
                                iters=1, warmup=1)
         del nc
+        recompute_ms = cuda_ms(
+            lambda: cand_scorer.cand_score_bwd_recompute_kernel(*ops, g), iters=5,
+            warmup=2)
+        recompute_plain_ms = cuda_ms(
+            lambda: cand_scorer.cand_score_bwd_reference(*ops, None, g), iters=1,
+            warmup=1)
     stash_bound, stash_bound_by = cand_score_stash_bound_ms(train_operands)
     bwd_bound, bwd_bound_by = cand_score_bwd_bound_ms(train_operands)
     n_rows, c = train_operands[0].shape
     m1, m2, m3 = (train_operands[i].shape[1] for i in (5, 7, 9))
     bwd_ops = 2 * n_rows * (2 * c * c + 3 * c * m1 + 3 * m1 * m2 + 3 * m2 * m3)
+    print(f"cand_score_fwd {list(train_operands[0].shape)} bf16 (G1 train, the "
+          f"forward without the stash): kernel {fwd_train_ms:.4f} ms")
     print(f"cand_score_fwd (stash) {list(train_operands[0].shape)} bf16 (G1 train): "
           f"kernel {stash_ms:.4f} ms, plain {stash_plain_ms:.4f} ms, bound "
           f"{stash_bound:.5f} ms ({stash_bound_by})")
     print(f"cand_score_bwd {list(train_operands[0].shape)} bf16 (G1 train): kernel "
           f"{bwd_ms:.4f} ms ({bwd_ops / bwd_ms / 1e9:.1f} TFLOP/s), plain "
           f"{bwd_plain_ms:.4f} ms, bound {bwd_bound:.5f} ms ({bwd_bound_by})")
+    recompute_bound, recompute_bound_by = cand_score_bwd_recompute_bound_ms(
+        train_operands)
+    recompute_ops = bwd_ops + 2 * n_rows * c * c
+    print(f"cand_score_bwd_recompute {list(train_operands[0].shape)} bf16 (G1 train): "
+          f"kernel {recompute_ms:.4f} ms ({recompute_ops / recompute_ms / 1e9:.1f} "
+          f"TFLOP/s), plain {recompute_plain_ms:.4f} ms, bound {recompute_bound:.5f} ms "
+          f"({recompute_bound_by})")
+    print(f"scorer kernels of one G1 train step: without the stash (forward + "
+          f"recompute backward) {fwd_train_ms + recompute_ms:.4f} ms, with it (stash "
+          f"forward + stash backward) {stash_ms + bwd_ms:.4f} ms, difference "
+          f"{fwd_train_ms + recompute_ms - stash_ms - bwd_ms:.4f} ms")
     xb, wb, mb = ugrnn_inputs(train_like_mask, torch.bfloat16, seed=7)
     _, hsb = ugrnn.ugrnn_scan_kernel(xb, wb, mb, return_state=True)
     gb = torch.randn(xb.shape[0], xb.shape[1], wb.shape[0],
@@ -1089,6 +1439,14 @@ def main() -> int:
           f"{train_sessions / train_ms * 1e3:.1f} sessions/s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     device_profile("train_step", one_train_step, 3, train_ms)
+    cand_scorer._STASH_NC = False
+    nostash_ms = cuda_ms(one_train_step, iters=10, warmup=2)
+    device_profile("train_step without the stash", one_train_step, 3, nostash_ms)
+    cand_scorer._STASH_NC = True
+    print(f"train_step without the stash (CUDA events over 10 steps): "
+          f"{nostash_ms:.3f} ms per batch against {train_ms:.3f} ms with it; peak "
+          f"device memory of one step {peaks[False] / 2**30:.4f} against "
+          f"{peaks[True] / 2**30:.4f} GiB")
 
     print(json.dumps({"kernels": [
         {
@@ -1154,6 +1512,19 @@ def main() -> int:
             "plain_ms": bwd_plain_ms,
             "bound_ms": bwd_bound,
             "bound_by": bwd_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "cand_score_bwd_recompute",
+            "route": "cuda",
+            "source": "chameleon_recsys_tpu_torch/csrc/cand_score_bwd.cu",
+            "replaces": "chameleon_recsys_tpu/ops/pallas/cand_scorer.py:275",
+            "launches": main_launches["cand_score_bwd_recompute"],
+            "max_abs_err": errors[("recompute", "g1_train")],
+            "ms": recompute_ms,
+            "plain_ms": recompute_plain_ms,
+            "bound_ms": recompute_bound,
+            "bound_by": recompute_bound_by,
             "library_ms": None,
         },
     ]}))

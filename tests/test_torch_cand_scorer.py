@@ -14,7 +14,9 @@ differ by construction.  The Pallas kernel needs BT to be a multiple of its
 The backward twin ``cand_score_bwd_reference`` is held against ``jax.vjp``
 of ``cand_score_pallas`` (interpret mode; its forward stashes nc, its
 backward is the stash body) at the tolerances of ``tests/test_cand_scorer.py``:
-f32 gradients at 2e-4, bf16 at 2e-2.  The stashed ``nc`` agrees with JAX's
+f32 gradients at 2e-4, bf16 at 2e-2; with ``nc=None`` (the recompute
+variant) against ``jax.vjp`` with the JAX module's ``_STASH_NC`` off, at the
+same tolerances, and bit for bit against the stash twin.  The stashed ``nc`` agrees with JAX's
 to one rounding, not bit for bit: XLA's f32 tanh and its summation order of
 the CAR product are not torch's (in f32 most elements differ in the last
 bit, 1e-6), so in bf16 a value next to a rounding boundary may round the
@@ -145,6 +147,35 @@ def test_bwd_twin_matches_pallas_vjp(dtype, shape):
                                    rtol=tol, atol=tol, err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [dict(bt=16, k=6), dict(bt=8, k=50, c=48)])
+def test_recompute_bwd_twin_matches_pallas_vjp(dtype, shape, monkeypatch):
+    """The twin of the backward that recomputes nc (``nc=None``) against
+    ``jax.vjp`` of ``cand_score_pallas`` with ``_STASH_NC`` off (its forward
+    stashes nothing, its backward is ``_bwd_kernel``), at the stash case's
+    tolerances; and bit-equal to the stash twin on the forward twin's nc."""
+    monkeypatch.setattr(jax_cand_scorer, "_STASH_NC", False)
+    jdt, tdt, _ = DTYPES[dtype]
+    tol = 2e-4 if dtype == "f32" else 2e-2
+    inputs = make_inputs(**shape, seed=8)
+    jax_args = as_jax(inputs, jdt)
+    g = _cotangent(shape["bt"], shape["k"], seed=9)
+    _, vjp = jax.vjp(lambda *a: cand_score_pallas(*a, 0.2, True), *jax_args)
+    expected = vjp(jnp.asarray(g))
+    operands = as_torch(inputs, tdt)
+    got = cand_scorer.cand_score_bwd_reference(*operands, None, torch.from_numpy(g),
+                                               alpha=0.2)
+    for name, a, e, operand in zip(GRADS, got, expected, operands):
+        assert a.dtype == operand.dtype and a.shape == operand.shape, name
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(e.astype(jnp.float32)),
+                                   rtol=tol, atol=tol, err_msg=name)
+    _, nc = cand_scorer.cand_score_reference(*operands, alpha=0.2, return_nc=True)
+    stash = cand_scorer.cand_score_bwd_reference(*operands, nc, torch.from_numpy(g),
+                                                 alpha=0.2)
+    for name, a, b in zip(GRADS, got, stash):
+        assert torch.equal(a, b), name
+
+
 def test_bwd_twin_odd_shape_matches_jax_reference_vjp():
     inputs = make_inputs(bt=13, k=7, c=40, m1=24, m2=16, m3=8, seed=4)
     jax_args = as_jax(inputs, jnp.float32)
@@ -159,16 +190,18 @@ def test_bwd_twin_odd_shape_matches_jax_reference_vjp():
                                    err_msg=name)
 
 
-def test_cand_score_function_matches_autograd_of_the_twin():
+@pytest.mark.parametrize("stash", [True, False])
+def test_cand_score_function_matches_autograd_of_the_twin(stash, monkeypatch):
+    monkeypatch.setattr(cand_scorer, "_STASH_NC", stash)
     operands = as_torch(make_inputs(bt=13, k=7, c=40, m1=24, seed=6), torch.float32)
     g = torch.from_numpy(_cotangent(13, 7, seed=7))
     fused = [t.clone().requires_grad_() for t in operands]
     plain = [t.clone().requires_grad_() for t in operands]
-    before = (cand_scorer.launches, cand_scorer.stash_launches, cand_scorer.bwd_launches)
+    counters = ("launches", "stash_launches", "bwd_launches", "bwd_recompute_launches")
+    before = [getattr(cand_scorer, c) for c in counters]
     (cand_scorer.cand_score(*fused, alpha=0.2) * g).sum().backward()
     (cand_scorer.cand_score_reference(*plain, alpha=0.2) * g).sum().backward()
-    assert before == (cand_scorer.launches, cand_scorer.stash_launches,
-                      cand_scorer.bwd_launches)
+    assert before == [getattr(cand_scorer, c) for c in counters]
     for name, a, b in zip(GRADS, fused, plain):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6, msg=name)
     with torch.no_grad():  # grad off: the eval forward, no stash

@@ -216,6 +216,61 @@ def test_cand_score_stash_and_bwd_match_reference(card, dtype, shape):
         _close_normwise(got, want, tol, name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2688, 50, 1024, 128, 64, 32),  # the compacted G1 train shape
+    (13, 7, 40, 24, 16, 8),
+    (5, 3, 37, 9, 5, 3),
+])
+def test_cand_score_bwd_recompute_matches_reference(card, dtype, shape):
+    """The backward that recomputes nc against its twin (normwise, as the
+    stash backward), and against the stash backward on the nc the stash
+    forward writes: nc is formed the same way in both, so every gradient has
+    the same bits."""
+    if dtype == torch.float32 and shape[0] > 1000:
+        shape = (256,) + shape[1:]
+    bt, k = shape[:2]
+    operands = [t.to(card) for t in _scorer_inputs(*shape, dtype=dtype, seed=9)]
+    g = torch.randn(bt, k, generator=torch.Generator().manual_seed(10)).to(card)
+    before = (cand_scorer.bwd_launches, cand_scorer.bwd_recompute_launches)
+    grads = cand_scorer.cand_score_bwd_recompute_kernel(*operands, g)
+    torch.cuda.synchronize()
+    assert (cand_scorer.bwd_launches, cand_scorer.bwd_recompute_launches) == (
+        before[0], before[1] + 1)
+    ref = cand_scorer.cand_score_bwd_reference(*operands, None, g)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for name, got, want, operand in zip(SCORER_GRADS, grads, ref, operands):
+        assert got.dtype == operand.dtype and got.shape == operand.shape, name
+        _close_normwise(got, want, tol, name)
+    _, nc = cand_scorer.cand_score_kernel(*operands, return_nc=True)
+    stash = cand_scorer.cand_score_bwd_kernel(*operands, nc, g)
+    torch.cuda.synchronize()
+    for name, got, want in zip(SCORER_GRADS, grads, stash):
+        assert torch.equal(got, want), name
+
+
+def test_cand_score_function_without_stash_on_card(card, monkeypatch):
+    """With ``_STASH_NC`` off, ``CandScore`` launches the eval forward and
+    the recompute backward, and its gradients are the CPU's."""
+    monkeypatch.setattr(cand_scorer, "_STASH_NC", False)
+    operands = _scorer_inputs(13, 7, 40, 24, 16, 8, torch.float32, seed=11)
+    g = torch.randn(13, 7, generator=torch.Generator().manual_seed(12))
+    grads = {}
+    for device in ("cpu", card):
+        leaves = [t.detach().clone().to(device).requires_grad_() for t in operands]
+        before = (cand_scorer.launches, cand_scorer.stash_launches,
+                  cand_scorer.bwd_launches, cand_scorer.bwd_recompute_launches)
+        (cand_scorer.cand_score(*leaves) * g.to(device)).sum().backward()
+        after = (cand_scorer.launches, cand_scorer.stash_launches,
+                 cand_scorer.bwd_launches, cand_scorer.bwd_recompute_launches)
+        if device == card:
+            torch.cuda.synchronize()
+            assert [a - b for a, b in zip(after, before)] == [1, 0, 0, 1]
+        grads[str(device)] = [t.grad.cpu() for t in leaves]
+    for name, got, want in zip(SCORER_GRADS, grads[str(card)], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-6, msg=name)
+
+
 def test_cand_score_function_on_card_matches_cpu(card):
     operands = _scorer_inputs(13, 7, 40, 24, 16, 8, torch.float32, seed=7)
     g = torch.randn(13, 7, generator=torch.Generator().manual_seed(8))

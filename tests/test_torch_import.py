@@ -23,6 +23,13 @@ import chameleon_recsys_tpu_torch.train.loss
 import chameleon_recsys_tpu_torch.ops.embedding
 import chameleon_recsys_tpu_torch.ops.kernels.cand_scorer
 import chameleon_recsys_tpu_torch.ops.kernels.ugrnn
+import chameleon_recsys_tpu_torch.train.temporal
+import chameleon_recsys_tpu_torch.train.checkpoint
+import chameleon_recsys_tpu_torch.metrics
+import chameleon_recsys_tpu_torch.baselines
+import chameleon_recsys_tpu_torch.state.host_state
+import chameleon_recsys_tpu_torch.utils.io
+import chameleon_recsys_tpu_torch.utils.profiling
 loaded = [m for m in sys.modules
           if m == "chameleon_recsys_tpu" or m.startswith("chameleon_recsys_tpu.")]
 jax = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]

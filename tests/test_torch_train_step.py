@@ -12,6 +12,9 @@ splits it (``_split_state_rng``, ``_forward_and_negatives``,
 runs its Pallas kernels in interpret mode, as it selects off-TPU; the port
 runs on the CPU, where its kernel wrappers take the plain twins.
 
+One step also runs with ``_STASH_NC`` off in both packages (the backward
+that recomputes nc), at the same tolerances.
+
 Tolerances (all float32): ``loss``, ``ce_loss`` and ``reg_loss`` at rel
 1e-5; every gradient leaf at rtol 5e-4 / atol 5e-6, the tolerances of
 ``tests/test_row_compaction.py`` (near-zero leaves differ by the reduction
@@ -52,6 +55,7 @@ from chameleon_recsys_tpu.train.steps import (
     valid_click_mask as jax_valid_click_mask,
 )
 from chameleon_recsys_tpu.data.collate import collate_sessions as jax_collate
+from chameleon_recsys_tpu.ops.pallas import cand_scorer as jax_cand_scorer
 
 from chameleon_recsys_tpu_torch.convert import flax_from_tensors
 from chameleon_recsys_tpu_torch.ops import sampling
@@ -312,7 +316,21 @@ def case(request, world):
 
 
 def test_one_train_step_matches_jax(world, case):
-    name, cfg = case
+    _check_one_train_step(world, case[1])
+
+
+def test_one_train_step_without_stash_matches_jax(world, monkeypatch):
+    """``_STASH_NC`` off in both packages: the jitted JAX step runs the
+    Pallas backward that recomputes nc (``_bwd_kernel``), the port's
+    ``CandScore`` the eval forward and the recompute twin."""
+    monkeypatch.setattr(jax_cand_scorer, "_STASH_NC", False)
+    monkeypatch.setattr(cand_scorer, "_STASH_NC", False)
+    _check_one_train_step(world, config(
+        train_valid_row_capacity=world["capacity"], novelty_reg_factor=0.1,
+        learning_rate=G1_LEARNING_RATE, **CASES["kernels_on"]))
+
+
+def _check_one_train_step(world, cfg):
     batch = world["batches"][0]
     jax_stream = warm_stream(world, cfg, 2)
     params = jax.tree_util.tree_map(jnp.asarray, world["params"])
@@ -332,13 +350,14 @@ def test_one_train_step_matches_jax(world, case):
     uniforms, _ = jax_train_uniforms(cfg, jax_state.rng, rows, cfg.batch_size,
                                      cfg.max_session_length,
                                      cfg.recent_clicks_buffer_max_size)
-    launches = (cand_scorer.launches, cand_scorer.stash_launches,
-                cand_scorer.bwd_launches, ugrnn.launches, ugrnn.bwd_launches)
+    counters = ((cand_scorer, "launches"), (cand_scorer, "stash_launches"),
+                (cand_scorer, "bwd_launches"), (cand_scorer, "bwd_recompute_launches"),
+                (ugrnn, "launches"), (ugrnn, "bwd_launches"))
+    launches = [getattr(module, name) for module, name in counters]
     state, metrics = train_step(state, to_torch(batch), ace, metadata,
                                 uniforms=uniforms)
     # the CPU path launches no kernel
-    assert launches == (cand_scorer.launches, cand_scorer.stash_launches,
-                        cand_scorer.bwd_launches, ugrnn.launches, ugrnn.bwd_launches)
+    assert launches == [getattr(module, name) for module, name in counters]
 
     assert set(metrics) == set(jax_metrics)
     for key in ("loss", "ce_loss", "reg_loss"):
