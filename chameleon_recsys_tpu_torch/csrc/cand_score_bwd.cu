@@ -20,44 +20,45 @@
 // What bounds it: at the compacted G1 train shape (N = 2688 * 50 rows,
 // C 1024, M 128/64/32) the products come to 2 N (2 C^2 + 3 C M1 + 3 M1 M2 +
 // 3 M2 M3), about 0.68 TFLOP, against about 0.8 GB of operands and outputs:
-// the tensor cores bound it.
+// the tensor cores bound it.  Of that, dpre = dncp_c car_W^T and
+// dcar_w = pre^T dncp_c are 0.28 TFLOP each, plain GEMMs.
 //
 // What the design does about it.  The Pallas kernel adds every weight
 // gradient into one output block across its sequential grid; blocks on a GPU
 // run in parallel and in no order, and dcar_w [C, C] f32 (4 MB) fits no
 // block.  So the work is split into launches, none with float atomics, each
-// summing in a fixed order (the result does not depend on scheduling):
-//   1. the row kernel: a block owns kRows candidate rows.  It forms prod in
-//      shared memory, a1 on the tensor cores (WMMA, bf16 in, f32 accumulate),
-//      the small matching tail and its backward on the CUDA cores, then dprod
-//      in 64-column chunks (dprod = da1 W1^T), writing dncp_c into shared
-//      memory over prod, and last dpre = dncp_c car_W^T in 128-column chunks
-//      and di.  It writes di, dp_rep, dncp_c, x1..x3 and da1..da3.
-//   2. segment sums: du and dp, one thread per (session, step, column).
-//   3. the transposed products A^T B over all N rows (dcar_w, dW1, dW2,
-//      dW3): a block owns a 64 x 64 tile of the output and one of S slices of
-//      the rows (split-N), A tiles built on the fly where A is pre or prod;
-//      then a fixed-order sum over the S partials.
-//   4. column sums (the bias grads and dw4), split over rows the same way.
-// car_W (2 MB in bf16) and W1 are re-read from L2 by every row block, as in
-// the forward kernel.  The float32 path has the same structure on the CUDA
-// cores in full f32 (no TF32), with kRows = 16.
+// summing in a fixed order (two launches on the same inputs give the same
+// bits), in this order:
+//   1. the narrow row kernel: a block owns kRows candidate rows and walks C
+//      in 64-column chunks twice, each chunk's W1 rows, nc and pred arriving
+//      by cp.async into a ring of stages while the previous chunk is used.
+//      First a1 = prod W1 (prod = [d] nc * pred formed in the stage), then
+//      the small matching tail and its backward on the CUDA cores, then
+//      dprod = da1 W1^T per chunk and from it dp_rep and dncp_c.  It writes
+//      dp_rep, dncp_c, x1..x3 and da1..da3.
+//   2. dp, the segment sum of dp_rep (its scratch is then free);
+//   3. dW1 = prod^T da1 on the GEMM core (sm90_gemm.cuh: TMA, mbarrier
+//      ring, wgmma), prod = [d] nc * pred first written into dp_rep's slot,
+//      both operands MN-major, the rows split into f32 partials summed in
+//      split order; the last read of nc;
+//   4. dpre on the core, A = dncp_c K-major, B = car_W read as B^T
+//      K-major; its epilogue reads
+//      i_rows and u and writes di = [d] dpre leaky'(i + u) and
+//      pre = [d] leaky(i + u) into dp_rep's slot;
+//   5. du, the segment sum of di;
+//   6. dcar_w = pre^T dncp_c on the core, as dW1;
+//   7. dW2, dW3 (narrow split-N transposed products on WMMA) and the column
+//      sums (bias grads, dw4).
+// The float32 path has the same launches with the products on the CUDA
+// cores in full f32 (no TF32): the row kernel's f32 branch (kRows = 32) and
+// a tiled CUDA-core GEMM with the same epilogues in place of the core.
 //
-// The recompute variant (a null `nc`) replaces the TPU kernel
-// chameleon_recsys_tpu/ops/pallas/cand_scorer.py::_bwd_kernel (_bwd_body
-// with nc_ref=None, run when _STASH_NC is off).  It reads no [N, C] stash and
-// adds 2 N C^2 operations (the CAR product once more).  The design keeps the
-// row kernel's shared memory as it is: the row block first stages pre over
-// its prod buffer and forms nc = [d] tanh(pre car_W + car_b) in 128-column
-// chunks on the tensor cores, exactly as the forward forms it (the same WMMA
-// tiles in the same k order, + car_b, tanhf, one rounding), and writes it
-// into its own rows of di, which is nc's home until di is written.  The
-// rest of the row kernel then reads nc from there as K1b reads the stash.
-// dW1 needs prod = nc * pred over all rows after the row kernel, so the row
-// kernel stops before dpre; dW1's transposed product runs; a second launch
-// of the row kernel reloads dncp_c and forms dpre and di over nc.  No buffer
-// beyond K1b's scratch is allocated, and given the forward's nc the
-// gradients are K1b's bit for bit (every sum in the same order).
+// The recompute variant K1b' (replacing _bwd_kernel, _bwd_body with
+// nc_ref=None, run when _STASH_NC is off) is not in this file: the caller
+// first runs the stash forward (cand_score_fwd.cu) with its nc output set to
+// di, then this backward with nc = di.  di is nc's home until launch 4
+// writes it, and nothing reads nc after prod in launch 3, so K1b' is K1b on the
+// forward's own nc, bit for bit, in K1b's memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,18 +67,21 @@
 
 #include <type_traits>
 
+#include "sm90_gemm.cuh"
+
 namespace {
 
 using namespace nvcuda;
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kChunk = 64;     // dprod columns per step
-constexpr int kCarChunk = 128;  // dpre columns per step: 8 MMAs per warp and tile
-constexpr int kDepth = 64;     // depth of one staged weight tile
+constexpr int kRowThreads = 512;  // 16 warps: the row kernel, one block an SM
+constexpr int kCh = 64;        // C columns (and W1 rows) per row-kernel step
 constexpr int kMaxM1 = 128;    // widest first matching layer
 constexpr int kTn = 64;        // output tile edge of the transposed products
 constexpr int kTnDepth = 64;   // rows per step of the transposed products
 constexpr int kSumCols = 32;   // columns per block of the column sums
+constexpr int kSimt = 64;      // output tile edge of the CUDA-core GEMM
+constexpr int kSimtDepth = 16;  // its k step
 constexpr int kSmemLimit = 232448;  // 227 KB a block may use on sm_90
 constexpr int kTargetBlocks = 264;  // two blocks per SM of an H100
 
@@ -85,13 +89,15 @@ template <typename Scalar>
 struct Traits;
 template <>
 struct Traits<__nv_bfloat16> {
-  static constexpr int kRows = 32;
+  static constexpr int kRows = 64;
   static constexpr int kPad = 8;  // 16 bytes of row padding against bank conflicts
+  static constexpr int kStages = 3;
 };
 template <>
 struct Traits<float> {
-  static constexpr int kRows = 16;
+  static constexpr int kRows = 32;
   static constexpr int kPad = 4;
+  static constexpr int kStages = 2;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -148,329 +154,150 @@ __device__ __forceinline__ void load_f32(const Scalar* p, int valid,
   }
 }
 
-// Copies a [kTileRows x cols] tile of the row-major global matrix
-// [n_rows, n_cols] at (r0, c0) into shared memory with leading dimension ld;
-// what lies outside the matrix reads as 0.  `cols` is a multiple of 16 bytes'
-// worth of elements and at most kMaxCols.
-template <typename Scalar, int kTileRows, int kMaxCols>
-__device__ __forceinline__ void stage_tile(Scalar* s, int ld, const Scalar* g,
-                                           int n_rows, int n_cols, int r0,
-                                           int c0, int cols, bool vec_ok) {
-  constexpr int kVec = 16 / sizeof(Scalar);
-  const int vecs_per_row = cols / kVec;
-  for (int v = threadIdx.x; v < kTileRows * vecs_per_row; v += kThreads) {
-    const int r = v / vecs_per_row;
-    const int c = (v % vecs_per_row) * kVec;
-    const int gr = r0 + r, gc = c0 + c;
-    uint4 value = make_uint4(0, 0, 0, 0);
-    if (gr < n_rows && gc < n_cols) {
-      const Scalar* src = g + (size_t)gr * n_cols + gc;
-      if (vec_ok) {
-        value = *reinterpret_cast<const uint4*>(src);
-      } else {
-        Scalar* dst = reinterpret_cast<Scalar*>(&value);
+// ---- cp.async ----
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// A thread's share of copying a tile of `rows` rows of `vecs_per_row`
+// 16-byte vectors, the same for every chunk: slot q is tile row row[q]
+// (-1: none), from column col[q].  Worked out once, so that a chunk's copy
+// costs no division.
+template <int kSlots>
+struct CopySlots {
+  int row[kSlots], col[kSlots];
+  __device__ __forceinline__ CopySlots(int rows, int vecs_per_row, int vec) {
 #pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          dst[e] = gc + e < n_cols ? src[e] : from_f32<Scalar>(0.f);
-      }
+    for (int q = 0; q < kSlots; ++q) {
+      const int v = threadIdx.x + q * kRowThreads;
+      row[q] = v < rows * vecs_per_row ? v / vecs_per_row : -1;
+      col[q] = (v % vecs_per_row) * vec;
     }
-    *reinterpret_cast<uint4*>(s + r * ld + c) = value;
+  }
+};
+
+// Starts copying a tile into shared memory (leading dimension ld): tile row
+// r is global row row_of(r) (or zeros where that is -1) of the row-major
+// [*, n_cols] matrix g, from column c0; columns past n_cols read as 0.
+// Where a row of g is not 16-byte aligned (n_cols not a multiple of the
+// vector), the copy is synchronous.
+template <typename Scalar, int kSlots, typename RowOf>
+__device__ __forceinline__ void async_tile(const CopySlots<kSlots>& slots, Scalar* s,
+                                           int ld, const Scalar* g, int n_cols,
+                                           int c0, bool vec_ok, RowOf row_of) {
+  constexpr int kVec = 16 / sizeof(Scalar);
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const int r = slots.row[q];
+    if (r < 0) continue;
+    const int c = slots.col[q];
+    const long long gr = row_of(r);
+    const int gc = c0 + c;
+    Scalar* dst = s + r * ld + c;
+    if (vec_ok) {
+      const bool in = gr >= 0 && gc < n_cols;
+      cp_async_16(dst, in ? g + gr * n_cols + gc : g, in);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        dst[e] = gr >= 0 && gc + e < n_cols ? g[gr * n_cols + gc + e]
+                                            : from_f32<Scalar>(0.f);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// 1. the row kernel
+// 1. the narrow row kernel
 // ---------------------------------------------------------------------------
 
 // Shared-memory layout of one row block (byte offsets), shared by the host,
-// which sizes the launch, and the kernel.
+// which sizes the launch, and the kernel: a ring of kStages stages, each a
+// W1 tile [kCh][m1_pad] and the block's nc and pred chunks [kRows][kCh]
+// (during the tail the last stage holds W2 and W3, rows padded to an odd
+// number of words so that a warp reading down a column hits 32 banks); the
+// tail's buffers (the dprod chunk's f32 stage aliases them); da1; the pred
+// row of each of the block's rows.
 template <typename Scalar>
 struct RowLayout {
   static constexpr int R = Traits<Scalar>::kRows;
   static constexpr int P = Traits<Scalar>::kPad;
-  int c_pad, m1_pad, ld_buf, ld_w1, ld_car, ld_nc, ld_stage, ld_a1, ld_da1;
-  // c_pad is a multiple of kChunk; the dpre and nc loops run over c_pad
-  // rounded up to kCarChunk, their last chunk's tail columns masked
-  size_t off_w, off_stage, off_a1, off_x1, off_small, off_da1, bytes;
+  static constexpr int S = Traits<Scalar>::kStages;
+  int m1_pad, ld_w1, ld_ch, ld_a1, ld_x1, ld_da1, ld_stage, ld_w2, ld_w3;
+  size_t stage_bytes, off_nc, off_pred, off_w3, off_a1, off_x1, off_a2, off_x2,
+      off_da2, off_a3, off_x3, off_da3, off_da1, off_bt, bytes;
 
-  __host__ __device__ RowLayout(int c, int m1, int m2, int m3) {
-    c_pad = round_up(c, kChunk);
+  __host__ __device__ RowLayout(int m1, int m2, int m3) {
+    constexpr size_t e = sizeof(Scalar);
     m1_pad = round_up(m1, 16);
-    ld_buf = c_pad + P;
     ld_w1 = m1_pad + P;
-    ld_car = kDepth + P;
-    ld_nc = kCarChunk + P;
-    ld_stage = kCarChunk + 4;
+    ld_ch = kCh + P;
     ld_a1 = m1_pad + 4;
+    ld_x1 = m1_pad + P;
     ld_da1 = m1_pad + P;
-    const size_t w1_tile = (size_t)kDepth * ld_w1 * sizeof(Scalar);
-    const size_t car_tile = (size_t)kCarChunk * ld_car * sizeof(Scalar);
-    const size_t nc_tile = (size_t)kDepth * ld_nc * sizeof(Scalar);
-    size_t w_tile = w1_tile > car_tile ? w1_tile : car_tile;
-    w_tile = w_tile > nc_tile ? w_tile : nc_tile;
-    off_w = align128((size_t)R * ld_buf * sizeof(Scalar));
-    off_stage = off_w + align128(w_tile);
-    off_a1 = off_stage + align128((size_t)R * ld_stage * sizeof(float));
-    off_x1 = off_a1 + align128((size_t)R * ld_a1 * sizeof(float));
-    off_small = off_x1 + align128((size_t)R * ld_a1 * sizeof(float));
-    // a2, x2, da2 [R][m2]; a3, x3, da3 [R][m3]
-    off_da1 = off_small + align128((size_t)R * 3 * (m2 + m3) * sizeof(float));
-    bytes = off_da1 + align128((size_t)R * ld_da1 * sizeof(Scalar));
+    ld_stage = kCh + 4;
+    ld_w2 = m2 + (e == 2 ? 2 : 1);
+    ld_w3 = m3 + (e == 2 ? 2 : 1);
+    off_nc = align128((size_t)kCh * ld_w1 * e);
+    off_pred = off_nc + align128((size_t)R * ld_ch * e);
+    stage_bytes = off_pred + align128((size_t)R * ld_ch * e);
+    off_w3 = align128((size_t)m1 * ld_w2 * e);
+    const size_t tail_w = off_w3 + align128((size_t)m2 * ld_w3 * e);
+    stage_bytes = stage_bytes > tail_w ? stage_bytes : tail_w;
+    size_t at = S * stage_bytes;
+    off_a1 = take(at, (size_t)R * ld_a1 * 4);
+    off_x1 = take(at, (size_t)R * ld_x1 * e);
+    off_a2 = take(at, (size_t)R * m2 * 4);
+    off_x2 = take(at, (size_t)R * m2 * e);
+    off_da2 = take(at, (size_t)R * m2 * e);
+    off_a3 = take(at, (size_t)R * m3 * 4);
+    off_x3 = take(at, (size_t)R * m3 * e);
+    off_da3 = take(at, (size_t)R * m3 * e);
+    const size_t stage_end = off_a1 + align128((size_t)R * ld_stage * 4);
+    at = at > stage_end ? at : stage_end;
+    off_da1 = take(at, (size_t)R * ld_da1 * e);
+    off_bt = take(at, (size_t)R * sizeof(int));
+    bytes = at;
+  }
+
+  // the offset `at` before b more bytes (128-byte aligned) are taken
+  __host__ __device__ static size_t take(size_t& at, size_t b) {
+    const size_t here = at;
+    at += align128(b);
+    return here;
   }
 };
 
-// What one launch of the row kernel does: all of it from the stash (K1b);
-// the front of the recompute variant (nc into di, then everything up to
-// dncp_c); or its back (dpre and di from the dncp_c the front wrote).
-enum RowMode { kRowAll = 0, kRowFront = 1, kRowDpre = 2 };
-
 struct RowParams {
-  const void *i_rows, *u, *pred, *car_w, *car_b, *w1, *b1, *w2, *b2, *w3,
-      *b3, *w4, *nc;
+  const void *pred, *w1, *b1, *w2, *b2, *w3, *b3, *w4, *nc;
   const float* g;
-  void *di, *dp_rep, *dncp_c, *x1, *x2, *x3, *da1, *da2, *da3;
+  void *dp_rep, *dncp_c, *x1, *x2, *x3, *da1, *da2, *da3;
   long long n_rows;
   int k, c, m1, m2, m3;
   float alpha;
-  int mode;  // a RowMode; with kRowFront, nc points at di
 };
 
-// The recompute variant's nc for the block's rows, written to their rows of
-// p.di: pre = [d] leaky(i + u) staged in the prod buffer, then
-// nc = [d] tanh(pre @ car_W + car_b) in kCarChunk-column chunks, formed as
-// cand_score_fwd.cu forms it (16 x 16 WMMA tiles, or f32 fmaf chains, over
-// k in increasing order from 0; + car_b; tanhf; one rounding).
 template <typename Scalar>
-__device__ __forceinline__ void recompute_nc(const RowParams& p,
-                                             const RowLayout<Scalar>& L,
-                                             unsigned char* smem) {
-  constexpr bool kTensor = std::is_same<Scalar, __nv_bfloat16>::value;
-  constexpr int R = Traits<Scalar>::kRows;
-  constexpr int kVec = 16 / sizeof(Scalar);
-  using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  const int C = p.c, K = p.k;
-  const float alpha = p.alpha;
-  const long long row0 = (long long)blockIdx.x * R;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const bool c_vec = C % kVec == 0;
-  const Scalar* i_rows = static_cast<const Scalar*>(p.i_rows);
-  const Scalar* u = static_cast<const Scalar*>(p.u);
-  const Scalar* car_w = static_cast<const Scalar*>(p.car_w);
-  const Scalar* car_b = static_cast<const Scalar*>(p.car_b);
-  Scalar* nc = static_cast<Scalar*>(p.di);
-  Scalar* buf = reinterpret_cast<Scalar*>(smem);
-  Scalar* wt = reinterpret_cast<Scalar*>(smem + L.off_w);
-  float* stage = reinterpret_cast<float*>(smem + L.off_stage);
-
-  {
-    const int vecs_per_row = L.c_pad / kVec;
-    for (int v = tid; v < R * vecs_per_row; v += kThreads) {
-      const int r = v / vecs_per_row;
-      const int col = (v % vecs_per_row) * kVec;
-      const long long row = row0 + r;
-      uint4 packed = make_uint4(0, 0, 0, 0);
-      if (row < p.n_rows && col < C) {
-        float iv[kVec], uv[kVec];
-        load_f32(i_rows + row * C + col, C - col, c_vec, iv);
-        load_f32(u + (row / K) * C + col, C - col, c_vec, uv);
-        Scalar* out = reinterpret_cast<Scalar*>(&packed);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          out[e] = from_f32<Scalar>(leaky(iv[e] + uv[e], alpha));
-      }
-      *reinterpret_cast<uint4*>(buf + r * L.ld_buf + col) = packed;
-    }
-  }
-  for (int j0 = 0; j0 < L.c_pad; j0 += kCarChunk) {
-    // tensor path: warp w owns tiles (w % 2, 2 * (w / 2) + {0, 1}) of the
-    // [32 x 128] chunk
-    Frag acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    constexpr int kPer = R * kCarChunk / kThreads;
-    float acc_c[kTensor ? 1 : kPer];
-    if constexpr (!kTensor) {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) acc_c[i] = 0.f;
-    }
-    for (int k0 = 0; k0 < L.c_pad; k0 += kDepth) {
-      __syncthreads();  // pre complete / the previous tile and stage consumed
-      // car_W rows k0..k0+63, columns j0..j0+127: a row-major [64 x 128]
-      // operand with leading dimension ld_nc
-      stage_tile<Scalar, kDepth, kCarChunk>(wt, L.ld_nc, car_w, C, C, k0, j0,
-                                            kCarChunk, c_vec);
-      __syncthreads();
-      if constexpr (kTensor) {
-        const int rt = warp % 2, ct = 2 * (warp / 2);
-#pragma unroll
-        for (int kk = 0; kk < kDepth; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              a;
-          wmma::load_matrix_sync(a, buf + 16 * rt * L.ld_buf + k0 + kk,
-                                 L.ld_buf);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major>
-                b;
-            wmma::load_matrix_sync(b, wt + kk * L.ld_nc + 16 * (ct + j),
-                                   L.ld_nc);
-            wmma::mma_sync(acc[j], a, b, acc[j]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const int v = tid + i * kThreads;
-          const Scalar* a_row = buf + (v / kCarChunk) * L.ld_buf + k0;
-          const Scalar* b_col = wt + v % kCarChunk;
-          float s = acc_c[i];
-#pragma unroll 8
-          for (int kk = 0; kk < kDepth; ++kk)
-            s = fmaf(to_f32(a_row[kk]), to_f32(b_col[kk * L.ld_nc]), s);
-          acc_c[i] = s;
-        }
-      }
-    }
-    if constexpr (kTensor) {
-      const int rt = warp % 2, ct = 2 * (warp / 2);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(stage + 16 * rt * L.ld_stage + 16 * (ct + j),
-                                acc[j], L.ld_stage, wmma::mem_row_major);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int v = tid + i * kThreads;
-        stage[(v / kCarChunk) * L.ld_stage + v % kCarChunk] = acc_c[i];
-      }
-    }
-    __syncthreads();
-    for (int v = tid; v < R * kCarChunk; v += kThreads) {
-      const int r = v / kCarChunk, j = v % kCarChunk;
-      const long long row = row0 + r;
-      const int col = j0 + j;
-      if (row < p.n_rows && col < C)
-        nc[row * C + col] = from_f32<Scalar>(
-            tanhf(stage[r * L.ld_stage + j] + to_f32(car_b[col])));
-    }
-  }
-  __syncthreads();  // the block's nc rows are written; pre is no longer read
-}
-
-// dpre = dncp_c @ car_W^T in column chunks, with dncp_c in the block's
-// shared buffer, and di = [d] dpre leaky'(i + u) for the block's rows.
-template <typename Scalar>
-__device__ __forceinline__ void dpre_and_di(const RowParams& p,
-                                            const RowLayout<Scalar>& L,
-                                            unsigned char* smem) {
-  constexpr bool kTensor = std::is_same<Scalar, __nv_bfloat16>::value;
-  constexpr int R = Traits<Scalar>::kRows;
-  constexpr int kVec = 16 / sizeof(Scalar);
-  using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  const int C = p.c, K = p.k;
-  const float alpha = p.alpha;
-  const long long row0 = (long long)blockIdx.x * R;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const bool c_vec = C % kVec == 0;
-  const Scalar* i_rows = static_cast<const Scalar*>(p.i_rows);
-  const Scalar* u = static_cast<const Scalar*>(p.u);
-  const Scalar* car_w = static_cast<const Scalar*>(p.car_w);
-  Scalar* di = static_cast<Scalar*>(p.di);
-  const Scalar* buf = reinterpret_cast<const Scalar*>(smem);
-  Scalar* wt = reinterpret_cast<Scalar*>(smem + L.off_w);
-  float* stage = reinterpret_cast<float*>(smem + L.off_stage);
-
-  for (int j0 = 0; j0 < L.c_pad; j0 += kCarChunk) {
-    // tensor path: warp w owns tiles (w % 2, 2 * (w / 2) + {0, 1}) of the
-    // [32 x 128] chunk
-    Frag acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    constexpr int kPer = R * kCarChunk / kThreads;
-    float acc_c[kTensor ? 1 : kPer];
-    if constexpr (!kTensor) {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) acc_c[i] = 0.f;
-    }
-    for (int k0 = 0; k0 < L.c_pad; k0 += kDepth) {
-      __syncthreads();  // dncp_c complete / the previous tile is consumed
-      // car_W rows j0..j0+127, columns k0..k0+63: as a [64 (k) x 128 (j)]
-      // operand it is column-major with leading dimension ld_car
-      stage_tile<Scalar, kCarChunk, kDepth>(wt, L.ld_car, car_w, C, C, j0, k0,
-                                            kDepth, c_vec);
-      __syncthreads();
-      if constexpr (kTensor) {
-        const int rt = warp % 2, ct = 2 * (warp / 2);
-#pragma unroll
-        for (int kk = 0; kk < kDepth; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              a;
-          wmma::load_matrix_sync(a, buf + 16 * rt * L.ld_buf + k0 + kk,
-                                 L.ld_buf);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::col_major>
-                b;
-            wmma::load_matrix_sync(b, wt + 16 * (ct + j) * L.ld_car + kk,
-                                   L.ld_car);
-            wmma::mma_sync(acc[j], a, b, acc[j]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const int v = tid + i * kThreads;
-          const Scalar* a_row = buf + (v / kCarChunk) * L.ld_buf + k0;
-          const Scalar* b_row = wt + (v % kCarChunk) * L.ld_car;
-          float s = acc_c[i];
-#pragma unroll 8
-          for (int kk = 0; kk < kDepth; ++kk)
-            s = fmaf(to_f32(a_row[kk]), to_f32(b_row[kk]), s);
-          acc_c[i] = s;
-        }
-      }
-    }
-    __syncthreads();  // every read of the stage of the last chunk is done
-    if constexpr (kTensor) {
-      const int rt = warp % 2, ct = 2 * (warp / 2);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(stage + 16 * rt * L.ld_stage + 16 * (ct + j),
-                                acc[j], L.ld_stage, wmma::mem_row_major);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int v = tid + i * kThreads;
-        stage[(v / kCarChunk) * L.ld_stage + v % kCarChunk] = acc_c[i];
-      }
-    }
-    __syncthreads();
-    for (int v = tid; v < R * kCarChunk; v += kThreads) {
-      const int r = v / kCarChunk, j = v % kCarChunk;
-      const long long row = row0 + r;
-      const int col = j0 + j;
-      if (row < p.n_rows && col < C) {
-        const float a0 = to_f32(i_rows[row * C + col]) +
-                         to_f32(u[(row / K) * C + col]);
-        di[row * C + col] = from_f32<Scalar>(stage[r * L.ld_stage + j] *
-                                             dleaky(a0, alpha));
-      }
-    }
-  }
-}
-
-template <typename Scalar>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kRowThreads, 1)
     cand_score_bwd_rows_kernel(const RowParams p) {
   constexpr bool kTensor = std::is_same<Scalar, __nv_bfloat16>::value;
   constexpr int R = Traits<Scalar>::kRows;
+  constexpr int S = Traits<Scalar>::kStages;
   constexpr int kVec = 16 / sizeof(Scalar);
   using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  const RowLayout<Scalar> L(p.c, p.m1, p.m2, p.m3);
+  const RowLayout<Scalar> L(p.m1, p.m2, p.m3);
   const int C = p.c, M1 = p.m1, M2 = p.m2, M3 = p.m3, K = p.k;
   const float alpha = p.alpha;
   const long long row0 = (long long)blockIdx.x * R;
@@ -485,75 +312,107 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Scalar* b3 = static_cast<const Scalar*>(p.b3);
   const Scalar* w4 = static_cast<const Scalar*>(p.w4);
   const Scalar* nc = static_cast<const Scalar*>(p.nc);
-  Scalar* dp_rep = static_cast<Scalar*>(p.dp_rep);
-  Scalar* dncp_g = static_cast<Scalar*>(p.dncp_c);
 
   extern __shared__ __align__(128) unsigned char smem[];
-  Scalar* buf = reinterpret_cast<Scalar*>(smem);  // prod, then dncp_c
-  Scalar* wt = reinterpret_cast<Scalar*>(smem + L.off_w);
-  float* stage = reinterpret_cast<float*>(smem + L.off_stage);
+  auto w1_tile = [&](int s) {
+    return reinterpret_cast<Scalar*>(smem + s * L.stage_bytes);
+  };
+  auto nc_tile = [&](int s) {
+    return reinterpret_cast<Scalar*>(smem + s * L.stage_bytes + L.off_nc);
+  };
+  auto pred_tile = [&](int s) {
+    return reinterpret_cast<Scalar*>(smem + s * L.stage_bytes + L.off_pred);
+  };
   float* a1 = reinterpret_cast<float*>(smem + L.off_a1);
-  float* x1 = reinterpret_cast<float*>(smem + L.off_x1);
-  float* a2 = reinterpret_cast<float*>(smem + L.off_small);
-  float* x2 = a2 + R * M2;
-  float* da2 = x2 + R * M2;
-  float* a3 = da2 + R * M2;
-  float* x3 = a3 + R * M3;
-  float* da3 = x3 + R * M3;
+  Scalar* x1 = reinterpret_cast<Scalar*>(smem + L.off_x1);
+  float* a2 = reinterpret_cast<float*>(smem + L.off_a2);
+  Scalar* x2 = reinterpret_cast<Scalar*>(smem + L.off_x2);
+  Scalar* da2 = reinterpret_cast<Scalar*>(smem + L.off_da2);
+  float* a3 = reinterpret_cast<float*>(smem + L.off_a3);
+  Scalar* x3 = reinterpret_cast<Scalar*>(smem + L.off_x3);
+  Scalar* da3 = reinterpret_cast<Scalar*>(smem + L.off_da3);
   Scalar* da1 = reinterpret_cast<Scalar*>(smem + L.off_da1);
+  float* stage = a1;  // the dprod chunk, once the tail is done
 
   const bool c_vec = C % kVec == 0;
   const bool m1_vec = M1 % kVec == 0;
   const int m1_tiles = L.m1_pad / 16;
+  const int n_ch = (C + kCh - 1) / kCh;
+  // the block's rows belong to (session, step) rows bt0 .. bt0 + n_bt - 1 of
+  // pred; row r reads pred row bt_of[r] of a stage
+  const long long row_end = row0 + R < p.n_rows ? row0 + R : p.n_rows;
+  const long long bt0 = row0 / K;
+  const int n_bt = (int)((row_end - 1) / K - bt0 + 1);
+  int* bt_of = reinterpret_cast<int*>(smem + L.off_bt);
+  for (int r = tid; r < R; r += kRowThreads)
+    bt_of[r] = row0 + r < p.n_rows ? (int)((row0 + r) / K - bt0) : 0;
+  __syncthreads();
 
-  if (p.mode == kRowFront) recompute_nc<Scalar>(p, L, smem);
-
-  // ---- prod = [d] nc * pred for the block's rows ----
-  {
-    const int vecs_per_row = L.c_pad / kVec;
-    for (int v = tid; v < R * vecs_per_row; v += kThreads) {
-      const int r = v / vecs_per_row;
-      const int col = (v % vecs_per_row) * kVec;
-      const long long row = row0 + r;
-      uint4 packed = make_uint4(0, 0, 0, 0);
-      if (row < p.n_rows && col < C) {
-        float nv[kVec], pv[kVec];
-        load_f32(nc + row * C + col, C - col, c_vec, nv);
-        load_f32(pred + (row / K) * C + col, C - col, c_vec, pv);
-        Scalar* out = reinterpret_cast<Scalar*>(&packed);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) out[e] = from_f32<Scalar>(nv[e] * pv[e]);
-      }
-      *reinterpret_cast<uint4*>(buf + r * L.ld_buf + col) = packed;
+  // chunk i (C columns i * kCh ...) into stage i % S; one commit group each
+  constexpr int kW1Slots = (kCh * (kMaxM1 / kVec) + kRowThreads - 1) / kRowThreads;
+  constexpr int kChSlots = (R * (kCh / kVec) + kRowThreads - 1) / kRowThreads;
+  const CopySlots<kW1Slots> w1_slots(kCh, L.m1_pad / kVec, kVec);
+  const CopySlots<kChSlots> nc_slots(R, kCh / kVec, kVec);
+  const CopySlots<kChSlots> pred_slots(n_bt, kCh / kVec, kVec);
+  auto load_chunk = [&](int i) {
+    if (i < n_ch) {
+      const int s = i % S, c0 = i * kCh;
+      async_tile<Scalar>(w1_slots, w1_tile(s), L.ld_w1, w1, M1, 0, m1_vec,
+                         [&](int r) -> long long {
+                           return c0 + r < C ? c0 + r : -1;
+                         });
+      async_tile<Scalar>(nc_slots, nc_tile(s), L.ld_ch, nc, C, c0, c_vec,
+                         [&](int r) -> long long {
+                           return row0 + r < p.n_rows ? row0 + r : -1;
+                         });
+      async_tile<Scalar>(pred_slots, pred_tile(s), L.ld_ch, pred, C, c0, c_vec,
+                         [&](int r) -> long long { return bt0 + r; });
     }
-  }
+    cp_async_commit();
+  };
 
-  // ---- a1 = prod @ W1 (bias below) ----
+  // ---- a1 = prod @ W1 (bias below), prod = [d] nc * pred per chunk ----
   {
-    // tensor path: warp w owns tiles (w % 2, 2 * (w / 2) + {0, 1}) of 16 x 16
+    // tensor path: warp w owns tiles (w % 4, 2 * (w / 4) + {0, 1}) of 16 x 16
     Frag acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    constexpr int kPer = (R * kMaxM1 + kThreads - 1) / kThreads;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.f);
+    constexpr int kPer = (R * kMaxM1 + kRowThreads - 1) / kRowThreads;
     float acc_c[kTensor ? 1 : kPer];
     if constexpr (!kTensor) {
 #pragma unroll
       for (int i = 0; i < kPer; ++i) acc_c[i] = 0.f;
     }
-    for (int k0 = 0; k0 < L.c_pad; k0 += kDepth) {
-      __syncthreads();  // prod is complete / the previous tile is consumed
-      stage_tile<Scalar, kDepth, kMaxM1>(wt, L.ld_w1, w1, C, M1, k0, 0,
-                                         L.m1_pad, m1_vec);
-      __syncthreads();
-      if constexpr (kTensor) {
-        const int rt = warp % 2, ct = 2 * (warp / 2);
+    for (int i = 0; i < S - 1; ++i) load_chunk(i);
+    for (int i = 0; i < n_ch; ++i) {
+      cp_async_wait<S - 2>();  // chunk i has landed (this thread's copies)
+      __syncthreads();         // everyone's; the stage refilled next is free
+      load_chunk(i + S - 1);
+      const int s = i % S;
+      Scalar* prod = nc_tile(s);
+      const Scalar* pv = pred_tile(s);
+      for (int v = tid; v < R * kCh / kVec; v += kRowThreads) {
+        const int r = v / (kCh / kVec), c = (v % (kCh / kVec)) * kVec;
+        const int off = r * L.ld_ch + c;
+        uint4 n4 = *reinterpret_cast<const uint4*>(prod + off);
+        const uint4 p4 = *reinterpret_cast<const uint4*>(pv + bt_of[r] * L.ld_ch + c);
+        Scalar* ns = reinterpret_cast<Scalar*>(&n4);
+        const Scalar* ps = reinterpret_cast<const Scalar*>(&p4);
 #pragma unroll
-        for (int kk = 0; kk < kDepth; kk += 16) {
+        for (int e = 0; e < kVec; ++e)
+          ns[e] = from_f32<Scalar>(to_f32(ns[e]) * to_f32(ps[e]));
+        *reinterpret_cast<uint4*>(prod + off) = n4;
+      }
+      __syncthreads();
+      const Scalar* wt = w1_tile(s);
+      if constexpr (kTensor) {
+        const int rt = warp % 4, ct = 2 * (warp / 4);
+#pragma unroll
+        for (int kk = 0; kk < kCh; kk += 16) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                          wmma::row_major>
               a;
-          wmma::load_matrix_sync(a, buf + 16 * rt * L.ld_buf + k0 + kk,
-                                 L.ld_buf);
+          wmma::load_matrix_sync(a, prod + 16 * rt * L.ld_ch + kk, L.ld_ch);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             if (ct + j < m1_tiles) {
@@ -568,22 +427,22 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const int v = tid + i * kThreads;
+        for (int q = 0; q < kPer; ++q) {
+          const int v = tid + q * kRowThreads;
           if (v < R * L.m1_pad) {
-            const Scalar* a_row = buf + (v / L.m1_pad) * L.ld_buf + k0;
+            const Scalar* a_row = prod + (v / L.m1_pad) * L.ld_ch;
             const Scalar* b_col = wt + v % L.m1_pad;
-            float s = acc_c[i];
+            float s_acc = acc_c[q];
 #pragma unroll 8
-            for (int kk = 0; kk < kDepth; ++kk)
-              s = fmaf(to_f32(a_row[kk]), to_f32(b_col[kk * L.ld_w1]), s);
-            acc_c[i] = s;
+            for (int kk = 0; kk < kCh; ++kk)
+              s_acc = fmaf(to_f32(a_row[kk]), to_f32(b_col[kk * L.ld_w1]), s_acc);
+            acc_c[q] = s_acc;
           }
         }
       }
     }
     if constexpr (kTensor) {
-      const int rt = warp % 2, ct = 2 * (warp / 2);
+      const int rt = warp % 4, ct = 2 * (warp / 4);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
         if (ct + j < m1_tiles)
@@ -591,60 +450,107 @@ __global__ void __launch_bounds__(kThreads, 1)
                                   acc[j], L.ld_a1, wmma::mem_row_major);
     } else {
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int v = tid + i * kThreads;
-        if (v < R * L.m1_pad) a1[(v / L.m1_pad) * L.ld_a1 + v % L.m1_pad] = acc_c[i];
+      for (int q = 0; q < kPer; ++q) {
+        const int v = tid + q * kRowThreads;
+        if (v < R * L.m1_pad) a1[(v / L.m1_pad) * L.ld_a1 + v % L.m1_pad] = acc_c[q];
       }
     }
   }
-  __syncthreads();
+  __syncthreads();  // a1 is complete; every stage of the ring is consumed
+  // the dprod pass walks the same chunks: its first stages load during the
+  // tail, while the last stage holds W2 and W3 (its chunk loads at the first
+  // dprod step, after the tail)
+  for (int i = 0; i < S - 1; ++i) load_chunk(i);
+  Scalar* w2s = w1_tile(S - 1);
+  Scalar* w3s = reinterpret_cast<Scalar*>(smem + (S - 1) * L.stage_bytes + L.off_w3);
+  for (int v = tid; v < M1 * M2; v += kRowThreads)
+    w2s[(v / M2) * L.ld_w2 + v % M2] = w2[v];
+  for (int v = tid; v < M2 * M3; v += kRowThreads)
+    w3s[(v / M3) * L.ld_w3 + v % M3] = w3[v];
 
   // ---- the matching tail and its backward, CUDA cores, f32 ----
-  for (int v = tid; v < R * M1; v += kThreads) {
+  for (int v = tid; v < R * M1; v += kRowThreads) {
     const int r = v / M1, m = v % M1;
     const float a = a1[r * L.ld_a1 + m] + to_f32(b1[m]);
     a1[r * L.ld_a1 + m] = a;
-    x1[r * L.ld_a1 + m] = round_to<Scalar>(leaky(a, alpha));
+    x1[r * L.ld_x1 + m] = from_f32<Scalar>(leaky(a, alpha));
   }
   __syncthreads();
-  for (int v = tid; v < R * M2; v += kThreads) {
-    const int r = v / M2, m = v % M2;
-    float s = 0.f;
-    for (int j = 0; j < M1; ++j)
-      s = fmaf(x1[r * L.ld_a1 + j], to_f32(w2[j * M2 + m]), s);
-    const float a = s + to_f32(b2[m]);
-    a2[v] = a;
-    x2[v] = round_to<Scalar>(leaky(a, alpha));
-  }
-  __syncthreads();
-  for (int v = tid; v < R * M3; v += kThreads) {
-    const int r = v / M3, m = v % M3;
-    float s = 0.f;
-    for (int j = 0; j < M2; ++j) s = fmaf(x2[r * M2 + j], to_f32(w3[j * M3 + m]), s);
-    const float a = s + to_f32(b3[m]);
-    a3[v] = a;
-    x3[v] = round_to<Scalar>(leaky(a, alpha));
-    const long long row = row0 + r;
-    const float ds = row < p.n_rows ? p.g[row] : 0.f;
-    da3[v] = round_to<Scalar>(ds * to_f32(w4[m]) * dleaky(a, alpha));
-  }
-  __syncthreads();
-  for (int v = tid; v < R * M2; v += kThreads) {
-    const int r = v / M2, m = v % M2;
-    float s = 0.f;
-    for (int j = 0; j < M3; ++j) s = fmaf(da3[r * M3 + j], to_f32(w3[m * M3 + j]), s);
-    da2[v] = round_to<Scalar>(s * dleaky(a2[v], alpha));
-  }
-  __syncthreads();
-  for (int v = tid; v < R * L.m1_pad; v += kThreads) {
-    const int r = v / L.m1_pad, m = v % L.m1_pad;
-    float value = 0.f;
-    if (m < M1) {
-      float s = 0.f;
-      for (int j = 0; j < M2; ++j) s = fmaf(da2[r * M2 + j], to_f32(w2[m * M2 + j]), s);
-      value = s * dleaky(a1[r * L.ld_a1 + m], alpha);
+  // the tail's products: a thread owns one column m of kQ rows r0 + q RQ, so
+  // each weight it reads serves kQ independent sums (each in k order)
+  constexpr int kQ = 4, RQ = R / kQ;
+  for (int v = tid; v < RQ * M2; v += kRowThreads) {
+    const int r0 = v / M2, m = v % M2;
+    float s[kQ] = {};
+    for (int j = 0; j < M1; ++j) {
+      const float w = to_f32(w2s[j * L.ld_w2 + m]);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+        s[q] = fmaf(to_f32(x1[(r0 + q * RQ) * L.ld_x1 + j]), w, s[q]);
     }
-    da1[r * L.ld_da1 + m] = from_f32<Scalar>(value);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int at = (r0 + q * RQ) * M2 + m;
+      const float a = s[q] + to_f32(b2[m]);
+      a2[at] = a;
+      x2[at] = from_f32<Scalar>(leaky(a, alpha));
+    }
+  }
+  __syncthreads();
+  for (int v = tid; v < RQ * M3; v += kRowThreads) {
+    const int r0 = v / M3, m = v % M3;
+    float s[kQ] = {};
+    for (int j = 0; j < M2; ++j) {
+      const float w = to_f32(w3s[j * L.ld_w3 + m]);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+        s[q] = fmaf(to_f32(x2[(r0 + q * RQ) * M2 + j]), w, s[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int r = r0 + q * RQ, at = r * M3 + m;
+      const float a = s[q] + to_f32(b3[m]);
+      a3[at] = a;
+      x3[at] = from_f32<Scalar>(leaky(a, alpha));
+      const long long row = row0 + r;
+      const float ds = row < p.n_rows ? p.g[row] : 0.f;
+      da3[at] = from_f32<Scalar>(ds * to_f32(w4[m]) * dleaky(a, alpha));
+    }
+  }
+  __syncthreads();
+  for (int v = tid; v < RQ * M2; v += kRowThreads) {
+    const int r0 = v / M2, m = v % M2;
+    float s[kQ] = {};
+    for (int j = 0; j < M3; ++j) {
+      const float w = to_f32(w3s[m * L.ld_w3 + j]);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+        s[q] = fmaf(to_f32(da3[(r0 + q * RQ) * M3 + j]), w, s[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int at = (r0 + q * RQ) * M2 + m;
+      da2[at] = from_f32<Scalar>(s[q] * dleaky(a2[at], alpha));
+    }
+  }
+  __syncthreads();
+  for (int v = tid; v < RQ * L.m1_pad; v += kRowThreads) {
+    const int r0 = v / L.m1_pad, m = v % L.m1_pad;
+    float s[kQ] = {};
+    if (m < M1) {
+      for (int j = 0; j < M2; ++j) {
+        const float w = to_f32(w2s[m * L.ld_w2 + j]);
+#pragma unroll
+        for (int q = 0; q < kQ; ++q)
+          s[q] = fmaf(to_f32(da2[(r0 + q * RQ) * M2 + j]), w, s[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int r = r0 + q * RQ;
+      const float value = m < M1 ? s[q] * dleaky(a1[r * L.ld_a1 + m], alpha) : 0.f;
+      da1[r * L.ld_da1 + m] = from_f32<Scalar>(value);
+    }
   }
   __syncthreads();
   {  // the tail's activations and cotangents, for the weight-grad launches
@@ -654,41 +560,44 @@ __global__ void __launch_bounds__(kThreads, 1)
     Scalar* gda2 = static_cast<Scalar*>(p.da2);
     Scalar* gx3 = static_cast<Scalar*>(p.x3);
     Scalar* gda3 = static_cast<Scalar*>(p.da3);
-    for (int v = tid; v < R * M1; v += kThreads) {
+    for (int v = tid; v < R * M1; v += kRowThreads) {
       const int r = v / M1, m = v % M1;
       const long long row = row0 + r;
       if (row < p.n_rows) {
-        gx1[row * M1 + m] = from_f32<Scalar>(x1[r * L.ld_a1 + m]);
+        gx1[row * M1 + m] = x1[r * L.ld_x1 + m];
         gda1[row * M1 + m] = da1[r * L.ld_da1 + m];
       }
     }
-    for (int v = tid; v < R * M2; v += kThreads) {
+    for (int v = tid; v < R * M2; v += kRowThreads) {
       const long long row = row0 + v / M2;
       if (row < p.n_rows) {
-        gx2[row * M2 + v % M2] = from_f32<Scalar>(x2[v]);
-        gda2[row * M2 + v % M2] = from_f32<Scalar>(da2[v]);
+        gx2[row * M2 + v % M2] = x2[v];
+        gda2[row * M2 + v % M2] = da2[v];
       }
     }
-    for (int v = tid; v < R * M3; v += kThreads) {
+    for (int v = tid; v < R * M3; v += kRowThreads) {
       const long long row = row0 + v / M3;
       if (row < p.n_rows) {
-        gx3[row * M3 + v % M3] = from_f32<Scalar>(x3[v]);
-        gda3[row * M3 + v % M3] = from_f32<Scalar>(da3[v]);
+        gx3[row * M3 + v % M3] = x3[v];
+        gda3[row * M3 + v % M3] = da3[v];
       }
     }
   }
 
-  // ---- dprod = [d] da1 @ W1^T in column chunks; dncp_c over prod ----
-  for (int c0 = 0; c0 < L.c_pad; c0 += kChunk) {
-    __syncthreads();  // the previous chunk's stage and tile are consumed
+  // ---- dprod = [d] da1 @ W1^T per chunk; dp_rep and dncp_c ----
+  Scalar* dp_rep = static_cast<Scalar*>(p.dp_rep);
+  Scalar* dncp_g = static_cast<Scalar*>(p.dncp_c);
+  for (int i = 0; i < n_ch; ++i) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // chunk i is in; the last chunk's stage reads are done
+    load_chunk(i + S - 1);
+    const int s = i % S, c0 = i * kCh;
     // W1 rows c0..c0+63, all M1 columns: as a [M1 x 64] operand it is
     // column-major with leading dimension ld_w1
-    stage_tile<Scalar, kChunk, kMaxM1>(wt, L.ld_w1, w1, C, M1, c0, 0, L.m1_pad,
-                                       m1_vec);
-    __syncthreads();
+    const Scalar* wt = w1_tile(s);
     if constexpr (kTensor) {
-      // warp w owns the 16 x 16 tile (w % 2, w / 2) of the [32 x 64] chunk
-      const int rt = warp % 2, ct = warp / 2;
+      // warp w owns the 16 x 16 tile (w % 4, w / 4)
+      const int rt = warp % 4, ct = warp / 4;
       Frag acc;
       wmma::fill_fragment(acc, 0.f);
       for (int kk = 0; kk < L.m1_pad; kk += 16) {
@@ -705,71 +614,60 @@ __global__ void __launch_bounds__(kThreads, 1)
       wmma::store_matrix_sync(stage + 16 * rt * L.ld_stage + 16 * ct, acc,
                               L.ld_stage, wmma::mem_row_major);
     } else {
-      for (int v = tid; v < R * kChunk; v += kThreads) {
-        const int r = v / kChunk, j = v % kChunk;
+      for (int v = tid; v < R * kCh; v += kRowThreads) {
+        const int r = v / kCh, j = v % kCh;
         const Scalar* a_row = da1 + r * L.ld_da1;
         const Scalar* b_row = wt + j * L.ld_w1;
-        float s = 0.f;
+        float s_acc = 0.f;
         for (int kk = 0; kk < L.m1_pad; ++kk)
-          s = fmaf(to_f32(a_row[kk]), to_f32(b_row[kk]), s);
-        stage[r * L.ld_stage + j] = s;
+          s_acc = fmaf(to_f32(a_row[kk]), to_f32(b_row[kk]), s_acc);
+        stage[r * L.ld_stage + j] = s_acc;
       }
     }
     __syncthreads();
-    for (int v = tid; v < R * kChunk; v += kThreads) {
-      const int r = v / kChunk, j = v % kChunk;
+    const Scalar* nct = nc_tile(s);
+    const Scalar* pt = pred_tile(s);
+    for (int v = tid; v < R * kCh / kVec; v += kRowThreads) {
+      const int r = v / (kCh / kVec), j = (v % (kCh / kVec)) * kVec;
       const long long row = row0 + r;
       const int col = c0 + j;
-      float value = 0.f;
-      if (row < p.n_rows && col < C) {
-        const float dprod = round_to<Scalar>(stage[r * L.ld_stage + j]);
-        const float ncv = to_f32(nc[row * C + col]);
-        const float pv = to_f32(pred[(row / K) * C + col]);
-        const float dnc = round_to<Scalar>(dprod * pv);
-        dp_rep[row * C + col] = from_f32<Scalar>(dprod * ncv);
-        const float tanh_d = round_to<Scalar>(1.f - round_to<Scalar>(ncv * ncv));
-        value = round_to<Scalar>(dnc * tanh_d);
-        dncp_g[row * C + col] = from_f32<Scalar>(value);
-      }
-      buf[r * L.ld_buf + col] = from_f32<Scalar>(value);
-    }
-  }
-
-  // the recompute variant's front stops here: dW1 reads nc (in di) first
-  if (p.mode == kRowFront) return;
-  dpre_and_di<Scalar>(p, L, smem);
-}
-
-// The back of the recompute variant: the block's rows of dncp_c, written by
-// the front launch, back into shared memory, then dpre and di.
-template <typename Scalar>
-__global__ void __launch_bounds__(kThreads, 1)
-    cand_score_bwd_dpre_kernel(const RowParams p) {
-  constexpr int R = Traits<Scalar>::kRows;
-  constexpr int kVec = 16 / sizeof(Scalar);
-  const RowLayout<Scalar> L(p.c, p.m1, p.m2, p.m3);
-  const int C = p.c;
-  const long long row0 = (long long)blockIdx.x * R;
-  const Scalar* dncp_g = static_cast<const Scalar*>(p.dncp_c);
-  extern __shared__ __align__(128) unsigned char smem[];
-  Scalar* buf = reinterpret_cast<Scalar*>(smem);
-  const bool c_vec = C % kVec == 0;
-  const int vecs_per_row = L.c_pad / kVec;
-  for (int v = threadIdx.x; v < R * vecs_per_row; v += kThreads) {
-    const int r = v / vecs_per_row;
-    const int col = (v % vecs_per_row) * kVec;
-    const long long row = row0 + r;
-    uint4 packed = make_uint4(0, 0, 0, 0);
-    if (row < p.n_rows && col < C) {
-      float x[kVec];
-      load_f32(dncp_g + row * C + col, C - col, c_vec, x);
-      Scalar* out = reinterpret_cast<Scalar*>(&packed);
+      if (row >= p.n_rows || col >= C) continue;
+      float sv[kVec];
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) out[e] = from_f32<Scalar>(x[e]);
+      for (int e = 0; e < kVec; e += 4) {
+        const float4 f = *reinterpret_cast<const float4*>(stage + r * L.ld_stage + j + e);
+        sv[e] = f.x, sv[e + 1] = f.y, sv[e + 2] = f.z, sv[e + 3] = f.w;
+      }
+      const uint4 n4 = *reinterpret_cast<const uint4*>(nct + r * L.ld_ch + j);
+      const uint4 p4 = *reinterpret_cast<const uint4*>(pt + bt_of[r] * L.ld_ch + j);
+      const Scalar* ns = reinterpret_cast<const Scalar*>(&n4);
+      const Scalar* ps = reinterpret_cast<const Scalar*>(&p4);
+      uint4 out_dp, out_dn;
+      Scalar* dps = reinterpret_cast<Scalar*>(&out_dp);
+      Scalar* dns = reinterpret_cast<Scalar*>(&out_dn);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float dprod = round_to<Scalar>(sv[e]);
+        const float ncv = to_f32(ns[e]);
+        const float pv = to_f32(ps[e]);
+        const float dnc = round_to<Scalar>(dprod * pv);
+        dps[e] = from_f32<Scalar>(dprod * ncv);
+        const float tanh_d = round_to<Scalar>(1.f - round_to<Scalar>(ncv * ncv));
+        dns[e] = from_f32<Scalar>(dnc * tanh_d);
+      }
+      const long long at = row * C + col;
+      if (c_vec) {
+        *reinterpret_cast<uint4*>(dp_rep + at) = out_dp;
+        *reinterpret_cast<uint4*>(dncp_g + at) = out_dn;
+      } else {
+        for (int e = 0; e < kVec && col + e < C; ++e) {
+          dp_rep[at + e] = dps[e];
+          dncp_g[at + e] = dns[e];
+        }
+      }
     }
-    *reinterpret_cast<uint4*>(buf + r * L.ld_buf + col) = packed;
   }
-  dpre_and_di<Scalar>(p, L, smem);
+  cp_async_wait<0>();  // leave no copy in flight (the tail's are empty groups)
 }
 
 // ---------------------------------------------------------------------------
@@ -793,20 +691,49 @@ __global__ void segment_sum_kernel(const Scalar* __restrict__ x,
   }
 }
 
-// ---------------------------------------------------------------------------
-// 3. transposed products over all rows: part[s] = A[rows of s]^T B[rows of s]
-// ---------------------------------------------------------------------------
+// prod[r, c] = [d] nc[r, c] * pred[r / k, c], dW1's A operand: a block a
+// row at a time, 16-byte vectors where the row allows them.
+template <typename Scalar>
+__global__ void prod_kernel(const Scalar* __restrict__ nc,
+                            const Scalar* __restrict__ pred,
+                            Scalar* __restrict__ prod, long long n_rows, int k,
+                            int c) {
+  constexpr int kVec = 16 / sizeof(Scalar);
+  for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
+    const Scalar* nc_row = nc + row * c;
+    const Scalar* pred_row = pred + (row / k) * c;
+    Scalar* out = prod + row * c;
+    if (c % kVec == 0) {
+      for (int j = threadIdx.x * kVec; j < c; j += blockDim.x * kVec) {
+        const uint4 n4 = *reinterpret_cast<const uint4*>(nc_row + j);
+        const uint4 p4 = *reinterpret_cast<const uint4*>(pred_row + j);
+        const Scalar* ns = reinterpret_cast<const Scalar*>(&n4);
+        const Scalar* ps = reinterpret_cast<const Scalar*>(&p4);
+        uint4 o4;
+        Scalar* os = reinterpret_cast<Scalar*>(&o4);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          os[e] = from_f32<Scalar>(to_f32(ns[e]) * to_f32(ps[e]));
+        *reinterpret_cast<uint4*>(out + j) = o4;
+      }
+    } else {
+      for (int j = threadIdx.x; j < c; j += blockDim.x)
+        out[j] = from_f32<Scalar>(to_f32(nc_row[j]) * to_f32(pred_row[j]));
+    }
+  }
+}
 
-enum AMode { kPlain = 0, kPre = 1, kProd = 2 };
+// ---------------------------------------------------------------------------
+// 3. the narrow transposed products over all rows (dW2, dW3):
+//    part[s] = A[rows of s]^T B[rows of s]
+// ---------------------------------------------------------------------------
 
 struct TnParams {
-  const void* a;   // kPlain: A [n, I]; kPre: i_rows; kProd: nc
-  const void* a2;  // kPre: u [n / k, I]; kProd: pred [n / k, I]
-  const void* b;   // B [n, J]
-  float* part;     // [S, I_pad, J_pad]
+  const void* a;  // A [n, I]
+  const void* b;  // B [n, J]
+  float* part;    // [S, I_pad, J_pad]
   long long n, rows_per_split;
-  int k, I, J, I_pad, J_pad, mode;
-  float alpha;
+  int I, J, I_pad, J_pad;
 };
 
 // grid (J_pad / kTn, I_pad / kTn, S)
@@ -825,7 +752,6 @@ __global__ void __launch_bounds__(kThreads)
       n_begin + p.rows_per_split < p.n ? n_begin + p.rows_per_split : p.n;
   const int tid = threadIdx.x, warp = tid / 32;
   const Scalar* a = static_cast<const Scalar*>(p.a);
-  const Scalar* a2 = static_cast<const Scalar*>(p.a2);
   const Scalar* b = static_cast<const Scalar*>(p.b);
   const bool a_vec = p.I % kVec == 0, b_vec = p.J % kVec == 0;
 
@@ -850,17 +776,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < kVec; ++e) av[e] = bv[e] = 0.f;
       if (n < n_end) {
         const int gi = i0 + col, gj = j0 + col;
-        if (gi < p.I) {
-          load_f32(a + n * p.I + gi, p.I - gi, a_vec, av);
-          if (p.mode != kPlain) {
-            float xv[kVec];
-            load_f32(a2 + (n / p.k) * p.I + gi, p.I - gi, a_vec, xv);
-#pragma unroll
-            for (int e = 0; e < kVec; ++e)
-              av[e] = p.mode == kPre ? leaky(av[e] + xv[e], p.alpha)
-                                     : av[e] * xv[e];
-          }
-        }
+        if (gi < p.I) load_f32(a + n * p.I + gi, p.I - gi, a_vec, av);
         if (gj < p.J) load_f32(b + n * p.J + gj, p.J - gj, b_vec, bv);
       }
       uint4 pa, pb;
@@ -926,7 +842,105 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// 4. column sums: part[s, j] = sum over the rows of s of x[n, j] (* w[n])
+// 4. the float32 path's C-wide products: a tiled GEMM on the CUDA cores
+// ---------------------------------------------------------------------------
+
+// C[m, n] = sum_k A(m, k) B(k, n) in full f32 for k in the block's split,
+// with A(m, k) = a[m * sam + k * sak] and B(k, n) = b[k * sbk + n * sbn];
+// each thread owns 4 x 4 elements of a 64 x 64 tile and hands each to
+// epi.one(split, row, col, value).  grid (ceil(N / 64), ceil(M / 64), S).
+template <class Epi>
+__global__ void __launch_bounds__(kThreads)
+    simt_gemm_kernel(const float* __restrict__ a, long long sam, long long sak,
+                     const float* __restrict__ b, long long sbk, long long sbn,
+                     int M, int N, int K, int k_per_split, Epi epi) {
+  __shared__ float as[kSimtDepth][kSimt + 4];
+  __shared__ float bs[kSimtDepth][kSimt + 4];
+  const int m0 = blockIdx.y * kSimt, n0 = blockIdx.x * kSimt;
+  const int split = blockIdx.z;
+  const int k_begin = split * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  for (int k0 = k_begin; k0 < k_end; k0 += kSimtDepth) {
+    for (int v = tid; v < kSimtDepth * kSimt; v += kThreads) {
+      // the fast index follows each operand's contiguous dimension
+      const int ka = sak == 1 ? v % kSimtDepth : v / kSimt;
+      const int ma = sak == 1 ? v / kSimtDepth : v % kSimt;
+      const int gm = m0 + ma, gka = k0 + ka;
+      as[ka][ma] = gm < M && gka < k_end ? a[gm * sam + gka * sak] : 0.f;
+      const int kb = sbk == 1 ? v % kSimtDepth : v / kSimt;
+      const int nb = sbk == 1 ? v / kSimtDepth : v % kSimt;
+      const int gn = n0 + nb, gkb = k0 + kb;
+      bs[kb][nb] = gn < N && gkb < k_end ? b[gkb * sbk + gn * sbn] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kSimtDepth; ++kk) {
+      float ar[4], br[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ar[i] = as[kk][4 * ty + i];
+        br[i] = bs[kk][4 * tx + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = m0 + 4 * ty + i, col = n0 + 4 * tx + j;
+      if (row < M && col < N) epi.one(split, row, col, acc[i][j]);
+    }
+}
+
+// dpre's epilogue: di = [d] dpre leaky'(i + u) and pre = [d] leaky(i + u)
+// at (row, col), u's row being row / k.
+template <typename Scalar>
+struct DpreEpilogue {
+  const Scalar* i_rows;
+  const Scalar* u;
+  Scalar* di;
+  Scalar* pre;
+  int c, k;
+  float alpha;
+
+  __device__ __forceinline__ void one(int, int row, int col, float v) const {
+    const size_t at = (size_t)row * c + col;
+    const float a0 = to_f32(i_rows[at]) + to_f32(u[(size_t)(row / k) * c + col]);
+    di[at] = from_f32<Scalar>(v * dleaky(a0, alpha));
+    pre[at] = from_f32<Scalar>(leaky(a0, alpha));
+  }
+
+  // the core's call (bf16): 8 consecutive columns, 16-byte loads and stores
+  __device__ __forceinline__ void vec8(int, int row, int col,
+                                       const float (&v)[8]) const {
+    const size_t at = (size_t)row * c + col;
+    const uint4 i4 = *reinterpret_cast<const uint4*>(i_rows + at);
+    const uint4 u4 = *reinterpret_cast<const uint4*>(u + (size_t)(row / k) * c + col);
+    const Scalar* iv = reinterpret_cast<const Scalar*>(&i4);
+    const Scalar* uv = reinterpret_cast<const Scalar*>(&u4);
+    uint4 d4, p4;
+    Scalar* dv = reinterpret_cast<Scalar*>(&d4);
+    Scalar* pv = reinterpret_cast<Scalar*>(&p4);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float a0 = to_f32(iv[e]) + to_f32(uv[e]);
+      dv[e] = from_f32<Scalar>(v[e] * dleaky(a0, alpha));
+      pv[e] = from_f32<Scalar>(leaky(a0, alpha));
+    }
+    *reinterpret_cast<uint4*>(di + at) = d4;
+    *reinterpret_cast<uint4*>(pre + at) = p4;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// 5. column sums: part[s, j] = sum over the rows of s of x[n, j] (* w[n])
 // ---------------------------------------------------------------------------
 
 // grid (ceil(J / kSumCols), S); 8 lanes of kSumCols columns each
@@ -983,7 +997,7 @@ int grid_for(long long elements) {
   return (int)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
 }
 
-// One transposed product's shape and its split over the rows.
+// One narrow transposed product's shape and its split over the rows.
 struct TnPlan {
   int I, J, I_pad, J_pad, S;
   long long rows_per_split;
@@ -1016,13 +1030,24 @@ struct SumPlan {
   size_t floats() const { return (size_t)S * J; }
 };
 
+// The splits of an [i, j] weight gradient's reduction over the n rows: on
+// the core its own rule; on the CUDA cores about kTargetBlocks 64 x 64
+// blocks of >= 512 rows each.
+int row_splits(int i, int j, long long n, bool tensor) {
+  if (tensor) return sm90::splits_for(i, j, n);
+  long long s = kTargetBlocks / (div_up(i, kSimt) * div_up(j, kSimt));
+  const long long most = div_up(n, 512);
+  s = s < most ? s : most;
+  return (int)(s > 1 ? s : 1);
+}
+
 // The scratch the launches need, carved from one buffer the caller
-// allocates: the row kernel's outputs in the operands' dtype, then the f32
-// partials of every sum.
+// allocates: the row kernel's outputs in the operands' dtype (dp_rep's slot
+// later holds prod, then pre), then the f32 partials of every sum.
 struct Plan {
   long long n;
-  int c, m1, m2, m3, elem;
-  TnPlan car, w1, w2, w3;
+  int c, m1, m2, m3, elem, s_car_w, s_w1;
+  TnPlan w2, w3;
   SumPlan s_car, s_1, s_2, s_3, s_4;
   size_t off_dp_rep, off_dncp, off_x1, off_da1, off_x2, off_da2, off_x3,
       off_da3, off_part_car, off_part_w1, off_part_w2, off_part_w3,
@@ -1030,9 +1055,9 @@ struct Plan {
 
   Plan(long long n_rows, int c_, int m1_, int m2_, int m3_, int elem_)
       : n(n_rows), c(c_), m1(m1_), m2(m2_), m3(m3_), elem(elem_),
-        car(c_, c_, n_rows), w1(c_, m1_, n_rows), w2(m1_, m2_, n_rows),
-        w3(m2_, m3_, n_rows), s_car(c_, n_rows), s_1(m1_, n_rows),
-        s_2(m2_, n_rows), s_3(m3_, n_rows), s_4(m3_, n_rows) {
+        s_car_w(row_splits(c_, c_, n_rows, elem_ == 2)),
+        s_w1(row_splits(c_, m1_, n_rows, elem_ == 2)), w2(m1_, m2_, n_rows), w3(m2_, m3_, n_rows), s_car(c_, n_rows),
+        s_1(m1_, n_rows), s_2(m2_, n_rows), s_3(m3_, n_rows), s_4(m3_, n_rows) {
     size_t at = 0;
     auto take = [&](size_t b) {
       const size_t here = at;
@@ -1047,8 +1072,8 @@ struct Plan {
     off_da2 = take((size_t)n * m2 * elem);
     off_x3 = take((size_t)n * m3 * elem);
     off_da3 = take((size_t)n * m3 * elem);
-    off_part_car = take(car.floats() * 4);
-    off_part_w1 = take(w1.floats() * 4);
+    off_part_car = take((size_t)s_car_w * c * c * 4);
+    off_part_w1 = take((size_t)s_w1 * c * m1 * 4);
     off_part_w2 = take(w2.floats() * 4);
     off_part_w3 = take(w3.floats() * 4);
     off_sum_car = take(s_car.floats() * 4);
@@ -1061,12 +1086,11 @@ struct Plan {
 };
 
 template <typename Scalar>
-cudaError_t tn_product(const Plan& plan, const TnPlan& tp, int mode,
-                       const void* a, const void* a2, const void* b,
-                       float* part, Scalar* out, int k, float alpha,
+cudaError_t tn_product(const Plan& plan, const TnPlan& tp, const void* a,
+                       const void* b, float* part, Scalar* out,
                        cudaStream_t stream) {
-  TnParams p{a, a2, b, part, plan.n, tp.rows_per_split, k, tp.I, tp.J,
-             tp.I_pad, tp.J_pad, mode, alpha};
+  TnParams p{a, b, part, plan.n, tp.rows_per_split, tp.I, tp.J, tp.I_pad,
+             tp.J_pad};
   const dim3 grid(tp.J_pad / kTn, tp.I_pad / kTn, tp.S);
   tn_product_kernel<Scalar><<<grid, kThreads, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
@@ -1092,20 +1116,38 @@ cudaError_t column_sum(const Plan& plan, const SumPlan& sp, const void* x,
   return cudaGetLastError();
 }
 
+// C = A op B on the CUDA cores (see simt_gemm_kernel), S splits over K.
+template <class Epi>
+cudaError_t simt_gemm(const void* a, long long sam, long long sak,
+                      const void* b, long long sbk, long long sbn, int M,
+                      int N, int K, int S, Epi epi, cudaStream_t stream) {
+  const int per = (int)div_up(div_up(K, S), kSimtDepth) * kSimtDepth;
+  const dim3 grid((unsigned)div_up(N, kSimt), (unsigned)div_up(M, kSimt), S);
+  simt_gemm_kernel<Epi><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a), sam, sak, static_cast<const float*>(b), sbk,
+      sbn, M, N, K, per, epi);
+  return cudaGetLastError();
+}
+
+struct Inputs {
+  const void *i_rows, *u, *car_w;
+};
+
 struct Outputs {
   void *di, *du, *dp, *dcar_w, *dcar_b, *dw1, *db1, *dw2, *db2, *dw3, *db3,
       *dw4;
 };
 
 template <typename Scalar>
-cudaError_t launch_typed(const RowParams& rp_in, const Outputs& o,
-                         unsigned char* scratch, cudaStream_t stream) {
-  const RowLayout<Scalar> layout(rp_in.c, rp_in.m1, rp_in.m2, rp_in.m3);
+cudaError_t launch_typed(const Inputs& in, const RowParams& rp_in,
+                         const Outputs& o, unsigned char* scratch,
+                         cudaStream_t stream) {
+  constexpr bool kTensor = std::is_same<Scalar, __nv_bfloat16>::value;
+  const RowLayout<Scalar> layout(rp_in.m1, rp_in.m2, rp_in.m3);
   if (layout.bytes > (size_t)kSmemLimit) return cudaErrorInvalidValue;
   const Plan plan(rp_in.n_rows, rp_in.c, rp_in.m1, rp_in.m2, rp_in.m3,
                   sizeof(Scalar));
   RowParams rp = rp_in;
-  rp.di = o.di;
   rp.dp_rep = scratch + plan.off_dp_rep;
   rp.dncp_c = scratch + plan.off_dncp;
   rp.x1 = scratch + plan.off_x1;
@@ -1114,73 +1156,95 @@ cudaError_t launch_typed(const RowParams& rp_in, const Outputs& o,
   rp.da2 = scratch + plan.off_da2;
   rp.x3 = scratch + plan.off_x3;
   rp.da3 = scratch + plan.off_da3;
-
-  cudaError_t err = cudaFuncSetAttribute(
-      cand_score_bwd_rows_kernel<Scalar>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)layout.bytes);
-  if (err != cudaSuccess) return err;
-  constexpr int R = Traits<Scalar>::kRows;
-  const unsigned row_blocks = (unsigned)div_up(rp.n_rows, R);
+  const int C = rp.c;
+  const long long n = rp.n_rows;
   auto part = [&](size_t off) { return reinterpret_cast<float*>(scratch + off); };
-  const bool recompute = rp.nc == nullptr;
-  if (recompute) {
-    // nc lives in di from the front launch until the dpre launch writes di
-    rp.nc = o.di;
-    rp.mode = kRowFront;
-    cand_score_bwd_rows_kernel<Scalar>
-        <<<row_blocks, kThreads, layout.bytes, stream>>>(rp);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = tn_product<Scalar>(plan, plan.w1, kProd, rp.nc, rp.pred,
-                                  rp.da1, part(plan.off_part_w1),
-                                  static_cast<Scalar*>(o.dw1), rp.k, rp.alpha,
-                                  stream)) != cudaSuccess)
-      return err;
-    err = cudaFuncSetAttribute(cand_score_bwd_dpre_kernel<Scalar>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)layout.bytes);
-    if (err != cudaSuccess) return err;
-    rp.mode = kRowDpre;
-    cand_score_bwd_dpre_kernel<Scalar>
-        <<<row_blocks, kThreads, layout.bytes, stream>>>(rp);
-  } else {
-    rp.mode = kRowAll;
-    cand_score_bwd_rows_kernel<Scalar>
-        <<<row_blocks, kThreads, layout.bytes, stream>>>(rp);
-  }
+  cudaError_t err;
+
+  // 1. the narrow row kernel
+  if ((err = cudaFuncSetAttribute(cand_score_bwd_rows_kernel<Scalar>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)layout.bytes)) != cudaSuccess)
+    return err;
+  constexpr int R = Traits<Scalar>::kRows;
+  cand_score_bwd_rows_kernel<Scalar>
+      <<<(unsigned)div_up(n, R), kRowThreads, layout.bytes, stream>>>(rp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const long long bt = rp.n_rows / rp.k;
-  segment_sum_kernel<Scalar><<<grid_for(bt * rp.c), kThreads, 0, stream>>>(
-      static_cast<const Scalar*>(o.di), static_cast<Scalar*>(o.du), bt, rp.k,
-      rp.c);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  segment_sum_kernel<Scalar><<<grid_for(bt * rp.c), kThreads, 0, stream>>>(
+  // 2. dp; dp_rep's slot is free afterwards
+  const long long bt = n / rp.k;
+  segment_sum_kernel<Scalar><<<grid_for(bt * C), kThreads, 0, stream>>>(
       static_cast<const Scalar*>(rp.dp_rep), static_cast<Scalar*>(o.dp), bt,
-      rp.k, rp.c);
+      rp.k, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  if ((err = tn_product<Scalar>(plan, plan.car, kPre, rp.i_rows, rp.u,
-                                rp.dncp_c, part(plan.off_part_car),
-                                static_cast<Scalar*>(o.dcar_w), rp.k, rp.alpha,
-                                stream)) != cudaSuccess)
-    return err;
-  if (!recompute &&
-      (err = tn_product<Scalar>(plan, plan.w1, kProd, rp.nc, rp.pred, rp.da1,
-                                part(plan.off_part_w1),
-                                static_cast<Scalar*>(o.dw1), rp.k, rp.alpha,
-                                stream)) != cudaSuccess)
-    return err;
-  if ((err = tn_product<Scalar>(plan, plan.w2, kPlain, rp.x1, nullptr, rp.da2,
-                                part(plan.off_part_w2),
-                                static_cast<Scalar*>(o.dw2), rp.k, rp.alpha,
-                                stream)) != cudaSuccess)
-    return err;
-  if ((err = tn_product<Scalar>(plan, plan.w3, kPlain, rp.x2, nullptr, rp.da3,
-                                part(plan.off_part_w3),
-                                static_cast<Scalar*>(o.dw3), rp.k, rp.alpha,
-                                stream)) != cudaSuccess)
-    return err;
+  // 3. dW1 = prod^T da1: prod into dp_rep's slot (the last read of nc,
+  // which may live in di), then the product split over rows
+  const long long prod_blocks = n < 132 * 16 ? n : 132 * 16;
+  prod_kernel<Scalar><<<(unsigned)prod_blocks, 128, 0, stream>>>(
+      static_cast<const Scalar*>(rp.nc), static_cast<const Scalar*>(rp.pred),
+      static_cast<Scalar*>(rp.dp_rep), n, rp.k, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  float* w1_part = part(plan.off_part_w1);
+  const int M1 = rp.m1;
+  const sm90::StorePartial w1_epi{w1_part, M1, (size_t)C * M1};
+  if constexpr (kTensor)
+    err = sm90::gemm<1, 1>(rp.dp_rep, rp.da1, C, M1, (int)n, plan.s_w1, w1_epi,
+                           stream);
+  else
+    err = simt_gemm(rp.dp_rep, 1, C, rp.da1, M1, 1, C, M1, (int)n, plan.s_w1,
+                    w1_epi, stream);
+  if (err != cudaSuccess) return err;
+  reduce_partials_kernel<Scalar><<<grid_for((long long)C * M1), kThreads, 0,
+                                   stream>>>(w1_part, plan.s_w1, (long long)C * M1,
+                                             C, M1, M1, static_cast<Scalar*>(o.dw1));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
+  // 4. dpre = dncp_c car_W^T, writing di and pre (into dp_rep's slot)
+  Scalar* pre = static_cast<Scalar*>(rp.dp_rep);
+  const DpreEpilogue<Scalar> dpre_epi{static_cast<const Scalar*>(in.i_rows),
+                                      static_cast<const Scalar*>(in.u),
+                                      static_cast<Scalar*>(o.di), pre, C,
+                                      rp.k, rp.alpha};
+  if constexpr (kTensor)
+    err = sm90::gemm<0, 0>(rp.dncp_c, in.car_w, (int)n, C, C, 1, dpre_epi,
+                           stream);
+  else
+    err = simt_gemm(rp.dncp_c, C, 1, in.car_w, 1, C, (int)n, C, C, 1, dpre_epi,
+                    stream);
+  if (err != cudaSuccess) return err;
+
+  // 5. du
+  segment_sum_kernel<Scalar><<<grid_for(bt * C), kThreads, 0, stream>>>(
+      static_cast<const Scalar*>(o.di), static_cast<Scalar*>(o.du), bt, rp.k,
+      C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 6. dcar_w = pre^T dncp_c: S partials, summed in split order
+  float* car_part = part(plan.off_part_car);
+  const sm90::StorePartial car_epi{car_part, C, (size_t)C * C};
+  if constexpr (kTensor)
+    err = sm90::gemm<1, 1>(pre, rp.dncp_c, C, C, (int)n, plan.s_car_w, car_epi,
+                           stream);
+  else
+    err = simt_gemm(pre, 1, C, rp.dncp_c, C, 1, C, C, (int)n, plan.s_car_w,
+                    car_epi, stream);
+  if (err != cudaSuccess) return err;
+  reduce_partials_kernel<Scalar><<<grid_for((long long)C * C), kThreads, 0,
+                                   stream>>>(car_part, plan.s_car_w,
+                                             (long long)C * C, C, C, C,
+                                             static_cast<Scalar*>(o.dcar_w));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 7. dW2, dW3 and the column sums
+  if ((err = tn_product<Scalar>(plan, plan.w2, rp.x1, rp.da2,
+                                part(plan.off_part_w2),
+                                static_cast<Scalar*>(o.dw2), stream)) != cudaSuccess)
+    return err;
+  if ((err = tn_product<Scalar>(plan, plan.w3, rp.x2, rp.da3,
+                                part(plan.off_part_w3),
+                                static_cast<Scalar*>(o.dw3), stream)) != cudaSuccess)
+    return err;
   if ((err = column_sum<Scalar>(plan, plan.s_car, rp.dncp_c, nullptr,
                                 part(plan.off_sum_car),
                                 static_cast<Scalar*>(o.dcar_b), stream)) !=
@@ -1205,9 +1269,13 @@ cudaError_t launch_typed(const RowParams& rp_in, const Outputs& o,
                             static_cast<Scalar*>(o.dw4), stream);
 }
 
-bool shapes_ok(long long n_rows, int k, int c, int m1, int m2, int m3) {
+// bf16 needs C and M1 to be multiples of 8: the core's TMA maps need
+// 16-byte row strides (the caller pads them).
+bool shapes_ok(long long n_rows, int k, int c, int m1, int m2, int m3,
+               int dtype) {
   return n_rows > 0 && k > 0 && n_rows % k == 0 && c > 0 && m1 > 0 &&
-         m1 <= kMaxM1 && m2 > 0 && m3 > 0 && div_up(n_rows, 16) <= 0x7fffffffLL;
+         m1 <= kMaxM1 && m2 > 0 && m3 > 0 && n_rows <= 0x7fffffffLL &&
+         (dtype == 0 || (dtype == 1 && c % 8 == 0 && m1 % 8 == 0));
 }
 
 }  // namespace
@@ -1217,16 +1285,17 @@ bool shapes_ok(long long n_rows, int k, int c, int m1, int m2, int m3) {
 extern "C" long long cand_score_bwd_scratch_bytes(long long n_rows, int k,
                                                   int c, int m1, int m2,
                                                   int m3, int dtype) {
-  if (!shapes_ok(n_rows, k, c, m1, m2, m3) || (dtype != 0 && dtype != 1))
-    return -1;
+  if (!shapes_ok(n_rows, k, c, m1, m2, m3, dtype)) return -1;
   return (long long)Plan(n_rows, c, m1, m2, m3, dtype == 0 ? 4 : 2).bytes;
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (every operand and every gradient
-// has it; g is float32).  Operands as for cand_score_fwd, plus nc [n_rows, c]
-// (the forward's stash), or null for the recompute variant, and g [n_rows].  Outputs: di [n_rows, c], du and dp
-// [n_rows / k, c], dcar_w [c, c], dcar_b [c], dw1 [c, m1], db1 [m1],
-// dw2 [m1, m2], db2 [m2], dw3 [m2, m3], db3 [m3], dw4 [m3].  `scratch` holds
+// has it; g is float32; in bfloat16 c and m1 are multiples of 8).  Operands as for
+// cand_score_fwd, plus nc [n_rows, c] (the forward's CAR output; it may be
+// the di buffer itself, which K1b' fills with the stash forward first) and
+// g [n_rows].  Outputs: di [n_rows, c], du and dp [n_rows / k, c], dcar_w
+// [c, c], dcar_b [c], dw1 [c, m1], db1 [m1], dw2 [m1, m2], db2 [m2], dw3
+// [m2, m3], db3 [m3], dw4 [m3].  `scratch` holds
 // cand_score_bwd_scratch_bytes(...) bytes, 128-byte aligned.  Every pointer
 // is 16-byte aligned and every array contiguous.  Returns the cudaError_t of
 // the launches (0 on success); the kernels run on `stream` and are not
@@ -1239,16 +1308,34 @@ extern "C" int cand_score_bwd(
     void* dcar_b, void* dw1, void* db1, void* dw2, void* db2, void* dw3,
     void* db3, void* dw4, void* scratch, long long n_rows, int k, int c,
     int m1, int m2, int m3, int dtype, float alpha, void* stream) {
-  if (!shapes_ok(n_rows, k, c, m1, m2, m3)) return cudaErrorInvalidValue;
-  const RowParams rp{i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3,
-                     w4, nc, static_cast<const float*>(g), nullptr, nullptr,
+  (void)car_b;  // its gradient needs only dncp_c
+  if (!shapes_ok(n_rows, k, c, m1, m2, m3, dtype) || nc == nullptr)
+    return cudaErrorInvalidValue;
+  const Inputs in{i_rows, u, car_w};
+  const RowParams rp{pred,    w1,      b1,      w2,      b2,      w3,
+                     b3,      w4,      nc,      static_cast<const float*>(g),
                      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, n_rows, k, c, m1, m2, m3, alpha, kRowAll};
+                     nullptr, nullptr, n_rows,  k,       c,       m1,
+                     m2,      m3,      alpha};
   const Outputs o{di, du, dp, dcar_w, dcar_b, dw1, db1, dw2, db2, dw3, db3,
                   dw4};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned char* buffer = static_cast<unsigned char*>(scratch);
-  if (dtype == 0) return launch_typed<float>(rp, o, buffer, s);
-  if (dtype == 1) return launch_typed<__nv_bfloat16>(rp, o, buffer, s);
-  return cudaErrorInvalidValue;
+  if (dtype == 0) return launch_typed<float>(in, rp, o, buffer, s);
+  return launch_typed<__nv_bfloat16>(in, rp, o, buffer, s);
+}
+
+// The GEMM core alone, for its tests: c [m, n] bf16 = A op B with A [m, k]
+// (trans_a 0) or [k, m] (trans_a 1) and B [n, k] (trans_b 0) or [k, n]
+// (trans_b 1), all bf16, row-major, rows 16-byte aligned (n, and k or m, a
+// multiple of 8).  Returns the launch's cudaError_t.
+extern "C" int sm90_gemm_bf16(const void* a, const void* b, void* c, int m,
+                              int n, int k, int trans_a, int trans_b,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const sm90::StoreBf16 epi{static_cast<__nv_bfloat16*>(c), n};
+  if (!trans_a && !trans_b) return sm90::gemm<0, 0>(a, b, m, n, k, 1, epi, s);
+  if (!trans_a && trans_b) return sm90::gemm<0, 1>(a, b, m, n, k, 1, epi, s);
+  if (trans_a && !trans_b) return sm90::gemm<1, 0>(a, b, m, n, k, 1, epi, s);
+  return sm90::gemm<1, 1>(a, b, m, n, k, 1, epi, s);
 }

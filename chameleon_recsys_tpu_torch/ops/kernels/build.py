@@ -1,10 +1,14 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
-``nvcc`` into ``_build/<name>-<hash of the source>.so`` inside the package, so
-an edited source is rebuilt and an unchanged one is reused.  Nothing here runs
-at import time: the CPU tests import every module, and this machine may have
-neither ``nvcc`` nor a card.
+``nvcc`` into ``_build/<name>-<hash>.so`` inside the package, the hash taken
+over the source and every ``csrc/*.cuh`` header, so an edited source or
+header is rebuilt and an unchanged one is reused.  The libraries link the
+CUDA runtime only; a kernel that needs a CUDA driver API function (the TMA
+maps' ``cuTensorMapEncodeTiled``) fetches it with
+``cudaGetDriverEntryPoint``.
+Nothing here runs at import time: the CPU tests import every module, and
+this machine may have neither ``nvcc`` nor a card.
 """
 from __future__ import annotations
 
@@ -41,10 +45,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+def _lib_path(name: str, csrc: Path = CSRC) -> Path:
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> None:

@@ -7,7 +7,13 @@
 ``csrc/cand_score_fwd.cu``.  ``cand_score_bwd_kernel`` replaces the backward
 ``_bwd_kernel_stash`` (``_bwd_vjp``) and ``cand_score_bwd_recompute_kernel``
 the backward ``_bwd_kernel``, which recomputes nc instead of reading the
-stash; both launch ``csrc/cand_score_bwd.cu``.  On a CUDA tensor a wrapper
+stash: it launches the stash forward with its nc written into the ``di``
+buffer, then the same ``csrc/cand_score_bwd.cu`` on that nc.  The backward's
+C-wide products (dW1, dpre, dcar_w) run on a hand-written wgmma + TMA GEMM
+core (``csrc/sm90_gemm.cuh``) in bf16; ``sm90_gemm_kernel`` calls that core alone
+(for its tests).  In bf16 a C or a first matching width that is no
+multiple of 8 is zero-padded around the backward (``pad_widths`` /
+``slice_widths``).  On a CUDA tensor a wrapper
 launches its kernel or raises; on a CPU tensor it runs its plain PyTorch twin
 (``cand_score_reference``, ``cand_score_bwd_reference``).  ``cand_score`` is
 the differentiable entry: with ``_STASH_NC`` on (the default, read at call
@@ -265,9 +271,41 @@ def cand_score_kernel(
     return out.reshape(bt, n_rows // bt)
 
 
+# the widths (C, M1) of bf16 operands that the GEMM core's TMA maps take:
+# rows of a multiple of 16 bytes
+_ALIGN = 8
+
+
+def pad_widths(operands, nc, c_to, m1_to):
+    """The operands (and nc) with C zero-padded to ``c_to`` (the columns of
+    i_rows, u, pred and nc, the rows and columns of car_w, car_b, the rows
+    of w1) and the first matching width to ``m1_to`` (the columns of w1,
+    b1, the rows of w2).  In the padded columns pre, nc, prod, a1 and x1 are
+    0, so every gradient's real entries are those of the unpadded operands."""
+    i_rows, u, pred, car_w, car_b, w1, b1, w2 = operands[:8]
+    extra, m1_extra = c_to - i_rows.shape[1], m1_to - w1.shape[1]
+    pad = torch.nn.functional.pad
+    padded = (pad(i_rows, (0, extra)), pad(u, (0, extra)), pad(pred, (0, extra)),
+              pad(car_w, (0, extra, 0, extra)), pad(car_b, (0, extra)),
+              pad(w1, (0, m1_extra, 0, extra)), pad(b1, (0, m1_extra)),
+              pad(w2, (0, 0, 0, m1_extra))) + tuple(operands[8:])
+    return padded, None if nc is None else pad(nc, (0, extra))
+
+
+def slice_widths(grads, c, m1):
+    """The 12 gradients of ``pad_widths``'s operands cut back to C = ``c``
+    and the first matching width ``m1``."""
+    di, du, dp, dcar_w, dcar_b, dw1, db1, dw2 = grads[:8]
+    return (di[:, :c].contiguous(), du[:, :c].contiguous(), dp[:, :c].contiguous(),
+            dcar_w[:c, :c].contiguous(), dcar_b[:c].contiguous(),
+            dw1[:c, :m1].contiguous(), db1[:m1].contiguous(),
+            dw2[:m1].contiguous()) + tuple(grads[8:])
+
+
 def _bwd(operands, nc, g, alpha):
     """The backward on a CPU tensor (the twin) or a CUDA tensor (the kernel;
-    a null nc launches the recompute variant); (grads, launched)."""
+    nc None runs the recompute variant: the stash forward writes nc into
+    the di buffer, then the backward reads it there); (grads, launched)."""
     i_rows, u, w1 = operands[0], operands[1], operands[5]
     bt = u.shape[0]
     if nc is not None and (tuple(nc.shape) != tuple(i_rows.shape)
@@ -282,25 +320,70 @@ def _bwd(operands, nc, g, alpha):
     if i_rows.device.type != "cuda":
         raise ValueError(f"unsupported device {i_rows.device}")
     _check_launchable(operands + ((g,) if nc is None else (nc, g)), w1)
+    c, m1 = i_rows.shape[1], w1.shape[1]
+    if i_rows.dtype == torch.bfloat16 and (c % _ALIGN or m1 % _ALIGN):
+        operands, nc = pad_widths(operands, nc, -(-c // _ALIGN) * _ALIGN,
+                                  -(-m1 // _ALIGN) * _ALIGN)
+        return slice_widths(_bwd_launch(operands, nc, g, alpha), c, m1), True
+    return _bwd_launch(operands, nc, g, alpha), True
+
+
+def _bwd_launch(operands, nc, g, alpha):
+    i_rows, u, w1 = operands[0], operands[1], operands[5]
+    bt = u.shape[0]
     n_rows, c = i_rows.shape
     m1, m2, m3 = w1.shape[1], operands[7].shape[1], operands[9].shape[1]
+    dtype = _DTYPE_CODES[i_rows.dtype]
     grads = tuple(torch.empty_like(t) for t in operands)
     fn, size = _bwd_library()
-    dtype = _DTYPE_CODES[i_rows.dtype]
     n_bytes = size(n_rows, n_rows // bt, c, m1, m2, m3, dtype)
     if n_bytes < 0:
         raise ValueError(f"cand_score_bwd cannot take the shape {tuple(i_rows.shape)}")
     scratch = torch.empty(n_bytes, dtype=torch.uint8, device=i_rows.device)
     with torch.cuda.device(i_rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if nc is None:  # K1b': nc from the stash forward's own launch, into di
+            nc = grads[0]
+            scores = torch.empty(n_rows, dtype=torch.float32, device=i_rows.device)
+            err = _library()(
+                *(t.data_ptr() for t in operands), scores.data_ptr(), nc.data_ptr(),
+                n_rows, n_rows // bt, c, m1, m2, m3, dtype, float(alpha), stream,
+            )
+            _raise_on(err, "cand_score_fwd")
         err = fn(
-            *(t.data_ptr() for t in operands),
-            None if nc is None else nc.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in operands), nc.data_ptr(), g.data_ptr(),
             *(t.data_ptr() for t in grads), scratch.data_ptr(),
-            n_rows, n_rows // bt, c, m1, m2, m3, dtype, float(alpha),
-            torch.cuda.current_stream().cuda_stream,
+            n_rows, n_rows // bt, c, m1, m2, m3, dtype, float(alpha), stream,
         )
     _raise_on(err, "cand_score_bwd")
-    return grads, True
+    return grads
+
+
+def sm90_gemm_kernel(a, b, trans_a=False, trans_b=False):
+    """The backward's GEMM core alone, for its tests: bf16 ``A op B`` on the
+    card with f32 accumulation, A [M, K] (or [K, M] read transposed with
+    ``trans_a``) and B [N, K] read as B^T (or [K, N] with ``trans_b``); the
+    stored row lengths a multiple of 8.  Returns C [M, N] bf16."""
+    for t in (a, b):
+        if (t.dtype != torch.bfloat16 or t.device.type != "cuda" or t.dim() != 2
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError("the GEMM core takes contiguous, 16-byte aligned 2-D "
+                             "bfloat16 tensors on the card")
+    m, k = a.shape[::-1] if trans_a else a.shape
+    n, k_b = b.shape[::-1] if trans_b else b.shape
+    if k != k_b or a.shape[1] % 8 or b.shape[1] % 8 or n % 8:
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} do not fit")
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=a.device)
+    lib = build.load(_BWD_SOURCE)
+    fn = lib.sm90_gemm_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(trans_a),
+                 int(trans_b), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "sm90_gemm")
+    return out
 
 
 def cand_score_bwd_kernel(
@@ -321,8 +404,10 @@ def cand_score_bwd_recompute_kernel(
     i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4, g, alpha=0.2,
 ):
     """The 12 gradients of the fused scorer from the operands and the
-    scores' cotangent ``g`` [BT, K] alone: nc is recomputed, as the forward
-    forms it, inside the backward (``_bwd_kernel``)."""
+    scores' cotangent ``g`` [BT, K] alone (``_bwd_kernel``): on the card nc
+    is formed by the stash forward's own launch into the ``di`` buffer, then
+    the stash backward runs on it, so the gradients are
+    ``cand_score_bwd_kernel``'s on the forward's nc, bit for bit."""
     global bwd_recompute_launches
     operands = _check(i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4)
     grads, launched = _bwd(operands, None, g, alpha)

@@ -59,7 +59,13 @@ hand-written kernel of those paths:
    train step (with the stash and without) with CUDA events or a
    synchronised host clock, and breaks one request, one eval step and one
    train step with the stash and one without down by device kernel (torch
-   profiler).
+   profiler);
+9. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
+   against ``torch.matmul`` at dpre's shape (134,400 x 1024 by 1024^T, bf16)
+   and times both (its own line: it is no TPU kernel), splits one backward
+   (K1b) at the train path's operands by device launch (torch profiler),
+   and fails unless two backward launches on those operands give the same
+   bits.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 numbers before the last line, and as the last line
@@ -437,6 +443,55 @@ def scorer_inputs(bt, k, c, m1, m2, m3, dtype, seed):
     ]
 
 
+def launch_split(fn, calls):
+    """[(kernel name, mean device us)] for each launch of one ``fn()`` call,
+    in launch order, over ``calls`` profiled calls (torch profiler, device
+    events only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    check(events and len(events) % calls == 0,
+          f"launch split: {len(events)} device events over {calls} calls")
+    per_call = len(events) // calls
+    return [
+        (events[i].name,
+         sum(events[c * per_call + i].time_range.elapsed_us() for c in range(calls))
+         / calls)
+        for i in range(per_call)
+    ]
+
+
+def print_split(label, split):
+    total = sum(us for _, us in split)
+    print(f"split {label}: {len(split)} launches, {total / 1e3:.4f} ms device time")
+    for i, (name, us) in enumerate(split):
+        short = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        print(f"  {i:2d} {us / 1e3:9.4f} ms  {short.split('(')[0][:90]}")
+
+
+def ptxas_entries(log):
+    """(kernel, registers, spill store bytes, static shared bytes) for each
+    entry function in an ``nvcc -Xptxas -v`` log."""
+    entries = []
+    for block in log.split("Compiling entry function '")[1:]:
+        name = block.split("'")[0]
+        registers = re.search(r"Used (\d+) registers", block)
+        spills = re.search(r"(\d+) bytes spill stores", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        entries.append((name, int(registers.group(1)) if registers else 0,
+                        int(spills.group(1)) if spills else 0,
+                        int(smem.group(1)) if smem else 0))
+    return entries
+
+
 def device_profile(label, fn, calls, host_ms):
     """Device time by kernel over ``calls`` calls of ``fn`` (torch profiler,
     device-side events only), and that time's share of the unprofiled
@@ -463,6 +518,36 @@ def device_profile(label, fn, calls, host_ms):
           f"unprofiled {host_ms:.3f} ms {busy_us / (host_ms * 1e3):.3f}")
     for name, us, count in sorted(kernels, key=lambda k: -k[1])[:8]:
         print(f"  {us / calls:9.1f} us/call  x{count / calls:<5.1f} {name[:100]}")
+
+
+def gemm_core_phase(rows, c):
+    """The scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone at
+    dpre's shape, C = A B^T with A [rows, c] and B [c, c] in bf16 (random,
+    seeded), against ``torch.matmul`` of the same operands: the max error
+    (tolerance one bf16 rounding of the largest |C| plus f32 noise), the
+    core's ms and TFLOP/s and torch.matmul's ms as the product's yardstick,
+    on one line of its own."""
+    from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer
+
+    g = torch.Generator().manual_seed(40)
+    a = torch.randn(rows, c, generator=g).to(torch.bfloat16).cuda()
+    b = (torch.randn(c, c, generator=g) * c ** -0.5).to(torch.bfloat16).cuda()
+    out = cand_scorer.sm90_gemm_kernel(a, b)
+    ref = a.float() @ b.float().T
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    tol = 2.0 ** -8 * ref.abs().max().item() + 1e-3
+    del out, ref
+    core_ms = cuda_ms(lambda: cand_scorer.sm90_gemm_kernel(a, b), iters=20)
+    matmul_ms = cuda_ms(lambda: torch.matmul(a, b.T), iters=20)
+    flop = 2 * rows * c * c
+    print("gemm core " + json.dumps({
+        "source": "chameleon_recsys_tpu_torch/csrc/sm90_gemm.cuh",
+        "shape": [rows, c, c], "max_abs_err": err, "tolerance": tol,
+        "ms": core_ms, "tflop_per_s": flop / core_ms / 1e9,
+        "library_ms": matmul_ms, "library_tflop_per_s": flop / matmul_ms / 1e9,
+    }))
+    check(err <= tol, f"the GEMM core disagrees with torch.matmul: {err} > {tol}")
 
 
 def check_eval_outputs(step, batch, metrics, fetches, cfg):
@@ -1090,6 +1175,13 @@ def main() -> int:
         if registers:
             print(f"  ptxas {name}: {len(registers)} instantiations, registers "
                   f"{min(registers)}-{max(registers)}, spill bytes {spills}")
+    # the backward's row kernel and GEMM instantiations, one by one (dynamic
+    # shared memory is set at launch: the row kernel's, the core's 97.1 KB)
+    for entry, registers, spill, smem in ptxas_entries(
+            build.build_log.get("cand_score_bwd", "")):
+        if any(k in entry for k in ("rows_kernel", "gemm_kernel")):
+            print(f"  ptxas cand_score_bwd {entry}: {registers} registers, "
+                  f"{spill} bytes spill stores, {smem} bytes static smem")
 
     # ---- G1 server with a live stream ----
     cfg, session_schema, article_schema = g1_setup(port)
@@ -1379,7 +1471,20 @@ def main() -> int:
                          iters=5, warmup=2)
         bwd_plain_ms = cuda_ms(lambda: cand_scorer.cand_score_bwd_reference(*ops, nc, g),
                                iters=1, warmup=1)
+        # no float atomics anywhere: two launches give the same bits
+        first = cand_scorer.cand_score_bwd_kernel(*ops, nc, g)
+        second = cand_scorer.cand_score_bwd_kernel(*ops, nc, g)
+        torch.cuda.synchronize()
+        same = [name for name, a, b in zip(SCORER_GRADS, first, second)
+                if torch.equal(a, b)]
+        print(f"cand_score_bwd twice on the G1 train operands: bit-equal in "
+              f"{len(same)} of {len(SCORER_GRADS)} gradients")
+        check(len(same) == len(SCORER_GRADS), "cand_score_bwd is not deterministic")
+        del first, second
+        bwd_split = launch_split(lambda: cand_scorer.cand_score_bwd_kernel(*ops, nc, g), 3)
         del nc
+        recompute_split = launch_split(
+            lambda: cand_scorer.cand_score_bwd_recompute_kernel(*ops, g), 3)
         recompute_ms = cuda_ms(
             lambda: cand_scorer.cand_score_bwd_recompute_kernel(*ops, g), iters=5,
             warmup=2)
@@ -1406,6 +1511,10 @@ def main() -> int:
           f"kernel {recompute_ms:.4f} ms ({recompute_ops / recompute_ms / 1e9:.1f} "
           f"TFLOP/s), plain {recompute_plain_ms:.4f} ms, bound {recompute_bound:.5f} ms "
           f"({recompute_bound_by})")
+    print_split(f"cand_score_bwd {list(train_operands[0].shape)} bf16", bwd_split)
+    print_split(f"cand_score_bwd_recompute {list(train_operands[0].shape)} bf16",
+                recompute_split)
+    gemm_core_phase(n_rows, c)
     print(f"scorer kernels of one G1 train step: without the stash (forward + "
           f"recompute backward) {fwd_train_ms + recompute_ms:.4f} ms, with it (stash "
           f"forward + stash backward) {stash_ms + bwd_ms:.4f} ms, difference "

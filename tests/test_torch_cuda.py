@@ -25,6 +25,8 @@ pre-activations a few lie within f32 summation noise of 0, so the kernel and
 the twin take different slopes there and that row's cotangents differ
 outright.  The stashed ``nc`` and the f32 UGRNN states are
 the forward's own values: float32 within 1e-5, bfloat16 within one rounding.
+The backward's GEMM core alone is held against torch.matmul at one bf16
+rounding of the output, and two backward launches must give the same bits.
 """
 import numpy as np
 import pytest
@@ -247,6 +249,43 @@ def test_cand_score_bwd_recompute_matches_reference(card, dtype, shape):
     torch.cuda.synchronize()
     for name, got, want in zip(SCORER_GRADS, grads, stash):
         assert torch.equal(got, want), name
+
+
+def test_cand_score_bwd_is_deterministic(card):
+    """Two launches of the backward on the same operands at the compacted G1
+    train shape give the same bits: every sum runs in a fixed order, with no
+    float atomics."""
+    operands = [t.to(card) for t in _scorer_inputs(2688, 50, 1024, 128, 64, 32,
+                                                    torch.bfloat16, seed=13)]
+    g = torch.randn(2688, 50, generator=torch.Generator().manual_seed(14)).to(card)
+    _, nc = cand_scorer.cand_score_kernel(*operands, return_nc=True)
+    first = cand_scorer.cand_score_bwd_kernel(*operands, nc, g)
+    second = cand_scorer.cand_score_bwd_kernel(*operands, nc, g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(SCORER_GRADS, first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("trans_b", [False, True], ids=["b_kmajor", "b_mnmajor"])
+@pytest.mark.parametrize("trans_a", [False, True], ids=["a_kmajor", "a_mnmajor"])
+@pytest.mark.parametrize("m,n,k", [(1000, 40, 40), (1000, 40, 1000), (40, 40, 1000)])
+def test_gemm_core_matches_matmul(card, m, n, k, trans_a, trans_b):
+    """The backward's wgmma + TMA GEMM core against torch.matmul of the same
+    bf16 operands in f32: a ragged row count (1,000 is no multiple of the
+    128-row tile), C = 40 (one partial 128-wide tile, no multiple of 64),
+    both operand majors.  The core rounds its f32 sum to bf16 once, so it is
+    held at one bf16 rounding of the largest |ref| plus f32 noise."""
+    g = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn(*((k, m) if trans_a else (m, k)), generator=g).to(torch.bfloat16)
+    b = torch.randn(*((k, n) if trans_b else (n, k)), generator=g).to(torch.bfloat16)
+    a, b = a.to(card), b.to(card)
+    out = cand_scorer.sm90_gemm_kernel(a, b, trans_a, trans_b)
+    torch.cuda.synchronize()
+    ref = (a.float().T if trans_a else a.float()) @ (b.float() if trans_b else b.float().T)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    scale = ref.abs().max().item()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= 2.0 ** -8 * scale + 1e-3, (err, scale)
 
 
 def test_cand_score_function_without_stash_on_card(card, monkeypatch):
