@@ -1289,6 +1289,16 @@ extern "C" long long cand_score_bwd_scratch_bytes(long long n_rows, int k,
   return (long long)Plan(n_rows, c, m1, m2, m3, dtype == 0 ? 4 : 2).bytes;
 }
 
+// Dynamic shared memory of the row kernel at these widths (its RowLayout;
+// the launch refuses more than kSmemLimit), or -1 for widths or a dtype
+// code it does not take.
+extern "C" long long cand_score_bwd_rows_smem_bytes(int m1, int m2, int m3, int dtype) {
+  if (m1 <= 0 || m1 > kMaxM1 || m2 <= 0 || m3 <= 0) return -1;
+  if (dtype == 0) return (long long)RowLayout<float>(m1, m2, m3).bytes;
+  if (dtype == 1) return (long long)RowLayout<__nv_bfloat16>(m1, m2, m3).bytes;
+  return -1;
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16 (every operand and every gradient
 // has it; g is float32; in bfloat16 c and m1 are multiples of 8).  Operands as for
 // cand_score_fwd, plus nc [n_rows, c] (the forward's CAR output; it may be

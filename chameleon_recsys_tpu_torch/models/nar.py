@@ -45,7 +45,7 @@ from ..config import (
     embedding_dim_for_cardinality,
 )
 from ..ops.embedding import pool_gather
-from ..ops.kernels.cand_scorer import cand_score
+from ..ops.kernels.cand_scorer import cand_score, kernel_takes
 from ..ops.normalization import log1p_base, log_base, normalize_values
 from ..ops.rnn import StackedUGRNN
 from .towers import FeatureTowers, gather_rows
@@ -484,9 +484,14 @@ class NARModel(nn.Module):
             )
         u_pre, i_pre, const = self._pre_split(user_ctx, neg_pool, max_event_ts, aux)
 
-        # The JAX package also asks the row count to be a multiple of its
-        # 8-row tile, a Mosaic limit; the CUDA kernels take any row count.
-        if cfg.use_pallas_scorer and len(cfg.matching_layer_sizes) == 3:
+        # As the JAX package's gate, the fused branch only for shapes its
+        # kernels take: here the card's widths (``kernel_takes``, decided from
+        # the shapes alone, the same on the CPU; with grad on, the backward's
+        # too).  The JAX package also asks the row count to be a multiple of
+        # its 8-row tile, a Mosaic limit; the CUDA kernels take any row count.
+        if (cfg.use_pallas_scorer and len(cfg.matching_layer_sizes) == 3
+                and kernel_takes(pred.shape[-1], *cfg.matching_layer_sizes, dt,
+                                 train=torch.is_grad_enabled())):
             pos_score = self._match_score(pos_car * pred)  # [B, T] / [M]
             # one kernel for the gathered rows' PreCAR + CAR + matching MLP
             neg_score = cand_score(

@@ -32,11 +32,17 @@ For each candidate row r of ``i_rows`` [BT*K, C], with bt = r // K:
 
 What bounds it on an H100: at the G1 eval shape (BT 4864, K 50, C 1024,
 matching 128/64/32) it does 0.58 TFLOP on 0.5 GB of ``i_rows``, so the
-tensor cores bound it.  The kernel keeps a block's PreCAR rows in shared
-memory, walks the CAR output in 64-column chunks on the tensor cores (WMMA,
-bf16 in, f32 accumulate) and folds each chunk straight into the first
-matching layer, so the [N, C] intermediates never reach device memory.  The
-source says more.
+tensor cores bound it.  In bf16 the kernel keeps a block's 64 PreCAR rows in
+shared memory, streams ``car_W`` and W1 tiles by TMA, runs the CAR product on
+wgmma, and folds each 64-column tile of its output straight into the first
+matching layer (wgmma with A from registers), then the other two layers, so
+the [N, C] intermediates never reach device memory.  The source says more.
+
+The card's kernels take only some widths; ``kernel_takes`` says which, from
+the shapes alone, and the model's gate (``models/nar.py``) takes the plain
+branch for the others, as the JAX package's gate does for shapes its kernel
+cannot take.  In bf16 a C or matching width that is no multiple of 8 is
+zero-padded around both kernels (``pad_widths``, ``pad_forward``).
 
 Numerics are the Pallas kernel's (``_fwd_compute``), not those of the JAX
 ``cand_score_reference``: ``i + u`` is added in f32, and each activation is
@@ -54,7 +60,19 @@ from . import build
 _SOURCE = "cand_score_fwd"
 _BWD_SOURCE = "cand_score_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_M1 = 128  # the first matching layer's accumulators live in registers
+# The kernels' width limits, from the sources (a card test holds each against
+# the libraries' own byte counts): the first matching layer's accumulators
+# live in registers (kMaxM1 of both .cu files); the bf16 forward's last two
+# layers are m64n128 products at most (kMaxM23), and its shared memory,
+# which C alone sizes, fits the 227 KB a block may use up to C 1536
+# (kMaxKBlocks); the f32 forward's and the backward row kernel's depend on
+# every width (``_f32_fwd_smem_bytes``, ``_bwd_smem_bytes``).
+_MAX_M1 = 128
+_BF16_MAX_M23 = 128
+_BF16_MAX_C = 1536
+_SMEM_LIMIT = 232448
+# bf16 widths that the TMA maps take: rows of a multiple of 16 bytes
+_ALIGN = 8
 
 # The training forward stashes nc for the backward (True), or the backward
 # recomputes it (False), as ``_STASH_NC`` of the JAX module.
@@ -165,6 +183,73 @@ def cand_score_bwd_reference(
     )
 
 
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _f32_fwd_smem_bytes(c: int, m1: int, m2: int, m3: int) -> int:
+    """Dynamic shared memory of the f32 forward (``cand_score_fwd.cu``'s
+    ``Layout``): 16 rows of pre (C padded to 64, + 4) or, aliasing them, the
+    epilogue's rows (M1 padded to 16, + 4, + M2 + M3), then the car_W tile,
+    the stage and prod rows (26,112 bytes) and the W1 tile."""
+    m1_pad = _up(m1, 16)
+    return (_up(64 * max(_up(c, 64) + 4, m1_pad + 4 + m2 + m3), 128)
+            + 256 * (m1_pad + 4) + 26112)
+
+
+def _bwd_smem_bytes(m1: int, m2: int, m3: int, dtype) -> int:
+    """Dynamic shared memory of ``cand_score_bwd.cu``'s row kernel (its
+    ``RowLayout``): a ring of stages (a W1 tile, the nc and pred chunks; in
+    the tail W2 and W3), the tail's buffers (or the f32 stage aliasing
+    them), da1 and the rows' indices, each 128-byte aligned."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    rows, pad, stages = (64, 8, 3) if e == 2 else (32, 4, 2)
+    m1_pad = _up(m1, 16)
+    stage = max(_up(64 * (m1_pad + pad) * e, 128) + 2 * _up(rows * (64 + pad) * e, 128),
+                _up(m1 * (m2 + 3 - e // 2) * e, 128) + _up(m2 * (m3 + 3 - e // 2) * e, 128))
+    buffers = sum(_up(rows * b, 128) for b in (
+        (m1_pad + 4) * 4, (m1_pad + pad) * e, m2 * 4, m2 * e, m2 * e, m3 * 4, m3 * e,
+        m3 * e))
+    return (stages * stage + max(buffers, _up(rows * 68 * 4, 128))
+            + _up(rows * (m1_pad + pad) * e, 128) + _up(rows * 4, 128))
+
+
+def kernel_limit(c: int, m1: int, m2: int, m3: int, dtype, train: bool = False):
+    """The first limit of the card's fused-scorer kernels that these widths
+    break (the forward's, and with ``train`` the backward's too), as a
+    sentence, or None where the kernels take them.  Shapes alone decide it:
+    it launches nothing and answers the same on the CPU."""
+    if dtype not in _DTYPE_CODES:
+        return f"the kernels take float32 or bfloat16, not {dtype}"
+    bwd_widths = (m1, m2, m3)
+    if dtype == torch.bfloat16:  # widths are zero-padded to 8 for TMA
+        c, m1, m2, m3 = (_up(v, _ALIGN) for v in (c, m1, m2, m3))
+        bwd_widths = (m1,) + bwd_widths[1:]  # the backward pads C and M1 only
+    if m1 > _MAX_M1:
+        return f"the first matching layer has {m1} units, more than {_MAX_M1}"
+    if dtype == torch.bfloat16:
+        if max(m2, m3) > _BF16_MAX_M23:
+            return (f"the bf16 forward takes at most {_BF16_MAX_M23} units in the second "
+                    f"and third matching layers, not {m2} and {m3}")
+        if c > _BF16_MAX_C:
+            return (f"the bf16 forward takes C up to {_BF16_MAX_C}, not {c} (the block's "
+                    f"pre beside its rings in shared memory)")
+    elif (fwd := _f32_fwd_smem_bytes(c, m1, m2, m3)) > _SMEM_LIMIT:
+        return (f"the f32 forward needs {fwd} bytes of shared memory for C {c}, more "
+                f"than the {_SMEM_LIMIT} a block may use")
+    if train and (bwd := _bwd_smem_bytes(*bwd_widths, dtype)) > _SMEM_LIMIT:
+        return (f"the backward's row kernel needs {bwd} bytes of shared memory, "
+                f"more than the {_SMEM_LIMIT} a block may use")
+    return None
+
+
+def kernel_takes(c: int, m1: int, m2: int, m3: int, dtype, train: bool = False) -> bool:
+    """Whether the card's fused-scorer forward (and, with ``train``, its
+    backward) takes a CAR width ``c`` and matching widths ``m1, m2, m3`` in
+    ``dtype``: a pure shape predicate, the gate of ``models/nar.py``."""
+    return kernel_limit(c, m1, m2, m3, dtype, train) is None
+
+
 def _check(i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4):
     if u.dim() != 2 or u.shape[0] == 0:
         raise ValueError(f"u must be [BT, C] with BT >= 1, got {tuple(u.shape)}")
@@ -217,20 +302,50 @@ def _bwd_library():
     return fn, size
 
 
-def _check_launchable(tensors, w1):
+def _check_launchable(tensors, c, m1, m2, m3, train=False):
     for tensor in tensors:
         if not tensor.is_contiguous() or tensor.data_ptr() % 16:
             raise ValueError("the operands must be contiguous and 16-byte aligned")
-    if w1.shape[1] > _MAX_M1:
-        raise ValueError(f"the kernel takes at most {_MAX_M1} first-layer units")
+    limit = kernel_limit(c, m1, m2, m3, tensors[0].dtype, train)
+    if limit is not None:
+        raise ValueError(f"the fused scorer kernels cannot take these widths: {limit}")
 
 
 def _raise_on(err, name):
     if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: cudaError {err} (1 is a shape the kernel "
-            "cannot take, e.g. C too wide for shared memory)"
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _widths(operands):
+    """(C, M1, M2, M3) of the operands."""
+    return (operands[0].shape[1],) + tuple(operands[i].shape[1] for i in (5, 7, 9))
+
+
+def _fwd_into(operands, scores, nc, alpha):
+    """Launches the forward kernel on the card: the f32 scores into
+    ``scores`` [N] and, where ``nc`` is given, the CAR output into it.  In
+    bf16 every width that is no multiple of 8 is zero-padded first
+    (``pad_forward``); a padded C writes nc into a padded buffer, cut back."""
+    i_rows, u = operands[0], operands[1]
+    n_rows = i_rows.shape[0]
+    c, m1, m2, m3 = _widths(operands)
+    out_nc = nc
+    if i_rows.dtype == torch.bfloat16 and any(v % _ALIGN for v in (c, m1, m2, m3)):
+        operands = pad_forward(operands)
+        if nc is not None and c % _ALIGN:
+            nc = torch.empty_like(operands[0])
+        c, m1, m2, m3 = _widths(operands)
+    with torch.cuda.device(i_rows.device):
+        err = _library()(
+            *(t.data_ptr() for t in operands), scores.data_ptr(),
+            None if nc is None else nc.data_ptr(),
+            n_rows, n_rows // u.shape[0], c, m1, m2, m3,
+            _DTYPE_CODES[i_rows.dtype], float(alpha),
+            torch.cuda.current_stream().cuda_stream,
         )
+    _raise_on(err, "cand_score_fwd")
+    if nc is not out_nc:
+        out_nc.copy_(nc[:, :out_nc.shape[1]])
 
 
 def cand_score_kernel(
@@ -246,34 +361,20 @@ def cand_score_kernel(
         return cand_score_reference(*operands, alpha=alpha, return_nc=return_nc)
     if i_rows.device.type != "cuda":
         raise ValueError(f"unsupported device {i_rows.device}")
-    _check_launchable(operands, w1)
-    bt, c = u.shape
+    _check_launchable(operands, *_widths(operands))
+    bt = u.shape[0]
     n_rows = i_rows.shape[0]
-    m1, m2, m3 = w1.shape[1], w2.shape[1], w3.shape[1]
     out = torch.empty(n_rows, dtype=torch.float32, device=i_rows.device)
     nc = torch.empty_like(i_rows) if return_nc else None
     if n_rows == 0:
         out = out.reshape(bt, 0)
         return (out, nc) if return_nc else out
-    fn = _library()
-    with torch.cuda.device(i_rows.device):
-        err = fn(
-            *(t.data_ptr() for t in operands), out.data_ptr(),
-            nc.data_ptr() if return_nc else None,
-            n_rows, n_rows // bt, c, m1, m2, m3, _DTYPE_CODES[i_rows.dtype],
-            float(alpha), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(err, "cand_score_fwd")
+    _fwd_into(operands, out, nc, alpha)
     if return_nc:
         stash_launches += 1
         return out.reshape(bt, n_rows // bt), nc
     launches += 1
     return out.reshape(bt, n_rows // bt)
-
-
-# the widths (C, M1) of bf16 operands that the GEMM core's TMA maps take:
-# rows of a multiple of 16 bytes
-_ALIGN = 8
 
 
 def pad_widths(operands, nc, c_to, m1_to):
@@ -290,6 +391,21 @@ def pad_widths(operands, nc, c_to, m1_to):
               pad(w1, (0, m1_extra, 0, extra)), pad(b1, (0, m1_extra)),
               pad(w2, (0, 0, 0, m1_extra))) + tuple(operands[8:])
     return padded, None if nc is None else pad(nc, (0, extra))
+
+
+def pad_forward(operands):
+    """bf16 operands with C and every matching width zero-padded to a
+    multiple of 8, as the forward's TMA maps need: C and M1 by
+    ``pad_widths``, then the columns of w2, b2 (M2) and the rows of w3, the
+    columns of w3, b3 and w4 (M3).  Every padded activation is 0, so the
+    scores are the unpadded ones and nc's first C columns the unpadded nc."""
+    c, m1, m2, m3 = _widths(operands)
+    padded, _ = pad_widths(operands, None, _up(c, _ALIGN), _up(m1, _ALIGN))
+    w2, b2, w3, b3, w4 = padded[7:]
+    e2, e3 = _up(m2, _ALIGN) - m2, _up(m3, _ALIGN) - m3
+    pad = torch.nn.functional.pad
+    return padded[:7] + (pad(w2, (0, e2)), pad(b2, (0, e2)), pad(w3, (0, e3, 0, e2)),
+                         pad(b3, (0, e3)), pad(w4, (0, e3)))
 
 
 def slice_widths(grads, c, m1):
@@ -319,11 +435,11 @@ def _bwd(operands, nc, g, alpha):
                                         alpha=alpha), False
     if i_rows.device.type != "cuda":
         raise ValueError(f"unsupported device {i_rows.device}")
-    _check_launchable(operands + ((g,) if nc is None else (nc, g)), w1)
+    _check_launchable(operands + ((g,) if nc is None else (nc, g)), *_widths(operands),
+                      train=True)
     c, m1 = i_rows.shape[1], w1.shape[1]
     if i_rows.dtype == torch.bfloat16 and (c % _ALIGN or m1 % _ALIGN):
-        operands, nc = pad_widths(operands, nc, -(-c // _ALIGN) * _ALIGN,
-                                  -(-m1 // _ALIGN) * _ALIGN)
+        operands, nc = pad_widths(operands, nc, _up(c, _ALIGN), _up(m1, _ALIGN))
         return slice_widths(_bwd_launch(operands, nc, g, alpha), c, m1), True
     return _bwd_launch(operands, nc, g, alpha), True
 
@@ -345,11 +461,7 @@ def _bwd_launch(operands, nc, g, alpha):
         if nc is None:  # K1b': nc from the stash forward's own launch, into di
             nc = grads[0]
             scores = torch.empty(n_rows, dtype=torch.float32, device=i_rows.device)
-            err = _library()(
-                *(t.data_ptr() for t in operands), scores.data_ptr(), nc.data_ptr(),
-                n_rows, n_rows // bt, c, m1, m2, m3, dtype, float(alpha), stream,
-            )
-            _raise_on(err, "cand_score_fwd")
+            _fwd_into(operands, scores, nc, alpha)
         err = fn(
             *(t.data_ptr() for t in operands), nc.data_ptr(), g.data_ptr(),
             *(t.data_ptr() for t in grads), scratch.data_ptr(),

@@ -14,7 +14,11 @@ hand-written kernel of those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
    per source, started together) and reports the build time and what ptxas
-   says of each (registers, spills);
+   says of each (registers, spills; the forward's and the backward's entries
+   one by one, with the dynamic shared memory of the forward and of the
+   backward's row kernel at the G1 widths),
+   and what the scorer's gate (``cand_scorer.kernel_takes``) says of the G1
+   widths;
 2. serving, counted: zeroes the launch counters, observes 2 x 256 synthetic
    sessions and recommends top-10 of 500 candidates at batch 1 and 32, reads
    the counters (the UGRNN kernel must launch twice per ``recommend``) and
@@ -59,7 +63,11 @@ hand-written kernel of those paths:
    train step (with the stash and without) with CUDA events or a
    synchronised host clock, and breaks one request, one eval step and one
    train step with the stash and one without down by device kernel (torch
-   profiler);
+   profiler); fails unless two launches of the scorer's forward (K1f on the
+   eval operands, K1fs on the train operands) give the same bits; times
+   ``torch.matmul`` of the CAR product alone at the eval shape (the
+   yardstick of that part of K1f, on a line of its own) and splits one K1f
+   by device launch;
 9. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
    against ``torch.matmul`` at dpre's shape (134,400 x 1024 by 1024^T, bf16)
    and times both (its own line: it is no TPU kernel), splits one backward
@@ -74,6 +82,7 @@ without a CUDA device it exits 1 before printing any result.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -1182,6 +1191,28 @@ def main() -> int:
         if any(k in entry for k in ("rows_kernel", "gemm_kernel")):
             print(f"  ptxas cand_score_bwd {entry}: {registers} registers, "
                   f"{spill} bytes spill stores, {smem} bytes static smem")
+    # the forward's two kernels (bf16 on wgmma + TMA, f32 on the CUDA cores)
+    # and the dynamic shared memory each sets at launch at the G1 widths
+    for entry, registers, spill, smem in ptxas_entries(
+            build.build_log.get("cand_score_fwd", "")):
+        print(f"  ptxas cand_score_fwd {entry}: {registers} registers, "
+              f"{spill} bytes spill stores, {smem} bytes static smem")
+    fwd_smem = build.load("cand_score_fwd").cand_score_fwd_smem_bytes
+    fwd_smem.argtypes = [ctypes.c_int] * 5
+    fwd_smem.restype = ctypes.c_longlong
+    print(f"  cand_score_fwd dynamic shared memory at C 1024, M 128/64/32: bf16 "
+          f"{fwd_smem(1024, 128, 64, 32, 1)} bytes, f32 {fwd_smem(1024, 128, 64, 32, 0)}")
+    rows_smem = build.load("cand_score_bwd").cand_score_bwd_rows_smem_bytes
+    rows_smem.argtypes = [ctypes.c_int] * 4
+    rows_smem.restype = ctypes.c_longlong
+    print(f"  cand_score_bwd row kernel dynamic shared memory at M 128/64/32: bf16 "
+          f"{rows_smem(128, 64, 32, 1)} bytes, f32 {rows_smem(128, 64, 32, 0)}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for train in (False, True):
+            takes = cand_scorer.kernel_takes(1024, 128, 64, 32, dtype, train=train)
+            print(f"  gate: kernel_takes(C 1024, M 128/64/32, {str(dtype)[6:]}, "
+                  f"train={train}) {takes}")
+            check(takes, "the scorer's gate refuses the G1 widths")
 
     # ---- G1 server with a live stream ----
     cfg, session_schema, article_schema = g1_setup(port)
@@ -1408,6 +1439,31 @@ def main() -> int:
     print(f"cand_score_fwd {list(scorer_operands[0].shape)} bf16 (G1 eval): kernel "
           f"{scorer_ms:.4f} ms ({tflop / scorer_ms * 1e3:.1f} TFLOP/s), plain "
           f"{scorer_plain_ms:.4f} ms, bound {scorer_bound:.5f} ms ({scorer_bound_by})")
+    # two launches give the same bits (no float atomics in the forward)
+    with torch.inference_mode():
+        first = cand_scorer.cand_score_kernel(*scorer_operands)
+        second = cand_scorer.cand_score_kernel(*scorer_operands)
+        (s1, nc1), (s2, nc2) = (cand_scorer.cand_score_kernel(*train_operands, return_nc=True)
+                                for _ in range(2))
+        torch.cuda.synchronize()
+        same = [torch.equal(first, second), torch.equal(s1, s2), torch.equal(nc1, nc2)]
+        print(f"cand_score_fwd twice on the G1 eval operands: scores bit-equal {same[0]}; "
+              f"cand_score_fwd (stash) twice on the G1 train operands: scores bit-equal "
+              f"{same[1]}, nc bit-equal {same[2]}")
+        check(all(same), "the scorer's forward is not deterministic")
+        del first, second, s1, s2, nc1, nc2
+        # the CAR product alone on torch.matmul: [N, C] x [C, C] in bf16
+        rows, car_w = scorer_operands[0], scorer_operands[3]
+        car_ms = cuda_ms(lambda: torch.matmul(rows, car_w), iters=20, warmup=3)
+        car_flop = 2 * rows.shape[0] * rows.shape[1] * car_w.shape[1]
+        print("CAR product " + json.dumps({
+            "shape": [rows.shape[0], rows.shape[1], car_w.shape[1]],
+            "library": "torch.matmul", "library_ms": car_ms,
+            "library_tflop_per_s": car_flop / car_ms / 1e9,
+            "cand_score_fwd_ms": scorer_ms, "cand_score_fwd_share_of_work":
+            car_flop / scorer_ops,
+        }))
+        del rows, car_w
     # the same row count at other widths: what the CAR product (C^2) and the
     # matching layers (M) each cost in this kernel
     for shape in ((4864, 50, 1024, 16, 8, 8), (4864, 50, 512, 128, 64, 32)):
@@ -1485,6 +1541,7 @@ def main() -> int:
         del nc
         recompute_split = launch_split(
             lambda: cand_scorer.cand_score_bwd_recompute_kernel(*ops, g), 3)
+        fwd_split = launch_split(lambda: cand_scorer.cand_score_kernel(*scorer_operands), 3)
         recompute_ms = cuda_ms(
             lambda: cand_scorer.cand_score_bwd_recompute_kernel(*ops, g), iters=5,
             warmup=2)
@@ -1514,6 +1571,7 @@ def main() -> int:
     print_split(f"cand_score_bwd {list(train_operands[0].shape)} bf16", bwd_split)
     print_split(f"cand_score_bwd_recompute {list(train_operands[0].shape)} bf16",
                 recompute_split)
+    print_split(f"cand_score_fwd {list(scorer_operands[0].shape)} bf16 (G1 eval)", fwd_split)
     gemm_core_phase(n_rows, c)
     print(f"scorer kernels of one G1 train step: without the stash (forward + "
           f"recompute backward) {fwd_train_ms + recompute_ms:.4f} ms, with it (stash "

@@ -1,4 +1,4 @@
-"""The backward's shape rule for bf16 widths that TMA cannot take, and the
+"""The kernels' shape rule for bf16 widths that TMA cannot take, and the
 build's cache key.
 
 The GEMM core of ``csrc/cand_score_bwd.cu`` reads its operands through TMA
@@ -10,6 +10,11 @@ twin runs on both sides, on the CPU: padded and cut back it must give the
 unpadded twin's gradients, bit for bit in float32 (the padded columns hold
 exact zeros, so every real sum is the same) and within one rounding in
 bfloat16, with the stashed nc and with nc recomputed.
+
+The forward's TMA maps need every width a multiple of 8 in bf16 (C, M1, and
+the M2, M3 of its last two wgmma products): ``pad_widths`` pads C and M1,
+``pad_forward`` all four.  Padded, the twin's scores are the unpadded ones
+bit for bit, and its nc cut back to C the unpadded nc, in both dtypes.
 
 ``build._lib_path`` names a library by the hash of its source and of every
 ``csrc/*.cuh`` header it may include, so that an edited header is rebuilt;
@@ -70,6 +75,27 @@ def test_padded_backward_matches_the_unpadded_twin(dtype, c, k, m1, stash):
         else:  # one bf16 rounding: 2^-8 of the value
             diff = (a.float() - b.float()).abs()
             assert bool((diff <= 2.0 ** -8 * b.float().abs()).all()), name
+
+
+@pytest.mark.parametrize("m1", [9, 24])
+@pytest.mark.parametrize("c", [9, 37, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_padded_forward_matches_the_unpadded_twin(dtype, c, m1):
+    bt, k = 5, 3
+    operands = _operands(bt, k, c, m1, 5, 3, dtype, seed=c * 10 + m1)
+    scores, nc = cand_scorer.cand_score_reference(*operands, return_nc=True)
+    c_to, m1_to = -(-c // 8) * 8, -(-m1 // 8) * 8
+    padded, _ = cand_scorer.pad_widths(operands, None, c_to, m1_to)
+    full = cand_scorer.pad_forward(operands)
+    assert tuple(full[0].shape) == (bt * k, c_to) and tuple(full[5].shape) == (c_to, m1_to)
+    assert [tuple(t.shape) for t in full[7:]] == [(m1_to, 8), (8,), (8, 8), (8,), (8,)]
+    assert all(t.is_contiguous() for t in full)
+    for ops in (padded, full):
+        got, got_nc = cand_scorer.cand_score_reference(*ops, return_nc=True)
+        assert torch.equal(got, scores)
+        assert got_nc.shape == (bt * k, c_to)
+        assert torch.equal(got_nc[:, :c], nc)
+        assert not got_nc[:, c:].any()
 
 
 def test_lib_path_changes_with_every_header(tmp_path):

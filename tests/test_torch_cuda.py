@@ -28,6 +28,8 @@ the forward's own values: float32 within 1e-5, bfloat16 within one rounding.
 The backward's GEMM core alone is held against torch.matmul at one bf16
 rounding of the output, and two backward launches must give the same bits.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -44,7 +46,12 @@ from chameleon_recsys_tpu_torch.state.stream_state import (
     init_stream_state,
     update_stream_state,
 )
-from chameleon_recsys_tpu_torch.train.steps import _batch_all_clicks, eval_step
+from chameleon_recsys_tpu_torch.train.steps import (
+    _batch_all_clicks,
+    eval_step,
+    init_train_state,
+    train_step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -164,8 +171,13 @@ def _scorer_inputs(bt, k, c, m1, m2, m3, dtype, seed=0):
 @pytest.mark.parametrize("shape", [
     (4864, 50, 1024, 128, 64, 32),  # the G1 eval shape
     (13, 7, 40, 24, 16, 8),  # BT odd, K = 7, C not a multiple of 16
-    (5, 3, 37, 9, 5, 3),  # C and M1 not multiples of 8: no vector loads
-    (3, 2, 1344, 128, 7, 1),  # the widest C that fits shared memory in bf16
+    (5, 3, 37, 9, 5, 3),  # no width a multiple of 8: padded in bf16
+    (3, 2, 1280, 128, 7, 1),  # the widest C with two ring stages a warpgroup in bf16
+    (3, 2, 1344, 128, 7, 1),  # past it: one ring stage a warpgroup
+    (3, 2, 1536, 128, 7, 1),  # the widest C that fits shared memory in bf16
+    (61, 3, 1030, 128, 64, 32),  # rows no multiple of 64, C of 17 k-blocks
+    (7, 9, 96, 128, 128, 128),  # the bf16 tail's m64n128 products
+    (5, 20, 200, 72, 100, 48),  # M2 past 64 and M3 not, padded in bf16
 ])
 def test_cand_score_kernel_matches_reference(card, dtype, shape):
     bt, k = shape[:2]
@@ -189,6 +201,9 @@ SCORER_GRADS = ("di", "du", "dp", "dcar_w", "dcar_b", "dw1", "db1", "dw2",
     (2688, 50, 1024, 128, 64, 32),  # the compacted G1 train shape
     (13, 7, 40, 24, 16, 8),
     (5, 3, 37, 9, 5, 3),
+    (61, 3, 1030, 128, 64, 32),
+    (3, 2, 1344, 128, 7, 1),
+    (5, 3, 136, 40, 72, 100),
 ])
 def test_cand_score_stash_and_bwd_match_reference(card, dtype, shape):
     if dtype == torch.float32 and shape[0] > 1000:
@@ -223,6 +238,9 @@ def test_cand_score_stash_and_bwd_match_reference(card, dtype, shape):
     (2688, 50, 1024, 128, 64, 32),  # the compacted G1 train shape
     (13, 7, 40, 24, 16, 8),
     (5, 3, 37, 9, 5, 3),
+    (61, 3, 1030, 128, 64, 32),
+    (3, 2, 1344, 128, 7, 1),
+    (5, 3, 136, 40, 72, 100),
 ])
 def test_cand_score_bwd_recompute_matches_reference(card, dtype, shape):
     """The backward that recomputes nc against its twin (normwise, as the
@@ -249,6 +267,67 @@ def test_cand_score_bwd_recompute_matches_reference(card, dtype, shape):
     torch.cuda.synchronize()
     for name, got, want in zip(SCORER_GRADS, grads, stash):
         assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("shape,return_nc", [
+    ((4864, 50, 1024, 128, 64, 32), False),  # K1f at the G1 eval shape
+    ((2688, 50, 1024, 128, 64, 32), True),  # K1fs at the compacted train shape
+])
+def test_cand_score_fwd_is_deterministic(card, shape, return_nc):
+    """Two launches of the forward give the same bits: the two warpgroups'
+    first-layer partials are summed in a fixed order, with no atomics."""
+    operands = [t.to(card) for t in _scorer_inputs(*shape, torch.bfloat16, seed=15)]
+    first = cand_scorer.cand_score_kernel(*operands, return_nc=return_nc)
+    second = cand_scorer.cand_score_kernel(*operands, return_nc=return_nc)
+    torch.cuda.synchronize()
+    for a, b in zip(*((first, second) if return_nc else ((first,), (second,)))):
+        assert torch.equal(a, b)
+
+
+def _library_fn(source, name, n_args):
+    import ctypes
+    from chameleon_recsys_tpu_torch.ops.kernels import build
+
+    fn = getattr(build.load(source), name)
+    fn.argtypes = [ctypes.c_int] * n_args
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_limits_mirror_the_forward_source(card, dtype):
+    """The forward refuses exactly the widths ``kernel_takes`` refuses (the
+    library's ``cand_score_fwd_smem_bytes`` is -1 there), and in f32 the
+    predicate's shared-memory bytes are the library's own."""
+    fn = _library_fn("cand_score_fwd", "cand_score_fwd_smem_bytes", 5)
+    code = 1 if dtype == torch.bfloat16 else 0
+    for c in (8, 64, 512, 1024, 1088, 1280, 1288, 1344, 1536, 1544, 2048, 2688, 2752,
+              2880):
+        for m1, m2, m3 in ((16, 8, 8), (128, 64, 32), (128, 128, 128), (128, 64, 136),
+                           (136, 8, 8), (16, 1024, 1024)):
+            takes = cand_scorer.kernel_takes(c, m1, m2, m3, dtype)
+            n = fn(c, m1, m2, m3, code)
+            assert takes == (n >= 0), (c, m1, m2, m3)
+            if takes and dtype == torch.float32:
+                assert n == cand_scorer._f32_fwd_smem_bytes(c, m1, m2, m3), (c, m1, m2, m3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_limits_mirror_the_backward_source(card, dtype):
+    """The predicate's bytes of the backward's row kernel are the library's
+    own (``cand_score_bwd_rows_smem_bytes``) across a grid of matching
+    widths, and with ``train`` it refuses every width whose row kernel does
+    not fit a block's shared memory."""
+    fn = _library_fn("cand_score_bwd", "cand_score_bwd_rows_smem_bytes", 4)
+    code = 1 if dtype == torch.bfloat16 else 0
+    for m1 in (8, 16, 40, 64, 72, 120, 128):
+        for m2 in (1, 8, 16, 64, 72, 100, 128, 512, 1024):
+            for m3 in (1, 8, 32, 40, 48, 100, 128, 1024):
+                n = fn(m1, m2, m3, code)
+                assert n == cand_scorer._bwd_smem_bytes(m1, m2, m3, dtype), (m1, m2, m3)
+                if n > cand_scorer._SMEM_LIMIT:
+                    assert not cand_scorer.kernel_takes(32, m1, m2, m3, dtype, train=True)
+    assert fn(129, 8, 8, code) == -1
 
 
 def test_cand_score_bwd_is_deterministic(card):
@@ -330,12 +409,26 @@ def test_cand_score_kernel_rejects_what_it_cannot_take(card):
         cand_scorer.cand_score_kernel(
             operands[0], operands[1], operands[2], operands[3].T, *operands[4:]
         )
-    wide = [t.to(card) for t in _scorer_inputs(2, 2, 32, 129, 8, 8, torch.float32)]
-    with pytest.raises(ValueError):
-        cand_scorer.cand_score_kernel(*wide)
-    too_wide = [t.to(card) for t in _scorer_inputs(2, 2, 1500, 128, 8, 8, torch.bfloat16)]
-    with pytest.raises(RuntimeError):
-        cand_scorer.cand_score_kernel(*too_wide)
+    # each limit raises before any launch, naming itself (``kernel_limit``)
+    for shape, dtype, limit in (
+        ((2, 2, 32, 129, 8, 8), torch.float32, "first matching layer has 129"),
+        ((2, 2, 32, 256, 8, 8), torch.bfloat16, "first matching layer has 256"),
+        ((2, 2, 1544, 128, 8, 8), torch.bfloat16, "C up to 1536, not 1544"),
+        ((2, 2, 2752, 128, 8, 8), torch.float32, "f32 forward needs"),
+        ((2, 2, 32, 16, 136, 8), torch.bfloat16, "second and third matching layers"),
+    ):
+        wide = [t.to(card) for t in _scorer_inputs(*shape, dtype)]
+        before = (cand_scorer.launches, cand_scorer.stash_launches)
+        with pytest.raises(ValueError, match=limit):
+            cand_scorer.cand_score_kernel(*wide)
+        with pytest.raises(ValueError, match=limit):
+            cand_scorer.cand_score_kernel(*wide, return_nc=True)
+        assert (cand_scorer.launches, cand_scorer.stash_launches) == before
+    # the backward's own limit: M2 = M3 = 1,024 fit the f32 forward, not it
+    wide = [t.to(card) for t in _scorer_inputs(2, 2, 32, 16, 1024, 1024, torch.float32)]
+    _, nc = cand_scorer.cand_score_kernel(*wide, return_nc=True)
+    with pytest.raises(ValueError, match="backward's row kernel"):
+        cand_scorer.cand_score_bwd_kernel(*wide, nc, torch.ones(2, 2, device=card))
 
 
 def _tiny_eval_world():
@@ -419,3 +512,117 @@ def test_eval_step_on_card_matches_cpu(card):
     )
     for name, value in cpu_stream._asdict().items():
         assert torch.equal(getattr(gpu_stream, name).cpu(), value), name
+
+
+def _steps_on(device, cfg, sess, art, corpus, seed):
+    """One eval step and one train step (with compaction) of a fresh model
+    on ``device``, with uniforms drawn by numpy from ``seed``: the eval
+    step's metrics and fetches, the train step's metrics and gradients, and
+    the fused scorer's launches over both."""
+    b, length = cfg.batch_size, cfg.max_session_length
+    warm = collate_sessions(synthetic_hour_sessions(corpus, sess, 0, b, length), sess, b, length)
+    batch = collate_sessions(synthetic_hour_sessions(corpus, sess, 1, b, length), sess, b, length)
+    on = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    ace = torch.from_numpy(corpus.ace_matrix).to(device)
+    metadata = {k: torch.from_numpy(np.asarray(v)).to(device)
+                for k, v in corpus.metadata.items()}
+    rng = np.random.RandomState(seed)
+    buffer, pool = cfg.recent_clicks_buffer_max_size, b * length + 30
+    rows = cfg.train_valid_row_capacity
+
+    def uniforms(*click):
+        return SamplerUniforms(*(torch.from_numpy(u).to(device) for u in (
+            rng.uniform(size=(buffer,)).astype(np.float32),
+            rng.uniform(size=(pool,)).astype(np.float32),
+            rng.uniform(size=click).astype(np.float32))))
+
+    def stream():
+        s = init_stream_state(cfg, 200, device=device)
+        return update_stream_state(s, *_batch_all_clicks(
+            {k: torch.from_numpy(v).to(device) for k, v in warm.items()}), cfg)
+
+    model = port.NARModel(cfg, sess, art, 8)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(device)
+    counters = ("launches", "stash_launches", "bwd_launches", "bwd_recompute_launches")
+    before = [getattr(cand_scorer, n) for n in counters]
+    nc_eval = min(cfg.eval_negative_samples * cfg.neg_sampling_multiplying_factor, pool)
+    _, eval_metrics, fetches = eval_step(model, stream(), on, ace, metadata,
+                                         generator=torch.Generator(device=device),
+                                         uniforms=uniforms(b, length, nc_eval))
+    nc_train = min(cfg.negative_samples * cfg.neg_sampling_multiplying_factor, pool)
+    _, train_metrics = train_step(
+        init_train_state(model, stream(), torch.Generator(device=device)), on, ace,
+        metadata, uniforms=uniforms(rows, nc_train))
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launched = [getattr(cand_scorer, n) - v for n, v in zip(counters, before)]
+    return eval_metrics, fetches, train_metrics, grads, launched
+
+
+def _steps_on_card_and_cpu(card, dtype, **widths):
+    """An eval step and a train step of the tiny world at these widths in
+    ``dtype``, on the CPU and on the card: (cpu, card) as ``_steps_on``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, sess, art = _tiny_eval_world()
+    if dtype == torch.bfloat16:
+        widths["compute_dtype"] = "bfloat16"
+    cfg = dataclasses.replace(cfg, train_valid_row_capacity=48, negative_samples=5,
+                              negative_sample_from_buffer=30, **widths)
+    corpus = make_synthetic_corpus(art, ace_dim=8)
+    return cfg, _steps_on("cpu", cfg, sess, art, corpus, seed=3), _steps_on(
+        card, cfg, sess, art, corpus, seed=3)
+
+
+def _assert_steps_match(cpu, gpu, dtype):
+    """float32 at the tolerances of ``test_eval_step_on_card_matches_cpu``
+    (probabilities rtol 1e-4 / atol 1e-6, losses rel 1e-4, each gradient
+    within 1e-4 of its norm + 1e-5); bf16 probabilities at 2e-2 (as the bf16
+    eval test of the JAX package's scorer) and losses at rel 2e-2.  bf16
+    gradients are not compared: the card and the CPU round bf16 products at
+    other places, and the first layer's gradient sums them over every row,
+    so their gap says little; the f32 case holds the gradients."""
+    bf16 = dtype == torch.bfloat16
+    prob_tol = dict(rtol=0, atol=2e-2) if bf16 else dict(rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gpu[1]["predicted_probs"].cpu(), cpu[1]["predicted_probs"],
+                               **prob_tol)
+    for key in ("label_count", "clicks", "sessions"):
+        assert float(gpu[0][key]) == float(cpu[0][key]), key
+    rel = 2e-2 if bf16 else 1e-4
+    assert float(gpu[0]["ce_loss"]) == pytest.approx(float(cpu[0]["ce_loss"]), rel=rel)
+    for key in ("loss", "ce_loss"):
+        assert float(gpu[2][key]) == pytest.approx(float(cpu[2][key]), rel=rel), key
+    for name, g in cpu[3].items():
+        assert torch.isfinite(gpu[3][name]).all(), name
+        if not bf16:
+            assert (gpu[3][name] - g).norm() <= 1e-4 * g.norm() + 1e-5, name
+
+
+@pytest.mark.parametrize("case", ["m1_256_f32", "c1600_bf16"])
+def test_steps_at_widths_the_kernels_refuse_run_on_card(card, case):
+    """A first matching layer of 256 units (float32), and a bf16 C of 1,600
+    (past the forward's 1,536): the gate takes the plain branch, so an eval
+    step and a train step run on the card without raising and launch no
+    scorer kernel, and they match the CPU (``_assert_steps_match``)."""
+    if case == "m1_256_f32":
+        dtype, widths = torch.float32, dict(matching_layer_sizes=(256, 8, 8))
+    else:
+        dtype, widths = torch.bfloat16, dict(car_embedding_size=1600)
+    cfg, cpu, gpu = _steps_on_card_and_cpu(card, dtype, **widths)
+    assert not cand_scorer.kernel_takes(cfg.car_embedding_size, *cfg.matching_layer_sizes,
+                                        dtype)
+    assert gpu[4] == [0, 0, 0, 0]  # the plain branch
+    _assert_steps_match(cpu, gpu, dtype)
+
+
+def test_steps_at_a_bf16_c_past_1280_launch_the_kernels_on_card(card):
+    """A bf16 C of 1,344, which the forward's rings take with one stage a
+    warpgroup: the gate takes the fused branch, the eval step launches K1f
+    once and the train step K1fs and K1b once each, and they match the CPU
+    (``_assert_steps_match``)."""
+    cfg, cpu, gpu = _steps_on_card_and_cpu(card, torch.bfloat16, car_embedding_size=1344)
+    assert cand_scorer.kernel_takes(1344, *cfg.matching_layer_sizes, torch.bfloat16,
+                                    train=True)
+    assert gpu[4] == [1, 1, 1, 0]
+    _assert_steps_match(cpu, gpu, torch.bfloat16)
