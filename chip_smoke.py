@@ -21,8 +21,10 @@ hand-written kernel of those paths:
    widths;
 2. serving, counted: zeroes the launch counters, observes 2 x 256 synthetic
    sessions and recommends top-10 of 500 candidates at batch 1 and 32, reads
-   the counters (the UGRNN kernel must launch twice per ``recommend``) and
-   checks every result (shape, finite, ids from the pool, scores sorted);
+   the counters (the UGRNN kernel must launch twice per ``recommend``, on
+   its resident instantiation; on every counted path the UGRNN kernels must
+   run resident only, ``ugrnn.resident_takes``) and checks every result
+   (shape, finite, ids from the pool, scores sorted);
 3. eval, counted: warms a stream over two synthetic hours, zeroes the
    counters, runs ``eval_step`` over four batches of 256 sessions of the next
    hour, reads the counters (per step the fused scorer once, the UGRNN
@@ -49,7 +51,10 @@ hand-written kernel of those paths:
    generator re-seeded, Adam's state dropped) that the resume check must
    catch;
 6. holds each kernel against its plain PyTorch twin on the card: the UGRNN
-   forward and backward at the serving and train shapes, the fused scorer
+   forward at batch 1, 32 and 256 and the backward at the train shape (from
+   the forward's f32 stash, against the twin that recomputes the gates; the
+   stash against that recompute), the UGRNN streaming instantiations at
+   widths past the resident layout (700 and 1024 units), the fused scorer
    forward on the operands of the eval path's first step (bf16, rebuilt by
    ``train.steps.eval_scorer_operands``), its stash forward, backward and
    recompute backward on the operands of the train path's first step
@@ -67,7 +72,18 @@ hand-written kernel of those paths:
    eval operands, K1fs on the train operands) give the same bits; times
    ``torch.matmul`` of the CAR product alone at the eval shape (the
    yardstick of that part of K1f, on a line of its own) and splits one K1f
-   by device launch;
+   by device launch; times the UGRNN forward at batch 1, 32 and 256 (bf16,
+   f32 at 32 and 256; with the training outputs and without; bf16 also at
+   T 1, 4 and 19) beside its chain floor (the resident layout's exchange
+   and cluster barriers alone, ``ugrnn_chain_floor``) and its clusters, and
+   the UGRNN backward at the train batch, failing unless two launches give
+   the same bits: by CUDA events over calls queued behind a device-side
+   wait (``queued_ms``: the host's dispatch leaves no gaps), before any
+   profiler session; after the train step's profiles, splits the UGRNN
+   backward by launch (the chain, dW_hh's partials, their sum) and times
+   its chain launch at T 1, 4 and 19 (torch profiler, every record kept:
+   a session that is not ``calls`` repeats of one launch sequence is
+   profiled again, eight times at most);
 9. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
    against ``torch.matmul`` at dpre's shape (134,400 x 1024 by 1024^T, bf16)
    and times both (its own line: it is no TPU kernel), splits one backward
@@ -82,6 +98,7 @@ without a CUDA device it exits 1 before printing any result.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import json
@@ -99,6 +116,9 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM
 H100_F32_FLOP_PER_S = 67e12  # CUDA cores, no tensor cores
 H100_BF16_FLOP_PER_S = 989e12  # tensor cores, dense
+# queued_ms: the card waits this many cycles a timed call (0.25 ms at 2 GHz)
+# while the host queues the calls
+QUEUE_CYCLES_PER_CALL = 500_000
 SERVE_BATCHES = (1, 32)
 NUM_CANDIDATES = 500
 TOP_K = 10
@@ -118,6 +138,10 @@ RESUME_TOL = {"loss": 1e-5, "hr": 2.5e-4, "mrr": 2.5e-4, "param": 1e-5}
 KERNELS = ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd", "cand_score_bwd")  # sources
 KERNEL_NAMES = ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd", "cand_score_fwd_stash",
                 "cand_score_bwd", "cand_score_bwd_recompute")
+# the UGRNN kernels' instantiations (ugrnn.resident_takes picks one per
+# width): the G1 paths must run the resident ones only
+UGRNN_INSTANTIATIONS = ("ugrnn_fwd_resident", "ugrnn_fwd_stream", "ugrnn_bwd_resident",
+                        "ugrnn_bwd_stream")
 ROOT = Path(__file__).resolve().parent
 SCORER_GRADS = ("di", "du", "dp", "dcar_w", "dcar_b", "dw1", "db1", "dw2",
                 "db2", "dw3", "db3", "dw4")
@@ -250,14 +274,53 @@ def cuda_ms(fn, iters, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def ugrnn_inputs(mask, dtype, seed):
-    """Random x_proj / W_hh at the G1 RNN widths (T=19, U=255) for a CPU
-    ``mask`` [B, T], all on the card."""
+def queued_ms(fn, iters, warmup=5):
+    """Device ms of one ``fn()`` by CUDA events over ``iters`` back-to-back
+    calls queued behind a device-side wait (``torch.cuda._sleep``), so that
+    the host's dispatch leaves no gap between them: the kernels' own time,
+    also where the host dispatches a call more slowly than the card runs it.
+    Fails unless the card was still waiting when the host had queued every
+    call (the wait is lengthened and the timing repeated twice first)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = QUEUE_CYCLES_PER_CALL * iters
+    for _ in range(3):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    check(False, f"queued_ms: the card caught up with the host over {iters} calls")
+
+
+def ugrnn_inputs(mask, dtype, seed, units=255):
+    """Random x_proj / W_hh at the G1 RNN widths (T=19, U=255, or ``units``)
+    for a CPU ``mask`` [B, T], all on the card."""
     g = torch.Generator().manual_seed(seed)
-    (batch, t), units = mask.shape, 255
+    batch, t = mask.shape
     x = torch.randn(batch, t, 2 * units, generator=g) * 0.5
     w = torch.randn(units, 2 * units, generator=g) * (2.0 / (3 * units)) ** 0.5
     return x.to(dtype).cuda(), w.to(dtype).cuda(), mask.cuda()
+
+
+def ugrnn_bwd_inputs(mask, dtype, seed=7):
+    """The UGRNN backward's operands on the card: ``ugrnn_inputs``, the
+    forward kernel's f32 states and stash, and a seeded cotangent."""
+    from chameleon_recsys_tpu_torch.ops.kernels import ugrnn
+
+    x, w, m = ugrnn_inputs(mask, dtype, seed)
+    _, hs, acts = ugrnn.ugrnn_scan_kernel(x, w, m, return_acts=True)
+    g = (torch.randn(*hs.shape, generator=torch.Generator().manual_seed(seed + 1))
+         .to(dtype).cuda())
+    return x, w, m, hs, acts, g
 
 
 def bound(n_bytes, n_ops, flop_per_s):
@@ -338,19 +401,53 @@ def cand_score_bwd_recompute_bound_ms(operands):
 
 
 def ugrnn_bwd_bound_ms(x, w, mask):
-    """Least time for the UGRNN backward on these inputs: x read at valid
-    steps, W_hh and the mask once, the f32 states and the cotangent read
-    once, dx_proj and dW_hh written once; f32 arithmetic of the gate
-    recompute, the carry and dW_hh (3 x 2 U 2U) and the gates at valid
-    steps only."""
+    """Least time for the UGRNN backward on these inputs: the forward's f32
+    pre-activations read at valid steps, W_hh and the mask once, the f32
+    states and the cotangent read once, dx_proj and dW_hh written once; f32
+    arithmetic of the carry and dW_hh (2 x 2 U 2U) and the gates at valid
+    steps only (the gate recompute, h_prev . W_hh, is the forward's stash)."""
     b, t, two_u = x.shape
     units = two_u // 2
     valid = int(mask.sum())
     size = x.element_size()
-    n_bytes = (valid * two_u * size + 2 * w.numel() * w.element_size()
+    n_bytes = (valid * two_u * 4 + 2 * w.numel() * w.element_size()
                + mask.numel() + b * t * units * (4 + size) + b * t * two_u * size)
-    n_ops = valid * units * (3 * 2 * two_u + 20)
+    n_ops = valid * units * (2 * 2 * two_u + 20)
     return bound(n_bytes, n_ops, H100_F32_FLOP_PER_S)
+
+
+def ugrnn_chain_floor_ms(batch, dtype, t=19, units=255):
+    """Device ms (``queued_ms``) of the resident forward's chain alone at
+    (batch, t, units): the same clusters running t steps of the h exchange
+    and cluster barriers, no arithmetic (``ugrnn_chain_floor``)."""
+    from chameleon_recsys_tpu_torch.ops.kernels import build
+
+    fn = build.load("ugrnn_fwd").ugrnn_chain_floor
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    sink = torch.empty(1 << 16, dtype=torch.float32, device="cuda")
+    code = 1 if dtype == torch.bfloat16 else 0
+
+    def run():
+        err = fn(batch, t, units, code, sink.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"ugrnn_chain_floor launch failed: cudaError {err}")
+
+    return queued_ms(run, iters=200)
+
+
+def ugrnn_fwd_layout(batch, dtype, units=255):
+    """(CTAs a cluster, batch rows a cluster) of the resident forward's
+    launch at this batch (``ugrnn_fwd_layout``)."""
+    from chameleon_recsys_tpu_torch.ops.kernels import build
+
+    fn = build.load("ugrnn_fwd").ugrnn_fwd_layout
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    layout = (ctypes.c_int * 2)()
+    check(fn(batch, units, 1 if dtype == torch.bfloat16 else 0, layout) == 1,
+          f"no resident forward layout at batch {batch}")
+    return tuple(layout)
 
 
 def close_normwise(out, ref, tol, outliers=1e-4):
@@ -455,27 +552,38 @@ def scorer_inputs(bt, k, c, m1, m2, m3, dtype, seed):
 def launch_split(fn, calls):
     """[(kernel name, mean device us)] for each launch of one ``fn()`` call,
     in launch order, over ``calls`` profiled calls (torch profiler, device
-    events only)."""
+    events only).  A session counts only where its device events are
+    ``calls`` repeats of one launch sequence, every record kept; the
+    profiler now and then records no device event, or one of an earlier
+    session, so a session that is not is profiled again, and after eight
+    such sessions the split fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    check(events and len(events) % calls == 0,
-          f"launch split: {len(events)} device events over {calls} calls")
-    per_call = len(events) // calls
-    return [
-        (events[i].name,
-         sum(events[c * per_call + i].time_range.elapsed_us() for c in range(calls))
-         / calls)
-        for i in range(per_call)
-    ]
+    for _ in range(8):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        per_call = len(events) // calls
+        if (events and per_call * calls == len(events)
+                and names == names[:per_call] * calls):
+            return [
+                (events[i].name,
+                 sum(events[c * per_call + i].time_range.elapsed_us()
+                     for c in range(calls)) / calls)
+                for i in range(per_call)
+            ]
+        print(f"launch split: {len(events)} device events over {calls} calls, not "
+              f"{calls} repeats of one sequence; profiling again")
+    check(False, f"launch split: no even session in eight over {calls} calls: "
+                 + ", ".join(f"{name[:60]} x{n}" for name, n in
+                             collections.Counter(e.name for e in events).items()))
 
 
 def print_split(label, split):
@@ -614,6 +722,10 @@ def launch_counts():
         "cand_score_bwd_recompute": cand_scorer.bwd_recompute_launches,
         "ugrnn_fwd": ugrnn.launches,
         "ugrnn_bwd": ugrnn.bwd_launches,
+        "ugrnn_fwd_resident": ugrnn.resident_launches,
+        "ugrnn_fwd_stream": ugrnn.stream_launches,
+        "ugrnn_bwd_resident": ugrnn.bwd_resident_launches,
+        "ugrnn_bwd_stream": ugrnn.bwd_stream_launches,
     }
 
 
@@ -623,6 +735,15 @@ def zero_launch_counts():
     cand_scorer.launches = cand_scorer.stash_launches = cand_scorer.bwd_launches = 0
     cand_scorer.bwd_recompute_launches = 0
     ugrnn.launches = ugrnn.bwd_launches = 0
+    ugrnn.resident_launches = ugrnn.stream_launches = 0
+    ugrnn.bwd_resident_launches = ugrnn.bwd_stream_launches = 0
+
+
+def ugrnn_expected(fwd, bwd):
+    """The UGRNN counts of a G1 path with ``fwd`` forward and ``bwd``
+    backward launches: every one on the resident instantiation."""
+    return {"ugrnn_fwd": fwd, "ugrnn_bwd": bwd, "ugrnn_fwd_resident": fwd,
+            "ugrnn_fwd_stream": 0, "ugrnn_bwd_resident": bwd, "ugrnn_bwd_stream": 0}
 
 
 def train_capacity(batches, cfg):
@@ -689,8 +810,8 @@ def train_phase(port, server, cfg, session_schema, article_schema, corpus):
         check(values["clicks"] <= capacity, f"train step {i}: clicks over capacity")
     counts = launch_counts()
     expected = {"cand_score_fwd": 0, "cand_score_fwd_stash": 1, "cand_score_bwd": 1,
-                "cand_score_bwd_recompute": 0, "ugrnn_fwd": cfg.rnn_num_layers,
-                "ugrnn_bwd": cfg.rnn_num_layers}
+                "cand_score_bwd_recompute": 0, **ugrnn_expected(cfg.rnn_num_layers,
+                                                                cfg.rnn_num_layers)}
     print(f"train path (capacity {capacity} rows of {b * cfg.max_inputs_length}): "
           f"launches {counts}, per step {per_step}")
     check(per_step == [expected] * TRAIN_STEPS,
@@ -748,8 +869,8 @@ def recompute_phase(state, batches, server, cfg):
     cand_scorer._STASH_NC = True
     counts = launch_counts()
     expected = {"cand_score_fwd": 1, "cand_score_fwd_stash": 0, "cand_score_bwd": 0,
-                "cand_score_bwd_recompute": 1, "ugrnn_fwd": cfg.rnn_num_layers,
-                "ugrnn_bwd": cfg.rnn_num_layers}
+                "cand_score_bwd_recompute": 1, **ugrnn_expected(cfg.rnn_num_layers,
+                                                                cfg.rnn_num_layers)}
     print(f"train path without the stash: launches {counts}, per step {per_step}")
     check(per_step == [expected] * TRAIN_STEPS,
           f"kernel launches per train step without the stash {per_step}")
@@ -833,8 +954,8 @@ def harness_phase(port, cfg, session_schema, article_schema, corpus, model_dir):
     layers = cfg.rnn_num_layers
     expected = {"cand_score_fwd": eval_steps, "cand_score_fwd_stash": train_steps,
                 "cand_score_bwd": train_steps, "cand_score_bwd_recompute": 0,
-                "ugrnn_fwd": layers * (train_steps + eval_steps),
-                "ugrnn_bwd": layers * train_steps}
+                **ugrnn_expected(layers * (train_steps + eval_steps),
+                                 layers * train_steps)}
     print(f"harness (G1, {n} sessions an hour, capacity {capacity}, hours "
           f"{list(hours)}): launches {counts}; train hours "
           + ", ".join(f"{w:.3f}" for w in walls["train"]) + " s wall")
@@ -1050,19 +1171,22 @@ def eval_phase(server, cfg, session_schema, corpus):
     per_step = []
     results = []
     for batch in batches:
-        before = (cand_scorer.launches, ugrnn.launches)
+        before = (cand_scorer.launches, ugrnn.launches, ugrnn.resident_launches)
         stream, metrics, fetches = eval_step(
             model, stream, batch, server.ace_matrix, server.metadata,
             generator=generator,
         )
         results.append((metrics, fetches))
         per_step.append((cand_scorer.launches - before[0],
-                         ugrnn.launches - before[1]))
+                         ugrnn.launches - before[1],
+                         ugrnn.resident_launches - before[2]))
     torch.cuda.synchronize()
-    counts = {"cand_score_fwd": cand_scorer.launches, "ugrnn_fwd": ugrnn.launches}
-    print(f"eval path: launches {counts}, per step (cand_score_fwd, ugrnn_fwd) "
-          f"{per_step}")
-    check(per_step == [(1, cfg.rnn_num_layers)] * len(batches),
+    counts = {"cand_score_fwd": cand_scorer.launches, "ugrnn_fwd": ugrnn.launches,
+              "ugrnn_fwd_resident": ugrnn.resident_launches,
+              "ugrnn_fwd_stream": ugrnn.stream_launches}
+    print(f"eval path: launches {counts}, per step (cand_score_fwd, ugrnn_fwd, "
+          f"ugrnn_fwd_resident) {per_step}")
+    check(per_step == [(1, cfg.rnn_num_layers, cfg.rnn_num_layers)] * len(batches),
           f"kernel launches per eval step {per_step}")
     for i, (batch, (metrics, fetches)) in enumerate(zip(batches, results)):
         check_eval_outputs(i, batch, metrics, fetches, cfg)
@@ -1236,16 +1360,19 @@ def main() -> int:
     results = {}
     per_call = []
     for bs in SERVE_BATCHES:
-        before = ugrnn.launches
+        before = (ugrnn.launches, ugrnn.resident_launches)
         cand = np.broadcast_to(pool, (bs, NUM_CANDIDATES))
         results[bs] = server.recommend(sessions[:bs], candidates=cand, top_k=TOP_K)
-        per_call.append(ugrnn.launches - before)
+        per_call.append((ugrnn.launches - before[0], ugrnn.resident_launches - before[1]))
     torch.cuda.synchronize()
-    serve_launches = ugrnn.launches
+    serve_counts = {"ugrnn_fwd": ugrnn.launches,
+                    "ugrnn_fwd_resident": ugrnn.resident_launches,
+                    "ugrnn_fwd_stream": ugrnn.stream_launches}
     hook.remove()
-    print(f"serving path: ugrnn_fwd launches {serve_launches}, per recommend "
-          f"{per_call}; cand_score_fwd launches {cand_scorer.launches}")
-    check(per_call == [cfg.rnn_num_layers] * len(SERVE_BATCHES),
+    print(f"serving path: launches {serve_counts}, per recommend (ugrnn_fwd, "
+          f"ugrnn_fwd_resident) {per_call}; cand_score_fwd launches "
+          f"{cand_scorer.launches}")
+    check(per_call == [(cfg.rnn_num_layers, cfg.rnn_num_layers)] * len(SERVE_BATCHES),
           f"UGRNN kernel launches per recommend {per_call}")
     check(int((pool != 0).sum()) == NUM_CANDIDATES, "live pool under 500 items")
     pool_ids = set(pool.tolist()) - {0}
@@ -1278,10 +1405,12 @@ def main() -> int:
         )
         checkpoint_phase(port, harness, source, make, corpus)
         del harness, make
-    paths = ({"ugrnn_fwd": serve_launches}, eval_counts, train_counts,
-             recompute_counts, harness_counts)
-    main_launches = {k: sum(path.get(k, 0) for path in paths) for k in KERNEL_NAMES}
+    paths = (serve_counts, eval_counts, train_counts, recompute_counts, harness_counts)
+    main_launches = {k: sum(path.get(k, 0) for path in paths)
+                     for k in KERNEL_NAMES + UGRNN_INSTANTIATIONS}
     print(f"launches over the counted paths: {main_launches}")
+    check(main_launches["ugrnn_fwd_stream"] == main_launches["ugrnn_bwd_stream"] == 0,
+          "a G1 path ran a streaming UGRNN kernel")
 
     # ---- 6. each kernel against its plain twin ----
     serve_mask = captured[max(SERVE_BATCHES)]
@@ -1290,7 +1419,8 @@ def main() -> int:
     train_like_mask = torch.arange(serve_mask.shape[1])[None] < lengths[:, None]
     tolerance = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
     errors = {}
-    for name, mask in (("b32_serve", serve_mask.cpu()), ("b256", train_like_mask)):
+    for name, mask in (("b1_serve", serve_mask[:1].cpu()), ("b32_serve", serve_mask.cpu()),
+                       ("b256", train_like_mask)):
         for dtype in (torch.bfloat16, torch.float32):
             x, w, m = ugrnn_inputs(mask, dtype, seed=2)
             out = ugrnn.ugrnn_scan_kernel(x, w, m)
@@ -1332,17 +1462,20 @@ def main() -> int:
             check(err <= tol, f"cand_score_fwd disagrees on {name}: {err}")
         del scorer_cases, operands, out, ref
 
-    # the UGRNN backward at the train batch, bf16 and f32 (tolerance tied to
-    # the largest |ref| of each output: 2e-2 bf16, 2e-4 f32)
+    # the UGRNN backward at the train batch, bf16 and f32, from the forward's
+    # stash, against the twin that recomputes the gates from the states
+    # (tolerance tied to the largest |ref| of each output: 2e-2 bf16, 2e-4
+    # f32); the stash against that recompute (1e-5, the states' tolerance)
     for dtype in (torch.bfloat16, torch.float32):
-        x, w, m = ugrnn_inputs(train_like_mask, dtype, seed=7)
-        _, hs = ugrnn.ugrnn_scan_kernel(x, w, m, return_state=True)
-        g_out = (torch.randn(x.shape[0], x.shape[1], w.shape[0],
-                             generator=torch.Generator().manual_seed(8))
-                 .to(dtype).cuda())
-        got = ugrnn.ugrnn_scan_bwd_kernel(x, w, m, hs, g_out)
+        x, w, m, hs, acts, g_out = ugrnn_bwd_inputs(train_like_mask, dtype)
+        got = ugrnn.ugrnn_scan_bwd_kernel(x, w, m, hs, g_out, acts=acts)
         ref = ugrnn.ugrnn_scan_bwd_reference(x, w, m, hs, g_out)
+        h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], 1)
+        stash_err = (acts - (x.float() + h_prev @ w.float())).abs().max().item()
         torch.cuda.synchronize()
+        print(f"ugrnn_fwd stash vs recompute [256,19,510] {dtype}: max_abs_err "
+              f"{stash_err:.3e} (tolerance 1e-05)")
+        check(stash_err <= 1e-5, f"the UGRNN stash differs from the recompute: {stash_err}")
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
         errs = []
         for gname, a, e in zip(("dx_proj", "dW_hh"), got, ref):
@@ -1353,6 +1486,36 @@ def main() -> int:
                   f"{err:.3e} (tolerance {tol * scale:.3e})")
             check(err <= tol * scale, f"ugrnn_bwd disagrees: {gname} {err}")
         errors[("ugrnn_bwd", dtype)] = max(errs)
+    # the streaming instantiations, past the resident layout's edge (bf16
+    # 656 / 648 units, f32 456), forward and backward against the twins
+    for units in (700, 1024):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, m = ugrnn_inputs(train_like_mask[:4], dtype, seed=12, units=units)
+            before = launch_counts()
+            out, hs, acts = ugrnn.ugrnn_scan_kernel(x, w, m, return_acts=True)
+            g_out = (torch.randn(*hs.shape, generator=torch.Generator().manual_seed(13))
+                     .to(dtype).cuda())
+            got = ugrnn.ugrnn_scan_bwd_kernel(x, w, m, hs, g_out, acts=acts)
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+            ref_out, ref_hs = ugrnn.ugrnn_scan_reference(x, w, m, return_state=True)
+            ref = ugrnn.ugrnn_scan_bwd_reference(x, w, m, hs, g_out)
+            errs = [(out.float() - ref_out.float()).abs().max().item(),
+                    (hs - ref_hs).abs().max().item()]
+            tols = [tolerance[dtype], 1e-5]
+            tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+            for a, e in zip(got, ref):
+                errs.append((a.float() - e.float()).abs().max().item())
+                tols.append(tol * e.float().abs().max().item())
+            print(f"ugrnn streaming [4,19,{2 * units}] {dtype}: launches {moved}; "
+                  f"max_abs_err out/states/dx_proj/dW_hh "
+                  + "/".join(f"{e:.2e}" for e in errs) + " (tolerances "
+                  + "/".join(f"{t:.2e}" for t in tols) + ")")
+            check(moved == {"ugrnn_fwd": 1, "ugrnn_fwd_stream": 1, "ugrnn_bwd": 1,
+                            "ugrnn_bwd_stream": 1},
+                  f"the streaming UGRNN kernels did not run at {units} units: {moved}")
+            check(all(e <= t for e, t in zip(errs, tols)),
+                  f"a streaming UGRNN kernel disagrees at {units} units {dtype}")
 
     # the stash forward and the backward on the train path's own operands
     # (bf16, the compacted G1 shape) with a cotangent of the size the loss
@@ -1414,18 +1577,48 @@ def main() -> int:
     train_cpu_vs_card(port, make_synthetic_corpus)
 
     # ---- 8. times ----
+    # K2f at serving batches 1 and 32 and the train batch 256, with the
+    # training outputs (states and stash) and without, beside the chain
+    # floor and the launch's clusters; then at T 1, 4 and 19 (the slope is a
+    # step's cost, the intercept the set-up, loading W_hh, and the launch).
+    # Device time by CUDA events over calls queued ahead (queued_ms; plain
+    # events over back-to-back calls, beside it, read the host's dispatch
+    # where that is the slower).  No profiler session runs before the
+    # wall-clock timings below: the UGRNN kernels' profiles come last
     x, w, m = ugrnn_inputs(serve_mask.cpu(), torch.bfloat16, seed=2)
-    ugrnn_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_kernel(x, w, m), iters=200)
+    ugrnn_ms = queued_ms(lambda: ugrnn.ugrnn_scan_kernel(x, w, m), iters=200)
+    ugrnn_events_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_kernel(x, w, m), iters=200)
     ugrnn_plain_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_reference(x, w, m), iters=20)
     ugrnn_bound, ugrnn_bound_by = ugrnn_bound_ms(x, w, m)
-    print(f"ugrnn_fwd [32,19,510] bf16: kernel {ugrnn_ms:.4f} ms, plain "
-          f"{ugrnn_plain_ms:.4f} ms, bound {ugrnn_bound:.5f} ms ({ugrnn_bound_by})")
-    for mask in (serve_mask[:1].cpu(), train_like_mask):
-        xb, wb, mb = ugrnn_inputs(mask, torch.bfloat16, seed=2)
-        ms = cuda_ms(lambda: ugrnn.ugrnn_scan_kernel(xb, wb, mb), iters=100)
-        bms, _ = ugrnn_bound_ms(xb, wb, mb)
-        print(f"ugrnn_fwd [{mask.shape[0]},19,510] bf16: kernel {ms:.4f} ms, "
-              f"bound {bms:.5f} ms")
+    print(f"ugrnn_fwd [32,19,510] bf16 (serving mask): kernel {ugrnn_ms:.4f} ms by "
+          f"queued CUDA events ({ugrnn_events_ms:.4f} ms by plain CUDA events over "
+          f"back-to-back calls), plain {ugrnn_plain_ms:.4f} ms, bound "
+          f"{ugrnn_bound:.5f} ms ({ugrnn_bound_by})")
+    for dtype, masks in ((torch.bfloat16, (serve_mask[:1].cpu(), serve_mask.cpu(),
+                                           train_like_mask)),
+                         (torch.float32, (serve_mask.cpu(), train_like_mask))):
+        for mask in masks:
+            xb, wb, mb = ugrnn_inputs(mask, dtype, seed=2)
+            ms = queued_ms(lambda: ugrnn.ugrnn_scan_kernel(xb, wb, mb), iters=200)
+            train_ms = queued_ms(lambda: ugrnn.ugrnn_scan_kernel(xb, wb, mb,
+                                                                 return_acts=True),
+                                 iters=200)
+            floor_ms = ugrnn_chain_floor_ms(mask.shape[0], dtype)
+            n, rows = ugrnn_fwd_layout(mask.shape[0], dtype)
+            bms, _ = ugrnn_bound_ms(xb, wb, mb)
+            print(f"ugrnn_fwd [{mask.shape[0]},19,510] {str(dtype)[6:]}: kernel "
+                  f"{ms:.4f} ms, with states and stash {train_ms:.4f} ms, chain floor "
+                  f"{floor_ms:.4f} ms, bound {bms:.5f} ms; clusters of {n} CTAs, "
+                  f"{rows} rows each")
+    for batch in (1, 32, 256):
+        xb, wb, mb = ugrnn_inputs(train_like_mask[:batch], torch.bfloat16, seed=2)
+        steps = {}
+        for t in (1, 4, 19):
+            xt, mt = xb[:, :t].contiguous(), mb[:, :t].contiguous()
+            steps[t] = queued_ms(lambda: ugrnn.ugrnn_scan_kernel(xt, wb, mt), iters=200)
+        print(f"ugrnn_fwd [{batch},T,510] bf16 by step count: "
+              + ", ".join(f"T {t} {ms:.4f} ms" for t, ms in steps.items())
+              + f"; {(steps[19] - steps[1]) / 18 * 1e3:.2f} us a step")
     with torch.inference_mode():
         scorer_ms = cuda_ms(
             lambda: cand_scorer.cand_score_kernel(*scorer_operands), iters=20, warmup=3
@@ -1577,18 +1770,35 @@ def main() -> int:
           f"recompute backward) {fwd_train_ms + recompute_ms:.4f} ms, with it (stash "
           f"forward + stash backward) {stash_ms + bwd_ms:.4f} ms, difference "
           f"{fwd_train_ms + recompute_ms - stash_ms - bwd_ms:.4f} ms")
-    xb, wb, mb = ugrnn_inputs(train_like_mask, torch.bfloat16, seed=7)
-    _, hsb = ugrnn.ugrnn_scan_kernel(xb, wb, mb, return_state=True)
-    gb = torch.randn(xb.shape[0], xb.shape[1], wb.shape[0],
-                     generator=torch.Generator().manual_seed(8)).to(torch.bfloat16).cuda()
-    ugrnn_bwd_ms = cuda_ms(lambda: ugrnn.ugrnn_scan_bwd_kernel(xb, wb, mb, hsb, gb),
-                           iters=50)
-    ugrnn_bwd_plain_ms = cuda_ms(
-        lambda: ugrnn.ugrnn_scan_bwd_reference(xb, wb, mb, hsb, gb), iters=5, warmup=1)
-    ugrnn_bwd_bound, ugrnn_bwd_bound_by = ugrnn_bwd_bound_ms(xb, wb, mb)
-    print(f"ugrnn_bwd [256,19,510] bf16: kernel {ugrnn_bwd_ms:.4f} ms, plain "
-          f"{ugrnn_bwd_plain_ms:.4f} ms, bound {ugrnn_bwd_bound:.5f} ms "
-          f"({ugrnn_bwd_bound_by})")
+    # K2b at the train batch from the forward's stash: timed (its split by
+    # launch comes with the profiles, last) and two launches bit-equal; f32
+    # once
+    for dtype in (torch.bfloat16, torch.float32):
+        xb, wb, mb, hsb, actsb, gb = ugrnn_bwd_inputs(train_like_mask, dtype)
+
+        def bwd():
+            return ugrnn.ugrnn_scan_bwd_kernel(xb, wb, mb, hsb, gb, acts=actsb)
+
+        k2b_ms = queued_ms(bwd, iters=50)
+        k2b_events_ms = cuda_ms(bwd, iters=50)
+        first, second = bwd(), bwd()
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(first, second)]
+        print(f"ugrnn_bwd twice on [256,19,510] {str(dtype)[6:]}: dx_proj, dW_hh "
+              f"bit-equal {same}")
+        check(all(same), "ugrnn_bwd is not deterministic")
+        del first, second
+        bound_ms_, bound_by_ = ugrnn_bwd_bound_ms(xb, wb, mb)
+        if dtype == torch.bfloat16:
+            ugrnn_bwd_ms = k2b_ms
+            ugrnn_bwd_plain_ms = cuda_ms(
+                lambda: ugrnn.ugrnn_scan_bwd_reference(xb, wb, mb, hsb, gb, acts=actsb),
+                iters=5, warmup=1)
+            ugrnn_bwd_bound, ugrnn_bwd_bound_by = bound_ms_, bound_by_
+        print(f"ugrnn_bwd [256,19,510] {str(dtype)[6:]}: kernel {k2b_ms:.4f} ms by "
+              f"queued CUDA events ({k2b_events_ms:.4f} ms by plain CUDA events), "
+              f"bound {bound_ms_:.5f} ms ({bound_by_})"
+              + (f", plain {ugrnn_bwd_plain_ms:.4f} ms" if dtype == torch.bfloat16 else ""))
 
     train_holder = [train_state]
     train_batch = train_batches[0]
@@ -1614,6 +1824,21 @@ def main() -> int:
           f"{nostash_ms:.3f} ms per batch against {train_ms:.3f} ms with it; peak "
           f"device memory of one step {peaks[False] / 2**30:.4f} against "
           f"{peaks[True] / 2**30:.4f} GiB")
+    # the UGRNN backward's profiles, after every wall-clock timing: split by
+    # launch (the chain, dW_hh's partials, their sum) in both dtypes, and
+    # its chain launch at T 1, 4 and 19 (bf16; the slope is a step's cost)
+    for dtype in (torch.float32, torch.bfloat16):
+        xb, wb, mb, hsb, actsb, gb = ugrnn_bwd_inputs(train_like_mask, dtype)
+        print_split(f"ugrnn_bwd [256,19,510] {str(dtype)[6:]}", launch_split(
+            lambda: ugrnn.ugrnn_scan_bwd_kernel(xb, wb, mb, hsb, gb, acts=actsb), 5))
+    chain = {}
+    for t in (1, 4, 19):  # bf16, the causal prefix of the same operands
+        xt, mt, hst, actst, gt = (v[:, :t].contiguous() for v in (xb, mb, hsb, actsb, gb))
+        chain[t] = launch_split(
+            lambda: ugrnn.ugrnn_scan_bwd_kernel(xt, wb, mt, hst, gt, acts=actst), 5)[0][1]
+    print("ugrnn_bwd chain launch [256,T,510] bf16 by step count (torch profiler): "
+          + ", ".join(f"T {t} {us / 1e3:.4f} ms" for t, us in chain.items())
+          + f"; {(chain[19] - chain[1]) / 18:.2f} us a step")
 
     print(json.dumps({"kernels": [
         {

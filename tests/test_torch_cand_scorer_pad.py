@@ -102,7 +102,7 @@ def test_lib_path_changes_with_every_header(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["sm90_gemm.cuh"]
+    assert [h.name for h in headers] == ["sm90_gemm.cuh", "ugrnn_common.cuh"]
     before = build._lib_path("cand_score_bwd", csrc)
     assert before == build._lib_path("cand_score_bwd", build.CSRC)
     assert before.parent == build.BUILD_DIR and before.name.startswith("cand_score_bwd-")

@@ -72,16 +72,36 @@ def _inputs(b, t, units, dtype, seed=0):
     return x.to(dtype), w.to(dtype), mask
 
 
+def _instantiation_counts():
+    return (ugrnn.resident_launches, ugrnn.stream_launches,
+            ugrnn.bwd_resident_launches, ugrnn.bwd_stream_launches)
+
+
+# the G1 width at serving, eval and train batches, odd widths, the widest the
+# streaming kernels take, and each side of the resident layout's edge in
+# each dtype (forward: bf16 656, f32 456; backward: bf16 648, f32 456)
+# (8, 7, 24) and (2, 3, 40): CTAs of fewer than 32 threads (a cluster of 8
+# at 3 or 5 units a CTA) whose W_hh rows span more words than the block has
+# threads
+_FWD_SHAPES = [(1, 19, 255), (32, 19, 255), (256, 19, 255), (5, 7, 9), (8, 7, 24),
+               (2, 3, 40), (3, 4, 1024), (3, 5, 456), (3, 5, 457), (3, 5, 656),
+               (3, 5, 657)]
+_BWD_SHAPES = [(1, 19, 255), (32, 19, 255), (256, 19, 255), (5, 7, 9), (8, 7, 24),
+               (2, 3, 40), (3, 4, 1024), (3, 5, 456), (3, 5, 457), (3, 5, 648),
+               (3, 5, 649)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "b,t,units", [(32, 19, 255), (256, 19, 255), (5, 7, 9), (3, 4, 1024)]
-)
+@pytest.mark.parametrize("b,t,units", _FWD_SHAPES)
 def test_ugrnn_kernel_matches_reference(card, dtype, b, t, units):
     x, w, mask = (v.to(card) for v in _inputs(b, t, units, dtype))
     before = ugrnn.launches
+    counts = _instantiation_counts()
     out = ugrnn.ugrnn_scan_kernel(x, w, mask)
     torch.cuda.synchronize()
     assert ugrnn.launches == before + 1
+    resident = ugrnn.resident_takes(units, dtype)
+    assert _instantiation_counts()[:2] == (counts[0] + resident, counts[1] + (not resident))
     assert out.dtype == dtype and out.shape == (b, t, units)
     ref = ugrnn.ugrnn_scan_reference(x, w, mask)
     atol = 1e-5 if dtype == torch.float32 else 8e-3
@@ -96,6 +116,30 @@ def test_ugrnn_kernel_rejects_what_it_cannot_take(card):
         ugrnn.ugrnn_scan_kernel(*(v.to(card) for v in _inputs(1, 2, 1025, torch.float32)))
     with pytest.raises(TypeError):
         ugrnn.ugrnn_scan_kernel(x, w.to(torch.bfloat16), mask)
+    # the card's backward reads the forward's stash; without it, it refuses
+    _, hs = ugrnn.ugrnn_scan_kernel(x, w, mask, return_state=True)
+    with pytest.raises(ValueError):
+        ugrnn.ugrnn_scan_bwd_kernel(x, w, mask, hs, torch.zeros_like(hs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,units", [(256, 19, 255), (5, 7, 9), (3, 4, 1024),
+                                       (3, 5, 456), (3, 5, 457)])
+def test_ugrnn_stash_is_the_recompute(card, dtype, b, t, units):
+    """The forward's f32 pre-activations are x_proj + h_prev . W_hh on its
+    own f32 states (summed in another order: within the states' 1e-5), on
+    both instantiations; the output and states are the same as without the
+    stash, bit for bit."""
+    x, w, mask = (v.to(card) for v in _inputs(b, t, units, dtype, seed=5))
+    out, hs, acts = ugrnn.ugrnn_scan_kernel(x, w, mask, return_acts=True)
+    out2, hs2 = ugrnn.ugrnn_scan_kernel(x, w, mask, return_state=True)
+    torch.cuda.synchronize()
+    assert acts.dtype == torch.float32 and acts.shape == (b, t, 2 * units)
+    assert torch.equal(out, out2) and torch.equal(hs, hs2)
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+    recompute = x.float() + (h_prev.reshape(-1, units).double()
+                             @ w.double()).float().reshape(b, t, 2 * units)
+    torch.testing.assert_close(acts, recompute, rtol=0, atol=1e-5)
 
 
 def _close_to_scale(out, ref, tol, name):
@@ -119,12 +163,14 @@ def _close_normwise(out, ref, tol, name, outliers=1e-4):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "b,t,units", [(256, 19, 255), (5, 7, 9), (3, 4, 1024)]
-)
+@pytest.mark.parametrize("b,t,units", _BWD_SHAPES)
 def test_ugrnn_bwd_kernel_matches_reference(card, dtype, b, t, units):
     x, w, mask = (v.to(card) for v in _inputs(b, t, units, dtype, seed=1))
-    out, hs = ugrnn.ugrnn_scan_kernel(x, w, mask, return_state=True)
+    counts = _instantiation_counts()
+    out, hs, acts = ugrnn.ugrnn_scan_kernel(x, w, mask, return_acts=True)
+    # the training forward and the backward run on one instantiation
+    resident = ugrnn.resident_takes(units, dtype, train=True)
+    assert _instantiation_counts()[:2] == (counts[0] + resident, counts[1] + (not resident))
     ref_out, ref_hs = ugrnn.ugrnn_scan_reference(x, w, mask, return_state=True)
     torch.testing.assert_close(hs, ref_hs, rtol=0, atol=1e-5)
     torch.testing.assert_close(out, ref_hs.to(dtype), rtol=0,
@@ -132,14 +178,60 @@ def test_ugrnn_bwd_kernel_matches_reference(card, dtype, b, t, units):
     g = (torch.randn(b, t, units, generator=torch.Generator().manual_seed(2))
          .to(dtype).to(card))
     before = ugrnn.bwd_launches
-    dx, dw = ugrnn.ugrnn_scan_bwd_kernel(x, w, mask, hs, g)
+    counts = _instantiation_counts()
+    dx, dw = ugrnn.ugrnn_scan_bwd_kernel(x, w, mask, hs, g, acts=acts)
     torch.cuda.synchronize()
     assert ugrnn.bwd_launches == before + 1
+    assert _instantiation_counts()[2:] == (counts[2] + resident, counts[3] + (not resident))
     assert dx.dtype == dtype and dw.dtype == dtype
+    # the twin recomputes the gates from the kernel's states
     ref_dx, ref_dw = ugrnn.ugrnn_scan_bwd_reference(x, w, mask, hs, g)
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     _close_to_scale(dx, ref_dx, tol, "dx_proj")
     _close_to_scale(dw, ref_dw, tol, "dW_hh")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,units", [(256, 19, 255), (3, 4, 1024)])
+def test_ugrnn_bwd_is_deterministic(card, dtype, b, t, units):
+    """Two backward launches give the same bits: dW_hh's row splits are
+    summed in a fixed order, with no float atomics."""
+    x, w, mask = (v.to(card) for v in _inputs(b, t, units, dtype, seed=6))
+    _, hs, acts = ugrnn.ugrnn_scan_kernel(x, w, mask, return_acts=True)
+    g = (torch.randn(b, t, units, generator=torch.Generator().manual_seed(7))
+         .to(dtype).to(card))
+    first = ugrnn.ugrnn_scan_bwd_kernel(x, w, mask, hs, g, acts=acts)
+    second = ugrnn.ugrnn_scan_bwd_kernel(x, w, mask, hs, g, acts=acts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ugrnn_resident_limits_mirror_the_source(card, dtype):
+    """``resident_takes`` and its layout are the library's own: the resident
+    layout's shared-memory bytes and cluster size (``ugrnn_common.cuh``, read
+    through ``ugrnn_resident_smem_bytes`` / ``ugrnn_resident_cluster``) at
+    every row count, over widths up to 1024."""
+    import ctypes
+    from chameleon_recsys_tpu_torch.ops.kernels import build
+
+    lib = build.load("ugrnn_fwd")
+    smem, cluster = lib.ugrnn_resident_smem_bytes, lib.ugrnn_resident_cluster
+    smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    cluster.argtypes, cluster.restype = [ctypes.c_int] * 3, ctypes.c_int
+    code = 1 if dtype == torch.bfloat16 else 0
+    for units in list(range(1, 700)) + [800, 1024]:
+        for bwd in (False, True):
+            for rows in (1, 2, 4, 8):
+                layout = ugrnn._resident_layout(units, dtype, bwd, rows)
+                n = smem(units, code, int(bwd), rows)
+                assert n == (-1 if layout is None else layout.smem), (units, bwd, rows)
+            first = ugrnn._resident_layout(units, dtype, bwd)
+            assert cluster(units, code, int(bwd)) == (0 if first is None else first.n)
+        takes = smem(units, code, 0, 1) >= 0
+        assert ugrnn.resident_takes(units, dtype) is takes, units
+        assert ugrnn.resident_takes(units, dtype, train=True) is (
+            takes and smem(units, code, 1, 1) >= 0), units
 
 
 def test_ugrnn_scan_function_on_card_matches_cpu(card):
