@@ -13,9 +13,13 @@ Ported so far: the NAR serving path (``NARServer.recommend`` / ``observe``
 / ``from_checkpoint``), the NAR eval step (``train.steps.eval_step``: the
 grid sampler, the pooled and ranked forward), the NAR train step
 (``train.steps.train_step``: valid-row compaction, the row sampler, the
-pooled train forward, XE + L2 - novelty, Adam, the stream update) and the
+pooled train forward, XE + L2 - novelty, Adam, the stream update), the
 temporal harness (``train.temporal.TemporalHarness``: the hour loop with
-the host metric suite, two classical baselines and checkpoint/resume), with
+the host metric suite, the six classical baselines, the scalar and
+histogram writers, an artifact store and checkpoint/resume) and the G1
+pipeline through its CLIs (``cli.make_pseudo_g1``,
+``cli.nar_preprocess_gcom``, ``cli.nar_trainer_gcom``, on the session
+TFRecord IO of ``data/``), with
 the UGRNN forward and backward (``ops/kernels/ugrnn.py``) and the fused
 candidate scorer's forward, stash forward, stash backward and recompute
 backward (``ops/kernels/cand_scorer.py``) as CUDA kernels.

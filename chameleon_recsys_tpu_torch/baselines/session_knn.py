@@ -1,0 +1,530 @@
+"""SkNN / V-SkNN — session-based k-nearest-neighbors
+(reference nar_module/nar/benchmarks/session_knn.py:30-319; Jannach &
+Ludewig 2017, StreamingRec's fixed V-SkNN).
+
+A bounded buffer of recent sessions plus an item→sessions inverted index.
+Per click: candidate sessions sharing any item with the active prefix are
+sampled ("recent" = highest session ids, which encode first-click time),
+scored by cosine/jaccard similarity — with positional decay of the active
+session's early clicks when ``first_session_clicks_decay != 'same'``
+(= V-SkNN) — and neighbor similarities vote for their sessions' items.
+
+The port's copy of ``chameleon_recsys_tpu/baselines/session_knn.py``.  It
+runs the numpy paths only: the row-batched ``predict`` and the per-click
+oracle ``_predict_per_click``.  The JAX package's ``use_native`` dispatch to
+its C++ predictor (``native/sknn.cc``, documented bit-equal to the numpy
+path) has no counterpart here; the parameter is ignored.
+"""
+from __future__ import annotations
+
+import math
+import random
+from collections import defaultdict
+from typing import Dict, List, Set, Tuple
+
+import numpy as np
+
+from .benchmarks import BenchmarkRecommender, fill_ranked_topk
+
+POS_DECAY_FNS = {
+    "same": lambda i: 1.0,
+    "div": lambda i: 1.0 / i,
+    "linear": lambda i: 1.0 - 0.1 * i if i <= 100 else 0.0,
+    "log": lambda i: 1.0 / math.log10(i + 1.7),
+    "quadratic": lambda i: 1.0 / (i * i),
+}
+
+
+class SessionBasedKNNRecommender(BenchmarkRecommender):
+    def __init__(self, state_view, params, streaming_metrics):
+        super().__init__(state_view, params, streaming_metrics)
+        self.sessions_buffer_size = params["sessions_buffer_size"]
+        self.candidate_sample_size = params["candidate_sessions_sample_size"]
+        self.sampling_strategy = params.get("sampling_strategy", "recent")
+        self.nearest_neighbors = params["nearest_neighbor_session_for_scoring"]
+        self.similarity = params.get("similarity", "cosine")
+        self.first_clicks_decay = params.get("first_session_clicks_decay", "div")
+        self.pos_decay_fn = POS_DECAY_FNS[self.first_clicks_decay]
+
+        states = state_view.benchmarks_states
+        if self.get_clf_suffix() not in states:
+            states[self.get_clf_suffix()] = {
+                # session_id -> item set; insertion-ordered dict doubles as
+                # the recency-bounded buffer
+                "sessions": {},
+                "item_sessions": defaultdict(set),
+            }
+
+    def _state(self):
+        # read through the host state EVERY access (never cache the dicts):
+        # save/restore_state_checkpoint REBINDS benchmarks_states around each
+        # eval hour, and cached references would keep eval-hour pollution
+        states = self.state_view.benchmarks_states
+        if self.get_clf_suffix() not in states:
+            states[self.get_clf_suffix()] = {
+                "sessions": {},
+                "item_sessions": defaultdict(set),
+            }
+        state = states[self.get_clf_suffix()]
+        # numpy caches live INSIDE the state dict so the eval-hour
+        # checkpoint/rebind restores them consistently with the dicts
+        state.setdefault("item_arr", {})
+        state.setdefault("sess_arr", {})
+        return state
+
+    @property
+    def sessions(self) -> Dict[int, Set[int]]:
+        return self._state()["sessions"]
+
+    @property
+    def item_sessions(self) -> Dict[int, Set[int]]:
+        return self._state()["item_sessions"]
+
+    def get_clf_suffix(self):
+        return "sknn" if self.first_clicks_decay == "same" else "v-sknn"
+
+    def is_stochastic(self):
+        # 'random' candidate sampling draws from Python's RNG per predict
+        return self.sampling_strategy == "random"
+
+    def get_description(self):
+        return "Session-KNN over a recent-sessions buffer"
+
+    # -- training: maintain the bounded session buffer ----------------------
+    def train(self, users_ids, sessions_ids, sessions_items, sessions_next_items):
+        state = self._state()
+        item_arr, sess_arr = state["item_arr"], state["sess_arr"]
+        all_items = np.hstack([sessions_items, sessions_next_items])
+        for sid, row in zip(np.asarray(sessions_ids).tolist(), all_items):
+            items = set(int(x) for x in row if x != 0)
+            if not items:
+                continue
+            # Re-training an existing sid REPLACES its item set; items only
+            # in the old version must drop the sid from the inverted index,
+            # or eviction (which walks the current set) would leave dangling
+            # sids behind (the reference's list-buffer has the dual hazard:
+            # duplicate sid structs whose eviction kills shared map entries,
+            # session_knn.py:103-115).
+            old = self.sessions.get(sid)
+            if old is not None:
+                for item in old - items:
+                    self.item_sessions[item].discard(sid)
+                    item_arr.pop(item, None)
+            self.sessions[sid] = items
+            sess_arr[sid] = np.fromiter(items, np.int64, len(items))
+            for item in items:
+                self.item_sessions[item].add(sid)
+                item_arr.pop(item, None)  # invalidate the sorted-array cache
+        while len(self.sessions) > self.sessions_buffer_size:
+            oldest_sid = next(iter(self.sessions))
+            sess_arr.pop(oldest_sid, None)
+            for item in self.sessions.pop(oldest_sid):
+                self.item_sessions[item].discard(oldest_sid)
+                item_arr.pop(item, None)
+        state["vote_table"] = None  # buffer membership/sizes changed
+
+    # -- shared lazy numpy caches (live inside the state dict, see _state) --
+    @staticmethod
+    def _item_arr(state, item) -> np.ndarray:
+        """Sorted array of session ids containing ``item``."""
+        arr = state["item_arr"].get(item)
+        if arr is None:
+            sids = state["item_sessions"].get(item, ())
+            arr = np.fromiter(sids, np.int64, len(sids))
+            arr.sort()
+            state["item_arr"][item] = arr
+        return arr
+
+    @staticmethod
+    def _sess_arr(state, sid) -> np.ndarray:
+        """Item array of session ``sid`` (rebuilt after checkpoint restore)."""
+        arr = state["sess_arr"].get(sid)
+        if arr is None:
+            items = state["sessions"][sid]
+            arr = state["sess_arr"][sid] = np.fromiter(
+                items, np.int64, len(items)
+            )
+        return arr
+
+    def _vote_table(self, state):
+        """Global buffer layout rebuilt lazily after train/evict: all
+        buffered sessions' item arrays concatenated in ascending-sid order.
+
+        Returns (sids_sorted [S], starts [S], lens [S], items_cat [ΣL]).
+        Replaces both the old per-row ``sess_arr`` dict-lookup concat (~700k
+        lookups per G1 batch) and the sid-size cache: any row's candidate
+        set maps in by one ``searchsorted``."""
+        vt = state.get("vote_table")
+        if vt is None:
+            sessions = state["sessions"]
+            sids = np.fromiter(sessions.keys(), np.int64, len(sessions))
+            sids.sort()
+            lists = [self._sess_arr(state, int(s)) for s in sids.tolist()]
+            lens = np.fromiter((len(a) for a in lists), np.int64, sids.size)
+            starts = np.concatenate([[0], np.cumsum(lens)[:-1]]) if sids.size \
+                else np.empty(0, np.int64)
+            items = (
+                np.concatenate(lists) if lists else np.empty(0, np.int64)
+            )
+            vt = state["vote_table"] = (sids, starts, lens, items)
+        return vt
+
+    # -- scoring -------------------------------------------------------------
+    def _candidate_sessions(self, prefix_items) -> List[int]:
+        candidates = [
+            sid
+            for item in prefix_items
+            for sid in self.item_sessions.get(item, ())
+            if sid in self.sessions
+        ]
+        if 0 < self.candidate_sample_size < len(candidates):
+            if self.sampling_strategy == "recent":
+                # session ids encode first-click timestamps: larger = newer
+                candidates = sorted(candidates, reverse=True)[
+                    : self.candidate_sample_size
+                ]
+            else:
+                candidates = random.sample(candidates, self.candidate_sample_size)
+        return candidates
+
+    def _session_similarity(self, prefix_items, neighbor_items: Set[int]) -> float:
+        prefix_set = set(prefix_items)
+        if self.first_clicks_decay == "same":
+            numerator = float(len(prefix_set & neighbor_items))
+        else:
+            # V-SkNN: recent clicks of the active prefix weigh more
+            numerator = sum(
+                self.pos_decay_fn(pos + 1)
+                for pos, item in enumerate(reversed(list(prefix_items)))
+                if item in neighbor_items
+            )
+        if self.similarity == "cosine":
+            denom = math.sqrt(len(prefix_set)) * math.sqrt(len(neighbor_items))
+        elif self.similarity == "jaccard":
+            denom = float(len(prefix_set | neighbor_items))
+        else:
+            raise ValueError(f"invalid similarity: {self.similarity}")
+        return numerator / denom if denom else 0.0
+
+    def _score_items(self, prefix_items) -> Dict[int, float]:
+        """Scalar path — a direct transliteration kept as the oracle for the
+        vectorized ranker (tests assert identical output)."""
+        scored: List[Tuple[int, float]] = []
+        for sid in self._candidate_sessions(prefix_items):
+            sim = self._session_similarity(prefix_items, self.sessions[sid])
+            if sim > 0.0:
+                scored.append((sid, sim))
+        # keep strictly (0, 1) similarities like the reference's filter
+        # (session_knn.py:178) and the top-N neighbors
+        scored = [x for x in sorted(scored, key=lambda x: -x[1]) if x[1] < 1.0]
+        scored = scored[: self.nearest_neighbors]
+
+        item_scores: Dict[int, float] = defaultdict(float)
+        for sid, sim in scored:
+            for item in self.sessions[sid]:
+                item_scores[item] += sim
+        return item_scores
+
+    # -- vectorized scoring --------------------------------------------------
+    # The reference's predict loop is the dominant eval wall-clock
+    # (O(clicks × candidate sessions) pure-Python scans,
+    # session_knn.py:200-266).  This path keeps its exact semantics —
+    # including duplicate candidate multiplicity (a session appears once per
+    # matching prefix item, occupying that many neighbor slots and voting
+    # that many times) — but runs the scans as numpy C kernels.
+
+    def _ranked_items_vectorized(self, prefix_items, state=None) -> List[int]:
+        # The read-through _state() contract guards against the eval-hour
+        # checkpoint REBINDING benchmarks_states between calls; within one
+        # call no rebind can happen, so the dict lookups are hoisted once —
+        # profiled at ~40% of SkNN predict time when left per-item.
+        if state is None:
+            state = self._state()
+        sessions = state["sessions"]
+
+        def item_arr(item) -> np.ndarray:
+            return self._item_arr(state, item)
+
+        def sess_arr(sid) -> np.ndarray:
+            return self._sess_arr(state, sid)
+
+        # 1. candidate occurrences (duplicates preserved, like the
+        #    reference's list comprehension, session_knn.py:200-203)
+        arrays = [item_arr(item) for item in prefix_items]
+        cand = np.concatenate(arrays) if arrays else np.empty(0, np.int64)
+        if cand.size == 0:
+            return [], {}
+        if 0 < self.candidate_sample_size < cand.size:
+            if self.sampling_strategy == "recent":
+                cand = np.sort(cand)[::-1][: self.candidate_sample_size]
+            else:
+                cand = np.asarray(
+                    random.sample(cand.tolist(), self.candidate_sample_size),
+                    np.int64,
+                )
+
+        # 2. per-unique-session similarity
+        uniq, inverse = np.unique(cand, return_inverse=True)
+        prefix_unique = list(dict.fromkeys(prefix_items))
+        col = {item: j for j, item in enumerate(prefix_unique)}
+        member = np.empty((uniq.size, len(prefix_unique)), bool)
+        for j, item in enumerate(prefix_unique):
+            member[:, j] = np.isin(uniq, item_arr(item), assume_unique=False)
+        inter = member.sum(axis=1).astype(np.float64)  # |prefix_set ∩ sess|
+        if self.first_clicks_decay == "same":
+            numer = inter
+        else:
+            # V-SkNN positional decay over the REVERSED prefix, accumulated
+            # position by position so the float summation ORDER is identical
+            # to the scalar path (bit-equal sims keep tie order at the
+            # nearest-neighbor cut identical)
+            numer = np.zeros(uniq.size)
+            for pos, item in enumerate(reversed(list(prefix_items))):
+                numer = numer + self.pos_decay_fn(pos + 1) * member[:, col[item]]
+        sizes = np.fromiter(
+            (len(sessions[s]) for s in uniq.tolist()), np.float64, uniq.size
+        )
+        if self.similarity == "cosine":
+            denom = np.sqrt(len(set(prefix_items))) * np.sqrt(sizes)
+        elif self.similarity == "jaccard":
+            denom = len(set(prefix_items)) + sizes - inter
+        else:
+            raise ValueError(f"invalid similarity: {self.similarity}")
+        sim_uniq = np.where(denom > 0, numer / np.maximum(denom, 1e-12), 0.0)
+
+        # 3. neighbor slots: every occurrence is a slot; sort by similarity
+        #    (stable), keep strictly (0, 1), take the top N slots
+        sims_occ = sim_uniq[inverse]
+        keep = (sims_occ > 0.0) & (sims_occ < 1.0)
+        order = np.argsort(-sims_occ, kind="stable")
+        order = order[keep[order]][: self.nearest_neighbors]
+        if order.size == 0:
+            return [], {}
+        sel_inv = inverse[order]
+        occ_per_uniq = np.bincount(sel_inv, minlength=uniq.size)
+        sel_mask = occ_per_uniq > 0
+        sel_sids = uniq[sel_mask]
+        weights = occ_per_uniq[sel_mask] * sim_uniq[sel_mask]
+
+        # 4. neighbor sessions vote for their items
+        ranked, uniq_items, scores = self._vote_and_rank(
+            sel_sids, weights, sess_arr
+        )
+        return ranked.tolist(), dict(zip(uniq_items.tolist(), scores.tolist()))
+
+    @staticmethod
+    def _vote_and_rank(sel_sids, weights, sess_arr):
+        """Selected neighbor sessions vote ``weights`` for their items.
+
+        -score primary, first-occurrence secondary.  NOTE on determinism:
+        where the scalar path breaks similarity ties at the neighbor cut
+        and score ties in the final ranking by Python SET iteration order
+        (arbitrary — the reference shares this, session_knn.py:216-236),
+        this path uses ascending-session-id / first-occurrence order:
+        same semantics, but reproducible across runs.
+        """
+        item_lists = [sess_arr(int(s)) for s in sel_sids]
+        items_cat = np.concatenate(item_lists)
+        w_cat = np.repeat(weights, [len(a) for a in item_lists])
+        uniq_items, first_idx, item_inv = np.unique(
+            items_cat, return_index=True, return_inverse=True
+        )
+        scores = np.bincount(item_inv, weights=w_cat)
+        ranked = uniq_items[np.lexsort((first_idx, -scores))]
+        return ranked, uniq_items, scores
+
+    def predict(self, users_ids, sessions_items, topk=5, valid_items=None):
+        """Row-batched ranker: consecutive clicks of one session share their
+        candidate occurrences, membership matrix, similarities, and the
+        expensive descending-sid sort, so steps 1-2 run ONCE per session row
+        instead of once per click (~10× redundancy at session length 20).
+        Output is identical to the per-click path (``_predict_per_click``,
+        kept as the test oracle) — every accumulation runs in the same
+        floating-point ORDER, so similarities are bit-equal and tie/boundary
+        behavior at the neighbor cut matches exactly.  At G1 scale the row
+        loop is bound by per-click numpy dispatch."""
+        if self.sampling_strategy != "recent":
+            # "random" draws from Python's RNG per click — per-call stream
+            # differs between the two paths, so keep the oracle path
+            return self._predict_per_click(
+                users_ids, sessions_items, topk=topk, valid_items=valid_items
+            )
+        sessions_items = np.asarray(sessions_items)
+        preds = np.zeros(
+            (sessions_items.shape[0], sessions_items.shape[1], topk), np.int64
+        )
+        state = self._state()
+        # NOTE: the row loop is embarrassingly parallel (disjoint preds
+        # slices), but threading it was measured 1.2-2.2× SLOWER at G1 scale
+        # on the build VM — the per-row numpy ops are small enough that GIL
+        # time and memory-bandwidth contention dominate.  Inter-CLASSIFIER
+        # parallelism (train/temporal.py::_each_benchmark) is where the eval
+        # tier's thread win lives.
+        for r in range(sessions_items.shape[0]):
+            cols = np.nonzero(sessions_items[r])[0]
+            if cols.size:
+                self._predict_row(
+                    sessions_items[r], cols, valid_items[r], preds[r], topk,
+                    state,
+                )
+        return preds
+
+    def _predict_row(self, row, cols, valid_row, out, topk, state):
+        def item_arr(item) -> np.ndarray:
+            return self._item_arr(state, item)
+
+        def sess_arr(sid) -> np.ndarray:
+            return self._sess_arr(state, sid)
+
+        row_items = [int(row[c]) for c in cols]
+        m = len(row_items)
+        arrays = [item_arr(it) for it in row_items]
+        lens = [len(a) for a in arrays]
+        offsets = np.concatenate([[0], np.cumsum(lens)])
+        if offsets[-1] == 0:
+            return
+        cand_all = np.concatenate(arrays)
+        uniq, inv_all = np.unique(cand_all, return_inverse=True)
+
+        # membership by scatter: arrays_j lists exactly the sids containing
+        # item j (each once), so no isin is needed
+        member = np.zeros((uniq.size, m))
+        for j in range(m):
+            member[inv_all[offsets[j] : offsets[j + 1]], j] = 1.0
+        occ_cum = np.cumsum(member, axis=1)  # occurrences per sid at prefix j
+
+        # first occurrence of each distinct item (set semantics for the
+        # intersection / distinct-prefix counts)
+        seen: Dict[int, int] = {}
+        first_mask = np.zeros(m)
+        for j, it in enumerate(row_items):
+            if it not in seen:
+                seen[it] = j
+                first_mask[j] = 1.0
+        inter_cum = np.cumsum(member * first_mask[None, :], axis=1)
+        distinct = np.cumsum(first_mask)
+
+        if self.first_clicks_decay == "same":
+            numer = inter_cum
+        else:
+            # same accumulation ORDER as the per-click path (distance d
+            # ascending == reversed-prefix position ascending): column p-1
+            # receives decay(d)·member[:, p-d] for d = 1..p, in that order
+            numer = np.zeros((uniq.size, m))
+            for d in range(1, m + 1):
+                numer[:, d - 1 :] = (
+                    numer[:, d - 1 :]
+                    + self.pos_decay_fn(d) * member[:, : m - d + 1]
+                )
+        g_sids, g_starts, g_lens, g_items = self._vote_table(state)
+        gidx = np.searchsorted(g_sids, uniq)  # uniq ⊆ buffer (train invariant)
+        sizes = g_lens[gidx].astype(np.float64)
+        if self.similarity == "cosine":
+            denom = np.sqrt(distinct)[None, :] * np.sqrt(sizes)[:, None]
+        elif self.similarity == "jaccard":
+            denom = distinct[None, :] + sizes[:, None] - inter_cum
+        else:
+            raise ValueError(f"invalid similarity: {self.similarity}")
+        sim = np.where(denom > 0, numer / np.maximum(denom, 1e-12), 0.0)
+
+        # row-level vote table: the candidate sessions' item slices gathered
+        # from the GLOBAL table (ascending sid, identical content/order to a
+        # per-sid concat) via one grouped arange — no per-sid dict lookups
+        lens_items = g_lens[gidx]
+        starts_glob = g_starts[gidx]
+        total_row = int(lens_items.sum())
+        step_row = np.ones(total_row, np.int64)
+        step_row[0] = starts_glob[0]
+        bnd_row = np.cumsum(lens_items)[:-1]
+        step_row[bnd_row] = (
+            starts_glob[1:] - (starts_glob[:-1] + lens_items[:-1]) + 1
+        )
+        all_items_cat = g_items[np.cumsum(step_row)]
+        starts = np.concatenate([[0], np.cumsum(lens_items)[:-1]])
+        uniq_items_row, inv_items = np.unique(
+            all_items_cat, return_inverse=True
+        )
+
+        desc = np.arange(uniq.size)[::-1]  # row indices in descending sid
+        # all clicks' valid items sorted in ONE call; per-click unique = a
+        # boundary mask over the sorted row (same result as np.unique)
+        valid_sorted = np.sort(np.asarray(valid_row)[cols], axis=1)
+        for j, c in enumerate(cols):
+            n_occ = int(offsets[j + 1])
+            if n_occ == 0:
+                continue
+            if 0 < self.candidate_sample_size < n_occ:
+                # "recent" cut: the per-click path sorts ALL occurrences by
+                # sid descending and keeps the first K — equal to repeating
+                # each sid its occurrence count, largest sid first
+                counts_desc = occ_cum[::-1, j].astype(np.int64)
+                rows_occ = np.repeat(desc, counts_desc)[
+                    : self.candidate_sample_size
+                ]
+            else:
+                rows_occ = inv_all[:n_occ]
+            sims_occ = sim[rows_occ, j]
+            keep = (sims_occ > 0.0) & (sims_occ < 1.0)
+            order = np.argsort(-sims_occ, kind="stable")
+            order = order[keep[order]][: self.nearest_neighbors]
+            if order.size == 0:
+                continue
+            occ_per_uniq = np.bincount(rows_occ[order], minlength=uniq.size)
+            sel_mask = occ_per_uniq > 0
+            weights = occ_per_uniq[sel_mask] * sim[sel_mask, j]
+
+            # vote: gather the selected sessions' item slices from the row
+            # table via a grouped arange — occurrence order, float
+            # accumulation order, and the first-occurrence tie-break all
+            # match _vote_and_rank exactly
+            sel_rows = np.nonzero(sel_mask)[0]
+            ls = lens_items[sel_rows]
+            s0 = starts[sel_rows]
+            total = int(ls.sum())
+            step = np.ones(total, np.int64)
+            step[0] = s0[0]
+            bnd = np.cumsum(ls)[:-1]
+            step[bnd] = s0[1:] - (s0[:-1] + ls[:-1]) + 1
+            occ_rows = inv_items[np.cumsum(step)]
+            w_occ = np.repeat(weights, ls)
+            scores = np.bincount(
+                occ_rows, weights=w_occ, minlength=uniq_items_row.size
+            )
+            # first occurrence per item: reversed fancy-assign (last write
+            # wins -> earliest position survives)
+            first_pos = np.empty(uniq_items_row.size, np.int64)
+            first_pos[occ_rows[::-1]] = np.arange(total - 1, -1, -1)
+            # Rank the VALID side only: fill_ranked_topk(ranked, valid) keeps
+            # valid∩present items in ranked order, and ranked is exactly the
+            # present items sorted by (-score, first_pos) — so sorting the
+            # ≤C unique valid items by the same key pair is identical output
+            # without materializing the full-universe lexsort + isin filter
+            # (first_pos is unique per item, so the key pair is a total
+            # order and pre-sort order cannot matter).
+            vs = valid_sorted[j]
+            dedup = np.empty(vs.shape, bool)
+            dedup[0] = True
+            dedup[1:] = vs[1:] != vs[:-1]
+            vu = vs[dedup]
+            pos = np.searchsorted(uniq_items_row, vu)
+            pos_c = np.minimum(pos, max(uniq_items_row.size - 1, 0))
+            hit = (uniq_items_row[pos_c] == vu) & (scores[pos_c] > 0.0)
+            vu = vu[hit]
+            p = pos_c[hit]
+            order_v = np.lexsort((first_pos[p], -scores[p]))[:topk]
+            sel = vu[order_v]
+            out[c, : sel.size] = sel
+
+    def _predict_per_click(
+        self, users_ids, sessions_items, topk=5, valid_items=None
+    ):
+        """Per-click transliteration — the oracle for ``predict``."""
+        preds = np.zeros(
+            (sessions_items.shape[0], sessions_items.shape[1], topk), np.int64
+        )
+        state = self._state()
+        for r, c, _ in self._valid_click_coords(sessions_items):
+            prefix = [int(x) for x in sessions_items[r, : c + 1] if x != 0]
+            ranked, _ = self._ranked_items_vectorized(prefix, state=state)
+            preds[r, c] = fill_ranked_topk(ranked, valid_items[r, c], topk)
+        return preds

@@ -1,8 +1,10 @@
 """Feature schemas, the NAR configuration and the run configuration.
 
-A copy of the NAR part of ``chameleon_recsys_tpu/config.py`` and of its
-``RunConfig``, with the same class and field names, so a configuration
-written for the JAX package carries over field by field.  ``use_pallas_rnn`` and ``use_pallas_scorer``
+A copy of the NAR part of ``chameleon_recsys_tpu/config.py``, of its
+``RunConfig``, of its feature-group ablation toggles and of the G1 schemas,
+with the same names, so a configuration written for the JAX package carries
+over field by field (the Adressa groups and schema come with the Adressa
+slice).  ``use_pallas_rnn`` and ``use_pallas_scorer``
 keep their names: in this package they route the session RNN and the pooled
 path's negatives through the hand-written CUDA kernels
 (``ops/kernels/ugrnn.py``, ``ops/kernels/cand_scorer.py``).
@@ -13,6 +15,9 @@ import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+# Timestamps in memory are int32 seconds since a per-dataset epoch; on disk
+# they are unix milliseconds (ingest divides by TIME_UNIT_MS).
+TIME_UNIT_MS = 1000
 SECONDS_PER_DAY = 60 * 60 * 24
 SECONDS_PER_HOUR = 60 * 60
 
@@ -171,3 +176,138 @@ class RunConfig:
     checkpoint_every_n_hours: int = 10
     random_seed: int = 42
     enable_profiler: bool = False
+
+
+# ---------------------------------------------------------------------------
+# Feature-group ablation toggles (the paper's Input-Configuration axes,
+# reference nar_trainer_gcom.py:109-231): a disabled group's features leave
+# the schema, which drives both parsing and the feature towers
+# ---------------------------------------------------------------------------
+
+ALL_FEATURES = "ALL"
+NO_FEATURES = "NONE"
+
+GCOM_SESSION_FEATURE_GROUPS = {
+    "time": ["local_hour_sin", "local_hour_cos", "local_weekday"],
+    "device": ["environment", "deviceGroup", "os"],
+    "location": ["country", "region"],
+    "referrer": ["referrer_type"],
+}
+
+GCOM_ARTICLE_FEATURE_GROUPS = {
+    "category": ["category_id"],
+}
+
+
+def _parse_groups(enabled) -> Optional[set]:
+    """'ALL'/['ALL'] -> None (keep everything); 'NONE'/['NONE'] -> empty set;
+    csv string or list of names -> set of group names."""
+    if enabled is None:
+        return None
+    if isinstance(enabled, str):
+        names = [x.strip() for x in enabled.split(",") if x.strip()]
+    else:
+        names = [str(x).strip() for x in enabled]
+    if ALL_FEATURES in names:
+        return None
+    if names == [NO_FEATURES] or not names:
+        return set()
+    return set(names)
+
+
+def _group_drop_set(enabled_groups, groups_map, protected) -> Optional[set]:
+    """Features of disabled groups, never touching ``protected`` names.
+    Unknown group names are an error: a misspelled ablation flag would
+    attribute results to the wrong input configuration."""
+    enabled = _parse_groups(enabled_groups)
+    if enabled is None:
+        return None
+    unknown = enabled - set(groups_map)
+    if unknown:
+        raise ValueError(
+            f"unknown feature groups {sorted(unknown)}; "
+            f"valid: {sorted(groups_map)} (or ALL/NONE)"
+        )
+    drop = {
+        f
+        for group, feats in groups_map.items()
+        if group not in enabled
+        for f in feats
+    }
+    return drop - set(protected)
+
+
+def filter_session_schema(
+    schema: SessionFeaturesSchema, enabled_groups, groups_map=None
+) -> SessionFeaturesSchema:
+    """Drop the sequence features of disabled groups (structural features,
+    item_clicked/event_timestamp and anything ungrouped, always stay)."""
+    drop = _group_drop_set(
+        enabled_groups,
+        groups_map or GCOM_SESSION_FEATURE_GROUPS,
+        SESSION_REQ_SEQ_FEATURES,
+    )
+    if drop is None:
+        return schema
+    return SessionFeaturesSchema(
+        single=schema.single,
+        sequence=tuple(f for f in schema.sequence if f.name not in drop),
+    )
+
+
+def filter_article_schema(
+    schema: ArticleFeaturesSchema, enabled_groups, groups_map=None
+) -> ArticleFeaturesSchema:
+    drop = _group_drop_set(
+        enabled_groups,
+        groups_map or GCOM_ARTICLE_FEATURE_GROUPS,
+        ARTICLE_REQ_FEATURES,
+    )
+    if drop is None:
+        return schema
+    return ArticleFeaturesSchema(
+        features=tuple(f for f in schema.features if f.name not in drop)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Reference dataset schemas
+# ---------------------------------------------------------------------------
+
+def gcom_article_schema(num_items: int = 364047,
+                        num_categories: int = 461) -> ArticleFeaturesSchema:
+    """G1/Globo.com article metadata schema (nar_trainer_gcom.py:99-128)."""
+    return ArticleFeaturesSchema(
+        features=(
+            FeatureSpec("article_id", "categorical", num_items),
+            FeatureSpec("created_at_ts", "numerical", dtype="int"),
+            FeatureSpec("category_id", "categorical", num_categories),
+        )
+    )
+
+
+def gcom_session_schema(
+    num_items: int = 364047, num_users: int = 341193
+) -> SessionFeaturesSchema:
+    """G1/Globo.com session schema (nar_trainer_gcom.py:150-218)."""
+    return SessionFeaturesSchema(
+        single=(
+            FeatureSpec("user_id", "categorical", num_users),
+            FeatureSpec("session_id", "numerical", dtype="int"),
+            FeatureSpec("session_start", "numerical", dtype="int"),
+            FeatureSpec("session_size", "numerical", dtype="int"),
+        ),
+        sequence=(
+            FeatureSpec("event_timestamp", "numerical", dtype="int"),
+            FeatureSpec("item_clicked", "categorical", num_items),
+            FeatureSpec("environment", "categorical", 5),
+            FeatureSpec("deviceGroup", "categorical", 6),
+            FeatureSpec("os", "categorical", 23),
+            FeatureSpec("country", "categorical", 12),
+            FeatureSpec("region", "categorical", 29),
+            FeatureSpec("local_hour_sin", "numerical", dtype="float"),
+            FeatureSpec("local_hour_cos", "numerical", dtype="float"),
+            FeatureSpec("local_weekday", "numerical", dtype="float"),
+            FeatureSpec("referrer_type", "categorical", 8),
+        ),
+    )

@@ -11,11 +11,13 @@ this package's own format (``train/checkpoint.py``).
 
 The harness drives ``train.steps.train_step`` and ``eval_step``, looked up
 as this module's names at call time.  It runs on ``cuda`` unless given
-``device="cpu"``.  Not ported here: ``mesh_plan`` (multi-GPU),
-``artifact_store`` and the scalar/histogram writers (tooling), and baselines
-other than recently popular and sequential rules (baselines slice); each
-raises ``NotImplementedError``.  The JAX harness's orbax checkpoints have no
-counterpart: this package's pickle is its one format.
+``device="cpu"``.  Beside CHAMELEON it runs any of this package's classical
+baselines (``baselines/``), uploads ``model_dir`` to an artifact store on
+every export (``utils/artifact_store.py``) and writes the per-step scalars
+and per-hour parameter histograms (``utils/summary.py``).  Not ported here:
+``mesh_plan`` (multi-GPU) raises ``NotImplementedError``.  The JAX harness's
+orbax checkpoints have no counterpart: this package's pickle is its one
+format.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from ..utils.io import (
     serialize,
 )
 from ..utils.profiling import ThroughputMeter
+from ..utils.summary import HistogramWriter, ScalarWriter
 from .checkpoint import pack_train_state, unpack_train_state
 from .steps import TrainState, eval_step, init_train_state, train_step
 
@@ -69,20 +72,14 @@ class HarnessArtifacts:
     sessions_chameleon_recommendations_log: Optional[List[Dict]] = None
 
 
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(f"{what} is not ported yet: it comes with the "
-                               f"{slice_name} slice")
-
-
 class TemporalHarness:
     """Drives the NAR train and eval steps over an hour-indexed session
     source.
 
     ``hour_source(hour) -> List[Session]`` abstracts the per-hour data files
     (one gzipped TFRecord per hour in the reference, datasets.py:166-178).
-    The arguments are the JAX harness's, less those of the features not
-    ported yet (``mesh_min_rows``, ``artifact_remote_path``,
-    ``histograms_every_n_hours``), plus ``device``.
+    The arguments are the JAX harness's, less ``mesh_min_rows`` (multi-GPU),
+    plus ``device``.
     """
 
     def __init__(
@@ -99,26 +96,29 @@ class TemporalHarness:
         eval_metrics_by_session_position: bool = False,
         eval_cold_start: bool = False,
         artifact_store=None,
+        artifact_remote_path: str = "",
         mesh_plan=None,
         benchmark_workers: Optional[int] = None,
         save_scalars: bool = False,
         save_histograms: bool = False,
+        histograms_every_n_hours: int = 1,
         device="cuda",
     ):
         if mesh_plan is not None:
-            raise _not_ported("mesh_plan (multi-device training)", "multi-GPU")
-        if artifact_store is not None:
-            raise _not_ported("artifact_store (remote artifact sync)", "tooling")
-        if save_scalars or save_histograms:
-            raise _not_ported("save_scalars / save_histograms", "tooling")
+            raise NotImplementedError("mesh_plan (multi-device training) is not "
+                                      "ported yet: it comes with the multi-GPU slice")
         for spec in benchmarks:
             if not (isinstance(spec.recommender, type)
                     and issubclass(spec.recommender, BenchmarkRecommender)):
-                raise _not_ported(
-                    f"the baseline {spec.recommender!r} (this package has "
-                    "RecentlyPopularRecommender and SequentialRulesRecommender)",
-                    "baselines",
+                raise TypeError(
+                    f"the baseline {spec.recommender!r} is no subclass of this "
+                    "package's baselines.BenchmarkRecommender"
                 )
+        # Remote artifact sync (the reference's GCS workflow shape,
+        # gcs_utils.py:22-109): every export also uploads model_dir to the
+        # store.  None = plain local files only.
+        self.artifact_store = artifact_store
+        self.artifact_remote_path = artifact_remote_path
         self.cfg = cfg
         self.run_cfg = run_cfg
         self.session_schema = session_schema
@@ -202,6 +202,14 @@ class TemporalHarness:
         if self._bench_pool is not None:
             # release the worker threads when the harness is collected
             weakref.finalize(self, self._bench_pool.shutdown, False)
+        # Per-step observability channel (the reference's TensorBoard
+        # scalars and --save_histograms, nar_trainer_gcom.py:54): JSON-lines
+        # sinks under model_dir, written once an hour.
+        self.scalar_writer = ScalarWriter(run_cfg.model_dir) if save_scalars else None
+        self.histogram_writer = (
+            HistogramWriter(run_cfg.model_dir) if save_histograms else None
+        )
+        self.histograms_every_n_hours = max(1, histograms_every_n_hours)
         self.hours_trained = 0
         # Count of completed chunk evals — checkpointed so a resume from a
         # checkpoint taken between a chunk's train and its eval re-runs that
@@ -273,15 +281,15 @@ class TemporalHarness:
 
     def train_hour(self, sessions: Sequence[Session]) -> Dict[str, float]:
         self._ensure_initialized()
-        n_steps, losses = 0, []
+        n_steps, step_metrics, first_step = 0, [], self.host_state.current_step + 1
         self.train_meter.start()
         for np_batch in self._batches(sessions):
             batch = self._put_batch(np_batch)
             self.state, metrics = train_step(
                 self.state, batch, self.ace_matrix, self.metadata
             )
-            # keep the device scalar — converting here would sync every step
-            losses.append(metrics["ce_loss"])
+            # keep the device scalars: converting here would sync every step
+            step_metrics.append(metrics)
             n_steps += 1
             self.train_meter.stop(
                 1, int((np_batch["session_size"] > 0).sum()), 0
@@ -293,11 +301,33 @@ class TemporalHarness:
             self._register_batch_clicks(np_batch)
             self._train_host_side(np_batch)
             self.train_meter.start()
-        # one fetch of the hour's losses, inside the meter: it waits for the
-        # device, so the train throughput counts the device's work
-        losses = torch.stack(losses).cpu().tolist() if losses else []
+        # one fetch of the hour's scalars, inside the meter: it waits for the
+        # device, so the train throughput counts the device's work.  float64
+        # holds every f32 and integer scalar exactly.  The names are sorted,
+        # as the JAX step's metrics come back (a pytree's dict keys).
+        names = ["ce_loss"]
+        if self.scalar_writer is not None and step_metrics:
+            names = sorted(step_metrics[0])
+        fetched = (
+            torch.stack([torch.stack([m[k].double() for k in names])
+                         for m in step_metrics]).cpu().tolist()
+            if step_metrics else []
+        )
         self.train_meter.stop(0)
         self.hours_trained += 1
+        if self.scalar_writer is not None and fetched:
+            for i, values in enumerate(fetched):
+                self.scalar_writer.write(first_step + i, dict(zip(names, values)))
+            self.scalar_writer.flush()
+        if (
+            self.histogram_writer is not None
+            and self.hours_trained % self.histograms_every_n_hours == 0
+        ):
+            self.histogram_writer.write_tree(
+                int(self.host_state.current_step), self.state.model,
+                prefix="params/",
+            )
+        losses = [values[names.index("ce_loss")] for values in fetched]
         avg_loss = float(np.mean(losses)) if losses else 0.0
         return {"steps": n_steps, "avg_ce_loss": avg_loss}
 
@@ -644,6 +674,8 @@ class TemporalHarness:
                 self.artifacts.sessions_chameleon_recommendations_log,
             )
             self.artifacts.sessions_chameleon_recommendations_log.clear()
+        if self.artifact_store is not None:
+            self.artifact_store.upload_dir(out, self.artifact_remote_path)
 
     # ------------------------------------------------------------------
     # checkpoint/resume: the full unit (train/checkpoint.py has the format)

@@ -9,8 +9,9 @@ the eval step (``train.steps.eval_step``), the train step
 (``train.steps.train_step``, valid-row compaction at the bench's capacity,
 with the fused scorer's nc stash and without it) and the temporal harness
 (``train.temporal.TemporalHarness``: hour-by-hour train and eval with two
-baselines, checkpoint/resume, ``NARServer.from_checkpoint``), and every
-hand-written kernel of those paths:
+baselines, checkpoint/resume, ``NARServer.from_checkpoint``) and the G1
+pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
+-> ``nar_trainer_gcom``), and every hand-written kernel of those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
    per source, started together) and reports the build time and what ptxas
@@ -50,7 +51,21 @@ hand-written kernel of those paths:
    both harnesses, then on two resumes with a planted fault (the sampler's
    generator re-seeded, Adam's state dropped) that the resume check must
    catch;
-6. holds each kernel against its plain PyTorch twin on the card: the UGRNN
+6. the G1 pipeline through its CLIs, on the card: a pseudo-G1 bundle at the
+   published shape (46,033 articles, 250-wide ACEs, 2,600 sessions an hour
+   on average, seed 7; 11 hourly files, on 4 processes), its session
+   TFRecords (4 processes), then ``nar_trainer_gcom.main`` in this process
+   with ``scripts/run_nar_train_gcom_full.sh``'s flags over files 0-10
+   (train 0-4, evaluate 5, train 5-9, evaluate 10, train 10), six
+   baselines, the scalars, the histograms and an artifact store; checks the
+   exit, the eval CSV (two rows, every baseline's columns, finite, the
+   device HR equal to the host suite's), the synced copy against
+   ``model_dir``, that the peak device memory grew and that no kernel
+   launched (the CLI's default path is the plain one); prints the
+   bundle's and the preprocessing's seconds, the sessions of each hour,
+   every train and eval hour's wall, the eval hours' phases and each
+   baseline's wall and CPU seconds in the benchmark tier;
+7. holds each kernel against its plain PyTorch twin on the card: the UGRNN
    forward at batch 1, 32 and 256 and the backward at the train shape (from
    the forward's f32 stash, against the twin that recomputes the gates; the
    stash against that recompute), the UGRNN streaming instantiations at
@@ -61,10 +76,10 @@ hand-written kernel of those paths:
    (``train_scorer_operands``; the recompute backward also bit for bit
    against the stash backward on the stash forward's nc), and all of them on
    random operands at the G1 shapes, a float32 shape and an odd shape;
-7. checks the served scores, one eval step and one train step against the
+8. checks the served scores, one eval step and one train step against the
    same code on the CPU, where the kernel wrappers run their plain twins, on
    a small float32 input;
-8. times each kernel, its plain twin, ``recommend``, the eval step and the
+9. times each kernel, its plain twin, ``recommend``, the eval step and the
    train step (with the stash and without) with CUDA events or a
    synchronised host clock, and breaks one request, one eval step and one
    train step with the stash and one without down by device kernel (torch
@@ -84,7 +99,7 @@ hand-written kernel of those paths:
    its chain launch at T 1, 4 and 19 (torch profiler, every record kept:
    a session that is not ``calls`` repeats of one launch sequence is
    profiled again, eight times at most);
-9. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
+10. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
    against ``torch.matmul`` at dpre's shape (134,400 x 1024 by 1024^T, bf16)
    and times both (its own line: it is no TPU kernel), splits one backward
    (K1b) at the train path's operands by device launch (torch profiler),
@@ -99,14 +114,17 @@ without a CUDA device it exits 1 before printing any result.
 from __future__ import annotations
 
 import collections
+import csv
 import ctypes
 import dataclasses
 import json
 import re
+import shlex
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -127,6 +145,17 @@ TRAIN_STEPS = 2  # counted, over two batches
 LOSS_STEPS = 20  # on one batch: the loss must fall
 HARNESS_SESSIONS = 512  # sessions an hour: two batches of 256
 HARNESS_HOURS = 4  # hours 0-3: train four hours, evaluate three
+# the G1 pipeline through its CLIs: a pseudo-G1 bundle at the published
+# shape, and the first hourly files of scripts/run_nar_train_gcom_full.sh's
+# range, the fewest that give two evals at its 5 training hours an eval
+G1_CLI_BUNDLE = {"--num_articles": "46033", "--ace_dim": "250",
+                 "--mean_sessions_per_hour": "2600", "--seed": "7"}
+G1_CLI_FILES = 11  # train 0-4, eval 5, train 5-9, eval 10, train 10
+G1_CLI_WORKERS = "4"  # processes of the bundle generator and the preprocessing
+G1_SCRIPT = "scripts/run_nar_train_gcom_full.sh"
+# the suffixes of the G1 trainer's six baselines (session-kNN's decay "div"
+# names it v-sknn)
+G1_BASELINES = ("pop_recent", "coocurrent", "item_knn", "v-sknn", "cb", "sr")
 # a resumed hour against the original: the loss's relative difference, HR's
 # and MRR's, the largest parameter difference after the hour's training.
 # pool_gather's index_add_ backward sums with atomics on the card, so a
@@ -1065,6 +1094,170 @@ def checkpoint_phase(port, harness, source, make, corpus):
         del faulty
 
 
+def g1_script_flags():
+    """The trainer flags of ``G1_SCRIPT`` but its paths and file range."""
+    text = (ROOT / G1_SCRIPT).read_text().replace("\\\n", " ")
+    tokens = shlex.split(text[text.index("python -m"):].splitlines()[0])[3:]
+    dropped = {"--train_set_path_regex", "--acr_module_articles_metadata_csv_path",
+               "--acr_module_articles_content_embeddings_pickle_path", "--model_dir",
+               "--train_files_from", "--train_files_up_to"}
+    flags, i = [], 0
+    while i < len(tokens):
+        takes_value = i + 1 < len(tokens) and not tokens[i + 1].startswith("--")
+        if tokens[i] not in dropped:
+            flags += tokens[i: i + 1 + takes_value]
+        i += 1 + takes_value
+    return flags
+
+
+def g1_cli_phase(workdir):
+    """The G1 pipeline through the port's CLIs, on the card: a pseudo-G1
+    bundle at the published shape (``make_pseudo_g1``), its session
+    TFRecords (``nar_preprocess_gcom``), then ``nar_trainer_gcom.main`` in
+    this process with ``G1_SCRIPT``'s flags over its first ``G1_CLI_FILES``
+    files, the scalars, histograms and an artifact store.  Checks the run,
+    the eval CSV (two rows, every baseline's columns, the device HR equal to
+    the host suite's), the synced copy against ``model_dir`` and that the
+    steps ran on the card; prints the walls, the eval hours' phases and each
+    baseline's share of the benchmark tier.  Returns the kernel launches of
+    the run (the CLI's default path takes the plain branch: none)."""
+    from chameleon_recsys_tpu_torch.baselines.benchmarks import BenchmarkRecommender
+    from chameleon_recsys_tpu_torch.cli import (
+        make_pseudo_g1,
+        nar_preprocess_gcom,
+        nar_trainer_gcom,
+    )
+
+    bundle, model_dir, store = (workdir / d for d in ("bundle", "model", "store"))
+    t0 = time.perf_counter()
+    make_pseudo_g1.main(["--output_dir", str(bundle), "--hours", str(G1_CLI_FILES),
+                         "--num_workers", G1_CLI_WORKERS]
+                        + [v for kv in G1_CLI_BUNDLE.items() for v in kv])
+    bundle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nar_preprocess_gcom.main([
+        "--input_clicks_csv_path_regex", str(bundle / "clicks" / "clicks_hour_*.csv"),
+        "--output_sessions_tfrecords_path",
+        str(bundle / "sessions" / "sessions_hour_*.tfrecord.gz"),
+        "--num_workers", G1_CLI_WORKERS])
+    preprocess_s = time.perf_counter() - t0
+    print(f"g1 cli: pseudo-G1 bundle ({G1_CLI_FILES} hours, "
+          + ", ".join(f"{k[2:]} {v}" for k, v in G1_CLI_BUNDLE.items())
+          + f") {bundle_s:.3f} s, preprocessing {preprocess_s:.3f} s")
+
+    walls = {"train": [], "eval": []}
+    sessions_read = []
+    # baseline -> [evaluate's wall seconds, its thread's CPU seconds]: the
+    # tier runs the baselines on a thread pool, where a wall also holds the
+    # waits for the interpreter lock and the CPU time does not
+    tier = collections.defaultdict(lambda: [0.0, 0.0])
+    tier_lock = threading.Lock()
+
+    class TimedHarness(nar_trainer_gcom.TemporalHarness):
+        def train_hour(self, sessions):
+            sessions_read.append(("train", len(sessions)))
+            t0 = time.perf_counter()
+            stats = super().train_hour(sessions)
+            torch.cuda.synchronize()
+            walls["train"].append(time.perf_counter() - t0)
+            return stats
+
+        def evaluate_hour(self, sessions):
+            sessions_read.append(("eval", len(sessions)))
+            tier.clear()
+            t0 = time.perf_counter()
+            row = super().evaluate_hour(sessions)
+            torch.cuda.synchronize()
+            walls["eval"].append(time.perf_counter() - t0)
+            print(f"g1 cli eval hour {len(walls['eval'])}: {len(sessions)} sessions, "
+                  f"{walls['eval'][-1]:.3f} s wall; phases (s) "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in self.last_eval_phase_seconds.items())
+                  + "; benchmark tier by baseline (evaluate's wall / its thread's "
+                  "CPU s) " + ", ".join(f"{k} {w:.4f} / {c:.4f}"
+                                        for k, (w, c) in sorted(tier.items())))
+            return row
+
+    evaluate = BenchmarkRecommender.evaluate
+
+    def timed_evaluate(self, *args, **kwargs):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        try:
+            return evaluate(self, *args, **kwargs)
+        finally:
+            wall, cpu = time.perf_counter() - t0, time.thread_time() - c0
+            with tier_lock:
+                tier[self.get_clf_suffix()][0] += wall
+                tier[self.get_clf_suffix()][1] += cpu
+
+    argv = ["--train_set_path_regex", str(bundle / "sessions" / "sessions_hour_*.tfrecord.gz"),
+            "--acr_module_articles_metadata_csv_path", str(bundle / "articles_metadata.csv"),
+            "--acr_module_articles_content_embeddings_pickle_path",
+            str(bundle / "articles_embeddings.pickle"), "--model_dir", str(model_dir),
+            "--train_files_from", "0", "--train_files_up_to", str(G1_CLI_FILES),
+            *g1_script_flags(), "--save_scalars", "--save_histograms",
+            "--artifact_store_root", str(store), "--sync_artifacts_to", "run"]
+    print(f"g1 cli: nar_trainer_gcom {' '.join(argv[8:])}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    memory_before = torch.cuda.max_memory_allocated()
+    trainer_class = nar_trainer_gcom.TemporalHarness
+    nar_trainer_gcom.TemporalHarness = TimedHarness
+    BenchmarkRecommender.evaluate = timed_evaluate
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        nar_trainer_gcom.main(argv)
+        rc = 0
+    except SystemExit as exit_info:  # main exits only on an error
+        rc = exit_info.code
+    finally:
+        nar_trainer_gcom.TemporalHarness = trainer_class
+        BenchmarkRecommender.evaluate = evaluate
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    memory_peak = torch.cuda.max_memory_allocated()
+    print(f"g1 cli: rc {rc}, {run_s:.3f} s wall; sessions read by hour {sessions_read}; "
+          "train hours " + ", ".join(f"{w:.3f}" for w in walls["train"])
+          + " s wall; eval hours " + ", ".join(f"{w:.3f}" for w in walls["eval"])
+          + f" s wall; peak device memory {memory_peak / 2**30:.3f} GiB "
+          f"(before {memory_before / 2**30:.3f}); kernel launches {counts}")
+    check(rc in (0, None), f"g1 cli: nar_trainer_gcom exited with {rc}")
+    check(memory_peak > memory_before, "g1 cli: the steps did not run on the card")
+    check(not any(counts.values()),
+          f"g1 cli: a kernel launched on the CLI's default (plain) path: {counts}")
+
+    with open(model_dir / "eval_stats_benchmarks.csv") as f:
+        rows = list(csv.DictReader(f))
+    expected_rows = (G1_CLI_FILES - 1) // 5
+    check(len(rows) == expected_rows, f"g1 cli: {len(rows)} eval rows, expected "
+          f"{expected_rows}")
+    for i, row in enumerate(rows):
+        missing = [b for b in G1_BASELINES if f"hitrate_at_n_{b}" not in row]
+        check(not missing, f"g1 cli: eval row {i} lacks the columns of {missing}")
+        values = {k: float(v) for k, v in row.items()}
+        check(all(np.isfinite(v) for v in values.values()),
+              f"g1 cli: eval row {i}: a column is not finite")
+        check(row["hitrate_at_n"] == row["hitrate_at_n_chameleon"],
+              f"g1 cli: eval row {i}: device HR != host HR")
+        print(f"g1 cli eval row {i}: eval_hour {row['eval_hour']}, clicks "
+              f"{row['clicks_count']}, sessions {row['sessions_count']}, "
+              f"train_sessions_per_s {float(row['train_sessions_per_s']):.1f}; hitrate_at_n "
+              + ", ".join(f"{b} {values[f'hitrate_at_n_{b}']:.4f}"
+                          for b in ("chameleon",) + G1_BASELINES))
+    synced = {p.relative_to(store / "run"): p.read_bytes()
+              for p in (store / "run").rglob("*") if p.is_file()}
+    local = {p.relative_to(model_dir): p.read_bytes()
+             for p in model_dir.rglob("*") if p.is_file()}
+    # the CLI writes checkpoint.pkl after its last export, as the JAX CLI does
+    unsynced = sorted(str(p) for p in set(local) - set(synced))
+    print(f"g1 cli: synced {sorted(str(p) for p in synced)}; only in model_dir {unsynced}")
+    check(synced and all(local.get(p) == v for p, v in synced.items())
+          and unsynced == ["checkpoint.pkl"],
+          "g1 cli: the synced copy differs from model_dir")
+    return counts
+
+
 def train_cpu_vs_card(port, corpus_fn):
     """One train step of a small float32 model with compaction on the CPU
     and on the card, with the same uniforms (numpy, seeded): the loss, every
@@ -1405,14 +1598,18 @@ def main() -> int:
         )
         checkpoint_phase(port, harness, source, make, corpus)
         del harness, make
-    paths = (serve_counts, eval_counts, train_counts, recompute_counts, harness_counts)
+    # ---- 6. the G1 pipeline through its CLIs, on the card ----
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
+        cli_counts = g1_cli_phase(Path(workdir))
+    paths = (serve_counts, eval_counts, train_counts, recompute_counts, harness_counts,
+             cli_counts)
     main_launches = {k: sum(path.get(k, 0) for path in paths)
                      for k in KERNEL_NAMES + UGRNN_INSTANTIATIONS}
     print(f"launches over the counted paths: {main_launches}")
     check(main_launches["ugrnn_fwd_stream"] == main_launches["ugrnn_bwd_stream"] == 0,
           "a G1 path ran a streaming UGRNN kernel")
 
-    # ---- 6. each kernel against its plain twin ----
+    # ---- 7. each kernel against its plain twin ----
     serve_mask = captured[max(SERVE_BATCHES)]
     g = torch.Generator().manual_seed(1)
     lengths = torch.randint(1, serve_mask.shape[1] + 1, (256,), generator=g)
@@ -1548,7 +1745,7 @@ def main() -> int:
                 name, operands, g_case, tol)
     del train_cases
 
-    # ---- 7. served scores, an eval and a train step against the CPU ----
+    # ---- 8. served scores, an eval and a train step against the CPU ----
     tcfg, tsess, tart = tiny_setup(port)
     tcorpus = make_synthetic_corpus(tart, ace_dim=8)
     tsessions = synthetic_hour_sessions(tcorpus, tsess, 0, 24, tcfg.max_session_length)
@@ -1576,7 +1773,7 @@ def main() -> int:
     eval_cpu_vs_card(port, make_synthetic_corpus)
     train_cpu_vs_card(port, make_synthetic_corpus)
 
-    # ---- 8. times ----
+    # ---- 9. times ----
     # K2f at serving batches 1 and 32 and the train batch 256, with the
     # training outputs (states and stash) and without, beside the chain
     # floor and the launch's clusters; then at T 1, 4 and 19 (the slope is a

@@ -30,6 +30,14 @@ import chameleon_recsys_tpu_torch.baselines
 import chameleon_recsys_tpu_torch.state.host_state
 import chameleon_recsys_tpu_torch.utils.io
 import chameleon_recsys_tpu_torch.utils.profiling
+import chameleon_recsys_tpu_torch.utils.summary
+import chameleon_recsys_tpu_torch.utils.artifact_store
+import chameleon_recsys_tpu_torch.data.sessions
+import chameleon_recsys_tpu_torch.data.pseudo_g1
+import chameleon_recsys_tpu_torch.data.preprocessing
+import chameleon_recsys_tpu_torch.cli.make_pseudo_g1
+import chameleon_recsys_tpu_torch.cli.nar_preprocess_gcom
+import chameleon_recsys_tpu_torch.cli.nar_trainer_gcom
 loaded = [m for m in sys.modules
           if m == "chameleon_recsys_tpu" or m.startswith("chameleon_recsys_tpu.")]
 jax = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]

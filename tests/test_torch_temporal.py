@@ -2,8 +2,10 @@
 
 Both harnesses run the tiny configuration of ``tests/test_temporal.py``
 (batch 8, sessions of up to 6 clicks, 12 sessions an hour, 150 items) with
-recently popular and sequential rules beside CHAMELEON, one training hour
-per eval, over hours 1-3: train 1, eval 2, train 2, eval 3, train 3.  Both
+the G1 trainer's six classical baselines (``default_benchmarks`` of each
+package's ``cli/nar_trainer_gcom.py``) beside CHAMELEON, one training hour
+per eval, over hours 1-3: train 1, eval 2, train 2, eval 3, train 3, and
+write the per-step scalars and per-hour histograms.  Both
 start from the stream with hour 0's clicks folded in: on an empty click
 buffer the jitted JAX train step's novelty feature is ill-conditioned
 (ROADMAP section 3; eager JAX and the port agree there, the jitted step
@@ -24,7 +26,9 @@ test finds every ranked position where the two harnesses' recommendation
 logs differ, requires each to be such a near tie, names them, and widens
 the tolerance of the rank metrics by one label's share per swap.  The
 baseline columns are bit-equal: they see the same negatives and the same
-stream.
+stream.  The scalar rows carry the same keys and steps, ``ce_loss`` at the
+loss's tolerance; the histogram rows the same names under ``convert``'s
+mapping.
 
 The port's own checkpoint round trip and resume are bit-exact on the CPU.
 """
@@ -43,6 +47,9 @@ import torch
 from chameleon_recsys_tpu.baselines import (
     RecentlyPopularRecommender as JaxRecentlyPopular,
     SequentialRulesRecommender as JaxSequentialRules,
+)
+from chameleon_recsys_tpu.cli.nar_trainer_gcom import (
+    default_benchmarks as jax_default_benchmarks,
 )
 from chameleon_recsys_tpu.config import RunConfig as JaxRunConfig
 from chameleon_recsys_tpu.data.collate import collate_sessions as jax_collate
@@ -65,8 +72,10 @@ from chameleon_recsys_tpu_torch.baselines import (
     RecentlyPopularRecommender,
     SequentialRulesRecommender,
 )
+from chameleon_recsys_tpu_torch.cli.nar_trainer_gcom import default_benchmarks
 from chameleon_recsys_tpu_torch.config import RunConfig
 from chameleon_recsys_tpu_torch.convert import (
+    _flax_path,
     checkpoint_from_jax,
     params_from_flax,
     stream_from_numpy,
@@ -86,6 +95,8 @@ SESSIONS_PER_HOUR = 12
 HOURS = range(1, 4)
 SR_PARAMS = {"max_clicks_dist": 10, "dist_between_clicks_decay": "div"}
 WALL_CLOCK = ("elapsed_s", "per_s")  # suffixes of the wall-clock counters
+# the column suffixes of the G1 trainer's six baselines
+BASELINES = ("_pop_recent", "_coocurrent", "_item_knn", "_v-sknn", "_cb", "_sr")
 
 
 @pytest.fixture(scope="module")
@@ -108,14 +119,15 @@ def world(tmp_path_factory):
     )
 
 
-def jax_harness(world, **kw):
+def jax_harness(world, benchmarks=None, **kw):
+    if benchmarks is None:
+        benchmarks = [JaxBenchmarkSpec(JaxRecentlyPopular, {}),
+                      JaxBenchmarkSpec(JaxSequentialRules, dict(SR_PARAMS))]
     return JaxTemporalHarness(
         world.cfg, JaxRunConfig(model_dir=str(world.model_dir / "jax"),
                                 training_hours_for_each_eval=1),
         world.sess, world.art, world.corpus.ace_matrix, world.corpus.metadata,
-        benchmarks=[JaxBenchmarkSpec(JaxRecentlyPopular, {}),
-                    JaxBenchmarkSpec(JaxSequentialRules, dict(SR_PARAMS))],
-        **kw,
+        benchmarks=benchmarks, **kw,
     )
 
 
@@ -199,7 +211,10 @@ def parity(world):
     draws; the JAX harness's checkpoint after it (the harness is reused by
     later tests, which restore it from that file)."""
     cfg = world.cfg
-    jax_h = jax_harness(world, log_recommendations=True)
+    np.testing.assert_array_equal(world.pcorpus.ace_matrix, world.corpus.ace_matrix)
+    jax_h = jax_harness(world, jax_default_benchmarks(world.corpus.ace_matrix),
+                        log_recommendations=True, save_scalars=True,
+                        save_histograms=True)
     warm_hour = [jax_collate(world.jax_source(0)[i: i + cfg.batch_size], world.sess,
                              cfg.batch_size, cfg.max_session_length)
                  for i in range(0, SESSIONS_PER_HOUR, cfg.batch_size)]
@@ -216,7 +231,9 @@ def parity(world):
     jax_h.export_artifacts()
     jax_ckpt = jax_h.save_checkpoint(world.model_dir / "jax.pkl")
 
-    port_h = port_harness(world, log_recommendations=True)
+    port_h = port_harness(world, benchmarks=default_benchmarks(world.pcorpus.ace_matrix),
+                          log_recommendations=True, save_scalars=True,
+                          save_histograms=True)
     port_h.init_state()
     port_h.state.model.load_state_dict(params_from_flax(params0, port_h.state.model))
     port_h.state = port_h.state._replace(stream=stream_from_numpy(warm, device="cpu"))
@@ -291,10 +308,29 @@ def test_baseline_columns_bit_equal_jax(parity):
     compared = 0
     for port_row, jax_row in zip(parity.port_rows, parity.jax_rows):
         for key, value in jax_row.items():
-            if key.endswith(("_pop_recent", "_sr")):
+            if key.endswith(BASELINES):
                 assert port_row[key] == value, key
                 compared += 1
-    assert compared == 2 * 16
+    assert compared == 2 * 8 * len(BASELINES)
+
+
+def test_scalars_and_histograms_match_jax(parity):
+    port_dir = Path(parity.port_h.run_cfg.model_dir)
+    jax_dir = Path(parity.jax_h.run_cfg.model_dir)
+    port_rows = _read_json_lines(parity.port_h, "train_scalars.jsonl")
+    jax_rows = _read_json_lines(parity.jax_h, "train_scalars.jsonl")
+    assert len(port_rows) == len(jax_rows) == 3 * 2  # three hours of two steps
+    for port_row, jax_row in zip(port_rows, jax_rows):
+        assert list(port_row) == list(jax_row)
+        for key in ("step", "sessions", "clicks"):
+            assert port_row[key] == jax_row[key], key
+        assert port_row["ce_loss"] == pytest.approx(jax_row["ce_loss"], rel=1e-5)
+    port_hists = _read_json_lines(parity.port_h, "train_histograms.jsonl")
+    jax_hists = _read_json_lines(parity.jax_h, "train_histograms.jsonl")
+    assert (port_dir / "train_histograms.jsonl").exists()
+    assert (jax_dir / "train_histograms.jsonl").exists()
+    assert sorted((r["step"], "params/" + _flax_path(r["name"][len("params/"):])[0])
+                  for r in port_hists) == sorted((r["step"], r["name"]) for r in jax_hists)
 
 
 def test_device_metrics_equal_host_suite(parity):
@@ -492,13 +528,19 @@ def test_from_checkpoint_serves_as_the_live_server(world, tmp_path):
 
 
 def test_harness_raises_on_what_is_not_ported(world):
-    for kw, match in ((dict(mesh_plan=object()), "multi-GPU"),
-                      (dict(artifact_store=object()), "tooling"),
-                      (dict(save_scalars=True), "tooling"),
-                      (dict(benchmarks=[BenchmarkSpec(JaxRecentlyPopular, {})]),
-                       "baselines")):
-        with pytest.raises(NotImplementedError, match=match):
-            port_harness(world, "raises", **kw)
+    """Only ``mesh_plan`` is still refused; the tooling and every baseline
+    of this package are taken, and a baseline of the JAX package is not."""
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        port_harness(world, "raises", mesh_plan=object())
+    with pytest.raises(TypeError, match="BenchmarkRecommender"):
+        port_harness(world, "raises",
+                     benchmarks=[BenchmarkSpec(JaxRecentlyPopular, {})])
+    taken = port_harness(world, "raises", artifact_store=object(),
+                         artifact_remote_path="jobs/x", save_scalars=True,
+                         save_histograms=True, histograms_every_n_hours=2,
+                         benchmarks=default_benchmarks(world.pcorpus.ace_matrix))
+    assert len(taken.bench_classifiers) == len(BASELINES)
+    assert taken.scalar_writer is not None and taken.histogram_writer is not None
     not_ours = world.model_dir / "not_a_checkpoint.pkl"
     serialize(not_ours, {"state": None})  # the JAX harness's layout
     with pytest.raises(ValueError, match="format"):
