@@ -152,16 +152,22 @@ _NOT_PORTED = {
 }
 
 
-def parse_args(argv=None):
-    """The parsed flags; exits (status 2) on a flag set to a feature that is
-    not ported yet, before anything is read."""
-    parser = create_args_parser()
+def refuse_not_ported(parser, not_ported, argv=None):
+    """``parser``'s flags; exits (status 2) on a flag set to a feature that
+    is not ported yet (``not_ported``: flag -> (test, the slice it waits
+    for)), before anything is read."""
     args = parser.parse_args(argv)
-    for flag, (is_set, slice_name) in _NOT_PORTED.items():
+    for flag, (is_set, slice_name) in not_ported.items():
         if is_set(args):
             parser.error(f"{flag} is not ported yet: it comes with the "
                          f"{slice_name} slice")
     return args
+
+
+def parse_args(argv=None):
+    """The parsed flags; exits (status 2) on a flag set to a feature that is
+    not ported yet, before anything is read."""
+    return refuse_not_ported(create_args_parser(), _NOT_PORTED, argv)
 
 
 def select_device(platform: str) -> torch.device:

@@ -1,10 +1,11 @@
 """Feature schemas, the NAR configuration and the run configuration.
 
-A copy of the NAR part of ``chameleon_recsys_tpu/config.py``, of its
-``RunConfig``, of its feature-group ablation toggles and of the G1 schemas,
-with the same names, so a configuration written for the JAX package carries
-over field by field (the Adressa groups and schema come with the Adressa
-slice).  ``use_pallas_rnn`` and ``use_pallas_scorer``
+A copy of the NAR and ACR parts of ``chameleon_recsys_tpu/config.py``, of
+its ``RunConfig``, of its feature-group ablation toggles (G1 and Adressa)
+and of the G1 schemas, with the same names, so a configuration written for
+the JAX package carries over field by field (the Adressa schemas live in
+``cli/nar_preprocess_adressa.py``, as in the JAX package).
+``use_pallas_rnn`` and ``use_pallas_scorer``
 keep their names: in this package they route the session RNN and the pooled
 path's negatives through the hand-written CUDA kernels
 (``ops/kernels/ugrnn.py``, ``ops/kernels/cand_scorer.py``).
@@ -20,6 +21,9 @@ from typing import Optional, Tuple
 TIME_UNIT_MS = 1000
 SECONDS_PER_DAY = 60 * 60 * 24
 SECONDS_PER_HOUR = 60 * 60
+
+PAD_TOKEN = "<PAD>"
+UNK_TOKEN = "<UNK>"
 
 
 def embedding_dim_for_cardinality(cardinality: int, const_mult: int = 8) -> int:
@@ -178,6 +182,31 @@ class RunConfig:
     enable_profiler: bool = False
 
 
+@dataclass(frozen=True)
+class ACRConfig:
+    """ACR module hyperparameters (reference README.md:114-141,
+    acr_trainer_adressa.py:23-57)."""
+
+    training_task: str = "metadata_classification"  # | 'autoencoder'
+    text_feature_extractor: str = "CNN"  # 'CNN' | 'GRU' | 'LSTM'
+    word_embedding_size: int = 300
+    vocab_size: int = 50000
+    truncate_tokens_length: int = 300
+    acr_embeddings_size: int = 250
+    cnn_filter_sizes: Tuple[int, ...] = (3, 4, 5)
+    cnn_num_filters: int = 128
+    rnn_units: int = 250
+    rnn_layers: int = 1
+    rnn_direction: str = "unidirectional"  # | 'bidirectional'
+    learning_rate: float = 3e-4
+    dropout_keep_prob: float = 1.0
+    l2_reg_lambda: float = 7e-4
+    autoencoder_noise: float = 0.0
+    batch_size: int = 64
+    training_epochs: int = 1
+    compute_dtype: str = "float32"
+
+
 # ---------------------------------------------------------------------------
 # Feature-group ablation toggles (the paper's Input-Configuration axes,
 # reference nar_trainer_gcom.py:109-231): a disabled group's features leave
@@ -196,6 +225,19 @@ GCOM_SESSION_FEATURE_GROUPS = {
 
 GCOM_ARTICLE_FEATURE_GROUPS = {
     "category": ["category_id"],
+}
+
+ADRESSA_SESSION_FEATURE_GROUPS = {
+    "time": ["local_hour_sin", "local_hour_cos", "weekday"],
+    "device": ["device", "os"],
+    "location": ["city", "region", "country"],
+    "referrer": ["referrer_class"],
+    "engagement": ["active_time_secs"],
+}
+
+ADRESSA_ARTICLE_FEATURE_GROUPS = {
+    "category": ["category0", "category1"],
+    "author": ["author"],
 }
 
 

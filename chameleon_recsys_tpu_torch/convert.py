@@ -14,6 +14,14 @@ parameter names to tensors (parameters, their gradients, updated values)
 becomes a Flax-shaped nested dict of numpy arrays, transposed back, so that
 a test can hold it leaf by leaf against the JAX package's trees.
 
+``acr_params_from_flax`` does the same for the ACR classifier
+(``chameleon_recsys_tpu.models.acr.ACRClassifierModel`` ->
+``models/acr.py``): a Conv kernel [w, in, out] becomes a ``Conv1d`` weight
+[out, in, w], a Dense kernel [in, out] a ``Linear`` weight [out, in], and a
+GRU or LSTM stack's layers (``layer_{k}``, ``layer_{k}_bwd``) the
+``weight_ih_l{k}[_reverse]``, ``weight_hh_…`` and ``bias_…`` of one
+``nn.GRU`` / ``nn.LSTM``, the LSTM's forget bias added to ``bias_hh``.
+
 ``checkpoint_from_jax`` turns a JAX harness checkpoint, given as numpy trees
 (unpickling the JAX file needs the JAX package, which this one never
 imports), into a checkpoint of this package's format: the params through
@@ -114,7 +122,59 @@ def params_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]
         key = match.expand(template)
         array = value.T if transpose else value
         state[key] = torch.from_numpy(np.ascontiguousarray(array, np.float32))
+    _check_state(state, model.state_dict())
+    return state
+
+
+# (Flax path pattern of the ACR classifier, torch key template, the kernel's
+# layout change: None, "T" (Dense) or "conv" ([w, in, out] -> [out, in, w]))
+_ACR_RULES = (
+    (r"cnn/(conv_\d+)/kernel", r"encoder.convs.\1.weight", "conv"),
+    (r"cnn/(conv_\d+)/bias", r"encoder.convs.\1.bias", None),
+    (r"rnn/layer_(\d+)(_bwd)?/input_proj/kernel", r"encoder.rnn.weight_ih_l\1\2", "T"),
+    (r"rnn/layer_(\d+)(_bwd)?/input_proj/bias", r"encoder.rnn.bias_ih_l\1\2", None),
+    (r"rnn/layer_(\d+)(_bwd)?/recurrent_kernel", r"encoder.rnn.weight_hh_l\1\2", "T"),
+    (r"rnn/layer_(\d+)(_bwd)?/recurrent_bias", r"encoder.rnn.bias_hh_l\1\2", None),
+    (r"(fc2|article_content_embedding)/kernel", r"\1.weight", "T"),
+    (r"(fc2|article_content_embedding)/bias", r"\1.bias", None),
+    (r"output_(\w+)/kernel", r"outputs.\1.weight", "T"),
+    (r"output_(\w+)/bias", r"outputs.\1.bias", None),
+)
+
+
+def acr_params_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Flax ACR classifier params (nested dicts of arrays) -> ``state_dict``
+    for ``model`` (a ``models.acr.ACRClassifierModel``, or any module whose
+    ``encoder`` is a ``TextCNN`` or a GRU/LSTM stack), its word-embedding
+    buffer included as the model holds it.  Like ``params_from_flax``, a
+    parameter that matches no rule, is missing, is not consumed or has
+    another shape raises."""
+    state = {}
+    for path, value in _flatten(tree).items():
+        for pattern, template, layout in _ACR_RULES:
+            match = re.fullmatch(pattern, path)
+            if match:
+                break
+        else:
+            raise KeyError(f"no rule maps the Flax parameter {path!r}")
+        key = match.expand(template).replace("_bwd", "_reverse")
+        array = np.asarray(value, np.float32)
+        if layout == "T":
+            array = array.T
+        elif layout == "conv":
+            array = array.transpose(2, 1, 0)
+        tensor = torch.tensor(np.ascontiguousarray(array))
+        if key.startswith("encoder.rnn.bias_hh"):
+            tensor = tensor + model.encoder.forget_bias_vector()
+        state[key] = tensor
     expected = model.state_dict()
+    if "word_embeddings" in expected:
+        state["word_embeddings"] = expected["word_embeddings"].detach().cpu().clone()
+    _check_state(state, expected)
+    return state
+
+
+def _check_state(state: Mapping[str, torch.Tensor], expected: Mapping[str, torch.Tensor]):
     missing = sorted(set(expected) - set(state))
     unused = sorted(set(state) - set(expected))
     if missing or unused:
@@ -128,7 +188,6 @@ def params_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]
                 f"{key}: Flax shape {tuple(tensor.shape)} != model shape "
                 f"{tuple(expected[key].shape)}"
             )
-    return state
 
 
 _STREAM_DTYPES = {

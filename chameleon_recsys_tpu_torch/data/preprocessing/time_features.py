@@ -6,8 +6,9 @@ sin/cos on a 24h cycle and weekday scaled to (0, 1].
 
 The port's copy of
 ``chameleon_recsys_tpu/data/preprocessing/time_features.py``.  The zone comes
-from the system tz database; a missing ``America/Sao_Paulo`` raises (G1's
-October 2017 clicks cross a DST change, so no fixed offset stands in).
+from the system tz database; a missing zone (``America/Sao_Paulo`` for G1,
+``Europe/Oslo`` for Adressa) raises: both zones keep DST, so no fixed
+offset stands in.
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
-"""UGRNN session encoder (port of ``chameleon_recsys_tpu/ops/rnn.py``).
+"""Recurrent layers (port of ``chameleon_recsys_tpu/ops/rnn.py``): the UGRNN
+session encoder and the ACR text encoder's GRU and LSTM stacks.
 
-Semantics of ``tf.contrib.rnn.UGRNNCell`` as the NAR session encoder uses it:
+UGRNN, the NAR session encoder, has the semantics of
+``tf.contrib.rnn.UGRNNCell`` as the NAR uses it:
     g  = sigmoid(W_g.[x, h] + b_g + forget_bias)      (forget_bias = 1.0)
     c  = tanh   (W_c.[x, h] + b_c)
     h' = g*h + (1 - g)*c
@@ -8,8 +10,24 @@ The input projection of both gates is one [B, T, D] x [D, 2U] product outside
 the recurrence; the recurrence carries only h . W_hh and the gate math.
 Steps past a session's end copy h through, and the stacked outputs there are
 zeroed.
+
+GRU and LSTM, the ACR text encoder's (reference acr_model.py:308-399,
+``CudnnGRU`` / ``CudnnLSTM``), run on ``torch.nn.GRU`` / ``torch.nn.LSTM``
+(cuDNN on the card), whose cells are the JAX package's ``gru_scan`` (linear
+before reset, gates r, z, n) and ``lstm_scan`` (gates i, f, g, o).  The JAX
+LSTM adds ``forget_bias`` = 1.0 to the f gate at every step; here it lives
+in ``bias_hh``'s f slice (``reset_parameters`` puts it there,
+``convert.acr_params_from_flax`` adds it to the Flax recurrent bias).
+Bidirectional stacks concatenate [fwd | bwd] per step and per final state,
+and layer l + 1 reads 2U features, as in the JAX stacks.  Every step is
+valid: the JAX stacks' all-ones mask, the only one the ACR models pass
+(cuDNN ignores lengths there).  Inter-layer dropout (``keep_prob`` < 1) and
+the decoder's ``h0`` seeding come with later slices.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -102,3 +120,79 @@ class StackedUGRNN(nn.Module):
         for layer in self.layers:
             h = layer(h, mask)
         return h * mask[..., None].to(h.dtype)
+
+
+DIRECTIONS = ("unidirectional", "bidirectional")
+
+
+class _CudnnStack(nn.Module):
+    """A stack of ``cell`` layers (``nn.GRU`` or ``nn.LSTM``) with the JAX
+    stacks' initialisation and final states."""
+
+    gates = 0
+    cell = None
+
+    def __init__(self, in_features: int, units: int, num_layers: int = 1,
+                 keep_prob: float = 1.0, direction: str = "unidirectional"):
+        super().__init__()
+        if direction not in DIRECTIONS:
+            raise ValueError(f"invalid rnn direction {direction}")
+        if keep_prob < 1.0:
+            raise NotImplementedError(
+                "inter-layer dropout (keep_prob < 1) is not ported yet: it comes "
+                "with the dropout slice")
+        self.units = units
+        self.bidirectional = direction == "bidirectional"
+        self.rnn = self.cell(in_features, units, num_layers, batch_first=True,
+                             bidirectional=self.bidirectional)
+
+    @property
+    def out_features(self) -> int:
+        return self.units * (2 if self.bidirectional else 1)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Flax's init of the JAX layers: glorot-uniform input and recurrent
+        kernels, zero biases (the LSTM's forget bias in ``bias_hh``)."""
+        with torch.no_grad():
+            for name, param in self.rnn.named_parameters():
+                if name.startswith("weight"):
+                    fan_out, fan_in = param.shape  # [gates*U, in]: the Flax sum
+                    limit = math.sqrt(6.0 / (fan_in + fan_out))
+                    param.uniform_(-limit, limit, generator=generator)
+                else:
+                    param.zero_()
+                    if name.startswith("bias_hh"):
+                        param += self.forget_bias_vector().to(param)
+
+    def forget_bias_vector(self) -> torch.Tensor:
+        return torch.zeros(self.gates * self.units)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, T, D], every step valid -> (outputs [B, T, U or 2U], final
+        states [layers, B, U or 2U])."""
+        out, last = self.rnn(x)
+        h_n = last[0] if isinstance(last, tuple) else last  # [layers*dirs, B, U]
+        finals = h_n.view(-1, 2 if self.bidirectional else 1, x.shape[0], self.units)
+        return out, torch.cat(finals.unbind(1), -1)
+
+
+class StackedGRU(_CudnnStack):
+    """Stacked cuDNN-style GRU (the JAX ``StackedGRU``; gates r, z, n, linear
+    before reset)."""
+
+    gates = 3
+    cell = nn.GRU
+
+
+class StackedLSTM(_CudnnStack):
+    """Stacked LSTM, cuDNN layout (the JAX ``StackedLSTM``; gates i, f, g, o,
+    forget bias 1.0 on f, held in ``bias_hh``)."""
+
+    gates = 4
+    cell = nn.LSTM
+    forget_bias = 1.0
+
+    def forget_bias_vector(self) -> torch.Tensor:
+        vector = torch.zeros(self.gates * self.units)
+        vector[self.units: 2 * self.units] = self.forget_bias
+        return vector

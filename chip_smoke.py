@@ -9,9 +9,12 @@ the eval step (``train.steps.eval_step``), the train step
 (``train.steps.train_step``, valid-row compaction at the bench's capacity,
 with the fused scorer's nc stash and without it) and the temporal harness
 (``train.temporal.TemporalHarness``: hour-by-hour train and eval with two
-baselines, checkpoint/resume, ``NARServer.from_checkpoint``) and the G1
+baselines, checkpoint/resume, ``NARServer.from_checkpoint``), the G1
 pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
--> ``nar_trainer_gcom``), and every hand-written kernel of those paths:
+-> ``nar_trainer_gcom``) and the Adressa chain through its CLIs
+(``cli.make_pseudo_adressa`` -> ``acr_preprocess_adressa`` ->
+``acr_trainer_adressa`` -> ``nar_preprocess_adressa`` ->
+``nar_trainer_adressa``), and every hand-written kernel of those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
    per source, started together) and reports the build time and what ptxas
@@ -65,7 +68,23 @@ pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
    bundle's and the preprocessing's seconds, the sessions of each hour,
    every train and eval hour's wall, the eval hours' phases and each
    baseline's wall and CPU seconds in the benchmark tier;
-7. holds each kernel against its plain PyTorch twin on the card: the UGRNN
+7. the Adressa chain through its CLIs, on the card: a pseudo-Adressa bundle
+   at the published shape (13,000 articles, 80 categories, a 20,000-word
+   100-dim word2vec file, 2,600 sessions an hour on average, seed 11; 11
+   hours), ``acr_preprocess_adressa``, ``acr_trainer_adressa`` (CNN, batch
+   8, one epoch), ``nar_preprocess_adressa`` (Europe/Oslo) and
+   ``nar_trainer_adressa`` over the 11 hourly files (train 0-4, evaluate 5,
+   train 5-9, evaluate 10, train 10), each with its ``scripts/run_*``
+   flags; checks each run, the ACR step losses, the ACE matrix ([13,001,
+   250], finite, row 0 the mean), the eval
+   CSV (two rows, six baselines, the device HR equal to the host suite's)
+   and that no kernel launched on either trainer; prints each CLI's wall,
+   ACR ms a step, every train and eval hour's wall, the eval hours'
+   phases, HR@5 and MRR@5 per recommender and the peak device memory; then
+   20 ACR steps at the published width on the CPU and on the card from the
+   same weights and batches, the losses and the ACE held against each
+   other (the ACR step's device busy share is profiled last, after 11);
+8. holds each kernel against its plain PyTorch twin on the card: the UGRNN
    forward at batch 1, 32 and 256 and the backward at the train shape (from
    the forward's f32 stash, against the twin that recomputes the gates; the
    stash against that recompute), the UGRNN streaming instantiations at
@@ -76,10 +95,10 @@ pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
    (``train_scorer_operands``; the recompute backward also bit for bit
    against the stash backward on the stash forward's nc), and all of them on
    random operands at the G1 shapes, a float32 shape and an odd shape;
-8. checks the served scores, one eval step and one train step against the
+9. checks the served scores, one eval step and one train step against the
    same code on the CPU, where the kernel wrappers run their plain twins, on
    a small float32 input;
-9. times each kernel, its plain twin, ``recommend``, the eval step and the
+10. times each kernel, its plain twin, ``recommend``, the eval step and the
    train step (with the stash and without) with CUDA events or a
    synchronised host clock, and breaks one request, one eval step and one
    train step with the stash and one without down by device kernel (torch
@@ -99,7 +118,7 @@ pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
    its chain launch at T 1, 4 and 19 (torch profiler, every record kept:
    a session that is not ``calls`` repeats of one launch sequence is
    profiled again, eight times at most);
-10. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
+11. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
    against ``torch.matmul`` at dpre's shape (134,400 x 1024 by 1024^T, bf16)
    and times both (its own line: it is no TPU kernel), splits one backward
    (K1b) at the train path's operands by device launch (torch profiler),
@@ -114,6 +133,7 @@ without a CUDA device it exits 1 before printing any result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import csv
 import ctypes
 import dataclasses
@@ -153,6 +173,26 @@ G1_CLI_BUNDLE = {"--num_articles": "46033", "--ace_dim": "250",
 G1_CLI_FILES = 11  # train 0-4, eval 5, train 5-9, eval 10, train 10
 G1_CLI_WORKERS = "4"  # processes of the bundle generator and the preprocessing
 G1_SCRIPT = "scripts/run_nar_train_gcom_full.sh"
+# the Adressa chain through its CLIs: a pseudo-Adressa bundle at the
+# published shape (data/pseudo_adressa.py, cli/make_pseudo_adressa.py), cut
+# to its first hours, the fewest that give two evals at
+# scripts/run_nar_train_adressa_local.sh's 5 training hours an eval; each
+# CLI with its script's flags
+ADRESSA_BUNDLE = {"--num_articles": "13000", "--sessions_per_hour": "2600",
+                  "--vocab_size": "20000", "--seed": "11"}
+ADRESSA_CLI_FILES = 11  # train 0-4, eval 5, train 5-9, eval 10, train 10
+ADRESSA_SCRIPTS = {
+    "acr_preprocess_adressa": "scripts/run_acr_preprocessing_adressa.sh",
+    "acr_trainer_adressa": "scripts/run_acr_training_adressa_local.sh",
+    "nar_preprocess_adressa": "scripts/run_nar_preprocessing_adressa.sh",
+    "nar_trainer_adressa": "scripts/run_nar_train_adressa_local.sh",
+}
+ACR_PROFILE_STEPS = 20  # ACR steps under the profiler: the device busy share
+ACR_CPU_STEPS = 20  # ACR steps on the CPU and on the card from the same weights
+# the card's ACR (f32, TF32 off) against the CPU's over ACR_CPU_STEPS steps:
+# each step's task loss (relative) and the ACE (absolute) within
+# tests/test_torch_cuda.py's tolerance
+ACR_CARD_TOL = {"loss": 1e-4, "ace": 1e-4}
 # the suffixes of the G1 trainer's six baselines (session-kNN's decay "div"
 # names it v-sknn)
 G1_BASELINES = ("pop_recent", "coocurrent", "item_knn", "v-sknn", "cb", "sr")
@@ -1094,13 +1134,11 @@ def checkpoint_phase(port, harness, source, make, corpus):
         del faulty
 
 
-def g1_script_flags():
-    """The trainer flags of ``G1_SCRIPT`` but its paths and file range."""
-    text = (ROOT / G1_SCRIPT).read_text().replace("\\\n", " ")
+def script_flags(script, dropped):
+    """The flags of ``script``'s ``python -m`` line but those in
+    ``dropped`` (its paths and file range)."""
+    text = (ROOT / script).read_text().replace("\\\n", " ")
     tokens = shlex.split(text[text.index("python -m"):].splitlines()[0])[3:]
-    dropped = {"--train_set_path_regex", "--acr_module_articles_metadata_csv_path",
-               "--acr_module_articles_content_embeddings_pickle_path", "--model_dir",
-               "--train_files_from", "--train_files_up_to"}
     flags, i = [], 0
     while i < len(tokens):
         takes_value = i + 1 < len(tokens) and not tokens[i + 1].startswith("--")
@@ -1108,6 +1146,119 @@ def g1_script_flags():
             flags += tokens[i: i + 1 + takes_value]
         i += 1 + takes_value
     return flags
+
+
+def g1_script_flags():
+    """The trainer flags of ``G1_SCRIPT`` but its paths and file range."""
+    return script_flags(G1_SCRIPT, {
+        "--train_set_path_regex", "--acr_module_articles_metadata_csv_path",
+        "--acr_module_articles_content_embeddings_pickle_path", "--model_dir",
+        "--train_files_from", "--train_files_up_to"})
+
+
+@contextlib.contextmanager
+def timed_trainer_cli(module, label):
+    """Within the block ``module.main`` (a NAR trainer CLI) runs a harness
+    that times every train and eval hour (synchronised host clock) and
+    prints each eval hour's wall, phases and each baseline's share of the
+    benchmark tier; yields ``(walls, sessions_read)``."""
+    from chameleon_recsys_tpu_torch.baselines.benchmarks import BenchmarkRecommender
+
+    walls = {"train": [], "eval": []}
+    sessions_read = []
+    # baseline -> [evaluate's wall seconds, its thread's CPU seconds]: the
+    # tier runs the baselines on a thread pool, where a wall also holds the
+    # waits for the interpreter lock and the CPU time does not
+    tier = collections.defaultdict(lambda: [0.0, 0.0])
+    tier_lock = threading.Lock()
+
+    class TimedHarness(module.TemporalHarness):
+        def train_hour(self, sessions):
+            sessions_read.append(("train", len(sessions)))
+            t0 = time.perf_counter()
+            stats = super().train_hour(sessions)
+            torch.cuda.synchronize()
+            walls["train"].append(time.perf_counter() - t0)
+            return stats
+
+        def evaluate_hour(self, sessions):
+            sessions_read.append(("eval", len(sessions)))
+            tier.clear()
+            t0 = time.perf_counter()
+            row = super().evaluate_hour(sessions)
+            torch.cuda.synchronize()
+            walls["eval"].append(time.perf_counter() - t0)
+            print(f"{label} eval hour {len(walls['eval'])}: {len(sessions)} sessions, "
+                  f"{walls['eval'][-1]:.3f} s wall; phases (s) "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in self.last_eval_phase_seconds.items())
+                  + "; benchmark tier by baseline (evaluate's wall / its thread's "
+                  "CPU s) " + ", ".join(f"{k} {w:.4f} / {c:.4f}"
+                                        for k, (w, c) in sorted(tier.items())))
+            return row
+
+    evaluate = BenchmarkRecommender.evaluate
+
+    def timed_evaluate(self, *args, **kwargs):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        try:
+            return evaluate(self, *args, **kwargs)
+        finally:
+            wall, cpu = time.perf_counter() - t0, time.thread_time() - c0
+            with tier_lock:
+                tier[self.get_clf_suffix()][0] += wall
+                tier[self.get_clf_suffix()][1] += cpu
+
+    trainer_class = module.TemporalHarness
+    module.TemporalHarness = TimedHarness
+    BenchmarkRecommender.evaluate = timed_evaluate
+    try:
+        yield walls, sessions_read
+    finally:
+        module.TemporalHarness = trainer_class
+        BenchmarkRecommender.evaluate = evaluate
+
+
+def run_trainer_cli(module, argv, label):
+    """``module.main(argv)`` on the card with the launch counters zeroed just
+    before and read just after, timed by ``timed_trainer_cli``; checks the
+    exit, that the steps ran on the card and that no kernel launched (the
+    trainer CLIs' default path is the plain one).  Returns the counts and
+    the eval CSV's rows."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    memory_before = torch.cuda.max_memory_allocated()
+    with timed_trainer_cli(module, label) as (walls, sessions_read):
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            module.main(argv)
+            rc = 0
+        except SystemExit as exit_info:  # main exits only on an error
+            rc = exit_info.code
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = launch_counts()
+    memory_peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: rc {rc}, {run_s:.3f} s wall; sessions read by hour {sessions_read}; "
+          "train hours " + ", ".join(f"{w:.3f}" for w in walls["train"])
+          + " s wall; eval hours " + ", ".join(f"{w:.3f}" for w in walls["eval"])
+          + f" s wall; peak device memory {memory_peak / 2**30:.3f} GiB "
+          f"(before {memory_before / 2**30:.3f}); kernel launches {counts}")
+    check(rc in (0, None), f"{label}: {module.__name__} exited with {rc}")
+    check(memory_peak > memory_before, f"{label}: the steps did not run on the card")
+    check(not any(counts.values()),
+          f"{label}: a kernel launched on the CLI's default (plain) path: {counts}")
+    model_dir = Path(argv[argv.index("--model_dir") + 1])
+    with open(model_dir / "eval_stats_benchmarks.csv") as f:
+        rows = list(csv.DictReader(f))
+    for i, row in enumerate(rows):
+        missing = [b for b in G1_BASELINES if f"hitrate_at_n_{b}" not in row]
+        check(not missing, f"{label}: eval row {i} lacks the columns of {missing}")
+        check(all(np.isfinite(float(v)) for v in row.values()),
+              f"{label}: eval row {i}: a column is not finite")
+        check(row["hitrate_at_n"] == row["hitrate_at_n_chameleon"],
+              f"{label}: eval row {i}: device HR != host HR")
+    return counts, rows
 
 
 def g1_cli_phase(workdir):
@@ -1121,7 +1272,6 @@ def g1_cli_phase(workdir):
     steps ran on the card; prints the walls, the eval hours' phases and each
     baseline's share of the benchmark tier.  Returns the kernel launches of
     the run (the CLI's default path takes the plain branch: none)."""
-    from chameleon_recsys_tpu_torch.baselines.benchmarks import BenchmarkRecommender
     from chameleon_recsys_tpu_torch.cli import (
         make_pseudo_g1,
         nar_preprocess_gcom,
@@ -1145,50 +1295,6 @@ def g1_cli_phase(workdir):
           + ", ".join(f"{k[2:]} {v}" for k, v in G1_CLI_BUNDLE.items())
           + f") {bundle_s:.3f} s, preprocessing {preprocess_s:.3f} s")
 
-    walls = {"train": [], "eval": []}
-    sessions_read = []
-    # baseline -> [evaluate's wall seconds, its thread's CPU seconds]: the
-    # tier runs the baselines on a thread pool, where a wall also holds the
-    # waits for the interpreter lock and the CPU time does not
-    tier = collections.defaultdict(lambda: [0.0, 0.0])
-    tier_lock = threading.Lock()
-
-    class TimedHarness(nar_trainer_gcom.TemporalHarness):
-        def train_hour(self, sessions):
-            sessions_read.append(("train", len(sessions)))
-            t0 = time.perf_counter()
-            stats = super().train_hour(sessions)
-            torch.cuda.synchronize()
-            walls["train"].append(time.perf_counter() - t0)
-            return stats
-
-        def evaluate_hour(self, sessions):
-            sessions_read.append(("eval", len(sessions)))
-            tier.clear()
-            t0 = time.perf_counter()
-            row = super().evaluate_hour(sessions)
-            torch.cuda.synchronize()
-            walls["eval"].append(time.perf_counter() - t0)
-            print(f"g1 cli eval hour {len(walls['eval'])}: {len(sessions)} sessions, "
-                  f"{walls['eval'][-1]:.3f} s wall; phases (s) "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in self.last_eval_phase_seconds.items())
-                  + "; benchmark tier by baseline (evaluate's wall / its thread's "
-                  "CPU s) " + ", ".join(f"{k} {w:.4f} / {c:.4f}"
-                                        for k, (w, c) in sorted(tier.items())))
-            return row
-
-    evaluate = BenchmarkRecommender.evaluate
-
-    def timed_evaluate(self, *args, **kwargs):
-        t0, c0 = time.perf_counter(), time.thread_time()
-        try:
-            return evaluate(self, *args, **kwargs)
-        finally:
-            wall, cpu = time.perf_counter() - t0, time.thread_time() - c0
-            with tier_lock:
-                tier[self.get_clf_suffix()][0] += wall
-                tier[self.get_clf_suffix()][1] += cpu
-
     argv = ["--train_set_path_regex", str(bundle / "sessions" / "sessions_hour_*.tfrecord.gz"),
             "--acr_module_articles_metadata_csv_path", str(bundle / "articles_metadata.csv"),
             "--acr_module_articles_content_embeddings_pickle_path",
@@ -1197,49 +1303,12 @@ def g1_cli_phase(workdir):
             *g1_script_flags(), "--save_scalars", "--save_histograms",
             "--artifact_store_root", str(store), "--sync_artifacts_to", "run"]
     print(f"g1 cli: nar_trainer_gcom {' '.join(argv[8:])}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    memory_before = torch.cuda.max_memory_allocated()
-    trainer_class = nar_trainer_gcom.TemporalHarness
-    nar_trainer_gcom.TemporalHarness = TimedHarness
-    BenchmarkRecommender.evaluate = timed_evaluate
-    zero_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        nar_trainer_gcom.main(argv)
-        rc = 0
-    except SystemExit as exit_info:  # main exits only on an error
-        rc = exit_info.code
-    finally:
-        nar_trainer_gcom.TemporalHarness = trainer_class
-        BenchmarkRecommender.evaluate = evaluate
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    counts = launch_counts()
-    memory_peak = torch.cuda.max_memory_allocated()
-    print(f"g1 cli: rc {rc}, {run_s:.3f} s wall; sessions read by hour {sessions_read}; "
-          "train hours " + ", ".join(f"{w:.3f}" for w in walls["train"])
-          + " s wall; eval hours " + ", ".join(f"{w:.3f}" for w in walls["eval"])
-          + f" s wall; peak device memory {memory_peak / 2**30:.3f} GiB "
-          f"(before {memory_before / 2**30:.3f}); kernel launches {counts}")
-    check(rc in (0, None), f"g1 cli: nar_trainer_gcom exited with {rc}")
-    check(memory_peak > memory_before, "g1 cli: the steps did not run on the card")
-    check(not any(counts.values()),
-          f"g1 cli: a kernel launched on the CLI's default (plain) path: {counts}")
-
-    with open(model_dir / "eval_stats_benchmarks.csv") as f:
-        rows = list(csv.DictReader(f))
+    counts, rows = run_trainer_cli(nar_trainer_gcom, argv, "g1 cli")
     expected_rows = (G1_CLI_FILES - 1) // 5
     check(len(rows) == expected_rows, f"g1 cli: {len(rows)} eval rows, expected "
           f"{expected_rows}")
     for i, row in enumerate(rows):
-        missing = [b for b in G1_BASELINES if f"hitrate_at_n_{b}" not in row]
-        check(not missing, f"g1 cli: eval row {i} lacks the columns of {missing}")
         values = {k: float(v) for k, v in row.items()}
-        check(all(np.isfinite(v) for v in values.values()),
-              f"g1 cli: eval row {i}: a column is not finite")
-        check(row["hitrate_at_n"] == row["hitrate_at_n_chameleon"],
-              f"g1 cli: eval row {i}: device HR != host HR")
         print(f"g1 cli eval row {i}: eval_hour {row['eval_hour']}, clicks "
               f"{row['clicks_count']}, sessions {row['sessions_count']}, "
               f"train_sessions_per_s {float(row['train_sessions_per_s']):.1f}; hitrate_at_n "
@@ -1256,6 +1325,224 @@ def g1_cli_phase(workdir):
           and unsynced == ["checkpoint.pkl"],
           "g1 cli: the synced copy differs from model_dir")
     return counts
+
+
+def acr_cpu_vs_card(articles, word_embeddings, encoders, class_weights):
+    """``ACR_CPU_STEPS`` ACR train steps at the published ACR width (CNN
+    3/4/5 x 128, ACE 250, batch 8, the pseudo-Adressa vocabulary and label
+    heads) on the CPU and on the card, from the same weights (one seed) and
+    the same batches; the card runs f32 without TF32, as the port's ACR
+    does.  Holds the per-step task losses (relative) and the ACE of the
+    articles trained on (absolute) within ``ACR_CARD_TOL``."""
+    from chameleon_recsys_tpu_torch.acr.trainer import ACRTrainer
+    from chameleon_recsys_tpu_torch.config import ACRConfig
+    from chameleon_recsys_tpu_torch.models.acr import ACRLabelSpec
+
+    class RecordingTrainer(ACRTrainer):
+        def train_step(self, batch, weights):
+            loss, task_loss = super().train_step(batch, weights)
+            self.task_losses.append(task_loss)
+            return loss, task_loss
+
+    subset = {k: v[:ACR_CPU_STEPS * 8] for k, v in articles.items()}
+    cfg = ACRConfig(text_feature_extractor="CNN", batch_size=8, training_epochs=1,
+                    learning_rate=3e-4, l2_reg_lambda=1e-5, acr_embeddings_size=250,
+                    word_embedding_size=word_embeddings.shape[1],
+                    vocab_size=word_embeddings.shape[0])
+    specs = (ACRLabelSpec("category0", len(encoders["category0"]), "multiclass"),
+             ACRLabelSpec("keywords", len(encoders["keywords"]), "multilabel"))
+    losses, aces = {}, {}
+    for device in ("cpu", "cuda"):
+        trainer = RecordingTrainer(
+            cfg, word_embeddings, specs,
+            {"category0": np.asarray(class_weights["category0"], np.float32)},
+            device=device)
+        trainer.task_losses = []
+        trainer.fit(subset)
+        losses[device] = torch.stack(trainer.task_losses).cpu().numpy()
+        aces[device] = trainer.predict_all_ace(subset)
+    loss_err = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
+    ace_err = float(np.max(np.abs(aces["cuda"] - aces["cpu"])))
+    print(f"adressa acr cpu vs card: {len(losses['cpu'])} steps at batch 8, task loss "
+          f"{losses['cpu'][0]:.5f} -> {losses['cpu'][-1]:.5f}; max relative loss "
+          f"difference {loss_err:.3e} (tolerance {ACR_CARD_TOL['loss']}), max ACE "
+          f"difference {ace_err:.3e} (tolerance {ACR_CARD_TOL['ace']})")
+    check(len(losses["cpu"]) == ACR_CPU_STEPS, "adressa acr cpu vs card: step count")
+    check(loss_err <= ACR_CARD_TOL["loss"], "adressa acr: card losses differ from the CPU's")
+    check(ace_err <= ACR_CARD_TOL["ace"], "adressa acr: card ACE differs from the CPU's")
+
+
+def adressa_cli_phase(workdir):
+    """The Adressa chain through the port's CLIs, on the card:
+    ``make_pseudo_adressa`` at the published shape (``ADRESSA_BUNDLE``,
+    ``ADRESSA_CLI_FILES`` hours), ``acr_preprocess_adressa``,
+    ``acr_trainer_adressa``, ``nar_preprocess_adressa`` and
+    ``nar_trainer_adressa`` in this process, each with its script's flags
+    (``ADRESSA_SCRIPTS``).  Checks each run, the ACR step losses (one a
+    step, finite), the ACE matrix (shape, finite, row 0 the mean), the eval
+    CSV (two rows, every baseline's columns, the device HR equal to the
+    host suite's), that the NAR steps ran on the card and that no kernel
+    launched on either trainer; then ``acr_cpu_vs_card``.  Prints each
+    CLI's wall, ACR ms a step (CUDA events over the epoch), every train and
+    eval hour's wall, the eval hours' phases, HR@5 and MRR@5 per
+    recommender and the peak device memory.  Returns the kernel launches of
+    the two trainers (none) and a function that prints the device busy
+    share of an ACR step (torch profiler over ``ACR_PROFILE_STEPS`` steps),
+    which ``main`` calls after its other profiles.  The ACR train-set
+    accuracy is printed, not checked: at the script's flags (one epoch at
+    batch 8, lr 3e-4, class-balanced weights) the JAX package's ACR too
+    ends near chance on the pseudo-Adressa corpus."""
+    import zoneinfo
+
+    from chameleon_recsys_tpu_torch.cli import (
+        acr_preprocess_adressa,
+        acr_trainer_adressa,
+        make_pseudo_adressa,
+        nar_preprocess_adressa,
+        nar_trainer_adressa,
+    )
+
+    bundle, acr, model_dir = (workdir / d for d in ("bundle", "acr", "model"))
+    sessions = workdir / "sessions" / "sessions_hour_*.tfrecord.gz"
+    ace_path, resources = workdir / "acr_articles_metadata_embeddings.pickle", \
+        workdir / "nar_preprocessing_resources.pickle"
+    paths = {"--input_articles_json_path", "--input_word_embeddings_path", "--output_dir",
+             "--train_set_path_regex", "--input_word_vocab_embeddings_path",
+             "--input_label_encoders_path", "--output_acr_metadata_embeddings_path",
+             "--input_clicks_json_path", "--output_sessions_tfrecords_path",
+             "--output_nar_preprocessing_resources_path", "--acr_module_resources_path",
+             "--nar_module_preprocessing_resources_path", "--model_dir"}
+    flags = {name: script_flags(script, paths) for name, script in ADRESSA_SCRIPTS.items()}
+    walls = {}
+
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    timed("make_pseudo_adressa", make_pseudo_adressa.main,
+          ["--output_dir", str(bundle), "--hours", str(ADRESSA_CLI_FILES), "--quiet"]
+          + [v for kv in ADRESSA_BUNDLE.items() for v in kv])
+    timed("acr_preprocess_adressa", acr_preprocess_adressa.main, [
+        "--input_articles_json_path", str(bundle / "articles.jsonl"),
+        "--input_word_embeddings_path", str(bundle / "w2v.txt"),
+        "--output_dir", str(acr), *flags["acr_preprocess_adressa"]])
+
+    # the ACR trainer: timed by CUDA events over its epoch, its step losses
+    # (device scalars, fetched after the run) and its instance kept
+    record = {"step_losses": []}
+
+    class TimedACRTrainer(acr_trainer_adressa.ACRTrainer):
+        def train_step(self, batch, weights):
+            loss, task_loss = super().train_step(batch, weights)
+            record["step_losses"].append(task_loss)
+            return loss, task_loss
+
+        def fit(self, articles):
+            record.update(trainer=self, articles=articles)
+            steps = -(-len(articles["article_id"]) // self.cfg.batch_size)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            losses = super().fit(articles)
+            end.record()
+            torch.cuda.synchronize()
+            record.update(steps=steps * self.cfg.training_epochs, losses=losses,
+                          fit_ms=start.elapsed_time(end))
+            return losses
+
+        def evaluate(self, articles):
+            record["metrics"] = super().evaluate(articles)
+            return record["metrics"]
+
+    acr_argv = ["--train_set_path_regex", str(acr / "articles_tokenized_*.tfrecord.gz"),
+                "--input_word_vocab_embeddings_path",
+                str(acr / "acr_word_vocab_embeddings.pickle"),
+                "--input_label_encoders_path", str(acr / "acr_label_encoders.pickle"),
+                "--output_acr_metadata_embeddings_path", str(ace_path),
+                *flags["acr_trainer_adressa"]]
+    print(f"adressa cli: acr_trainer_adressa {' '.join(acr_argv[8:])}")
+    trainer_class = acr_trainer_adressa.ACRTrainer
+    acr_trainer_adressa.ACRTrainer = TimedACRTrainer
+    zero_launch_counts()
+    try:
+        timed("acr_trainer_adressa", acr_trainer_adressa.main, acr_argv)
+    finally:
+        acr_trainer_adressa.ACRTrainer = trainer_class
+    acr_counts = launch_counts()
+    trainer, articles = record["trainer"], record["articles"]
+    encoders, _, ace = pickle_load(ace_path)
+    n_articles = int(ADRESSA_BUNDLE["--num_articles"])
+    row0_err = float(np.max(np.abs(ace[0] - ace[1:].mean(axis=0))))
+    step_losses = torch.stack(record["step_losses"]).cpu().numpy()
+    first, last = (float(step_losses[i].mean()) for i in (slice(0, 100), slice(-100, None)))
+    chance = 1.0 / (len(encoders["category0"]) - 2)  # less <PAD> and <UNF>
+    print(f"adressa cli: ACR {record['steps']} steps at batch {trainer.cfg.batch_size}, "
+          f"{record['fit_ms'] / record['steps']:.3f} ms a step (CUDA events over the "
+          f"epoch), task loss over the first / last 100 steps {first:.4f} / {last:.4f}, "
+          f"epoch {record['losses'][-1]:.5f}; train-set metrics {record['metrics']} "
+          f"(category0 chance {chance:.4f}); ACE matrix {list(ace.shape)} {ace.dtype}, "
+          f"row 0 - mean of rows 1.. max {row0_err:.2e}; kernel launches {acr_counts}")
+    check(len(step_losses) == record["steps"] and np.isfinite(step_losses).all(),
+          "adressa cli: ACR step losses")
+    check(ace.shape == (n_articles + 1, 250) and np.isfinite(ace).all(),
+          f"adressa cli: ACE matrix {ace.shape}")
+    check(row0_err <= 1e-6, "adressa cli: ACE row 0 is not the mean embedding")
+    check(not any(acr_counts.values()), f"adressa cli: a kernel launched in ACR: "
+          f"{acr_counts}")
+    # the device's busy share of ACR steps (TF32 is off in this script, as
+    # in the trainer's steps): one batch, timed, then profiled; run by main
+    # after the other profiles (a profiler session this early left later
+    # sessions short of their first launches)
+    batch = {k: torch.as_tensor(v[:8], device="cuda") for k, v in articles.items()}
+    weights = torch.ones(8, device="cuda")
+
+    def profile_acr_step():
+        host_ms = cuda_ms(lambda: trainer.train_step(batch, weights), ACR_PROFILE_STEPS)
+        device_profile("adressa acr train step (batch 8, CNN)",
+                       lambda: trainer.train_step(batch, weights), ACR_PROFILE_STEPS,
+                       host_ms)
+
+    zoneinfo.ZoneInfo("Europe/Oslo")  # raises where the tz database lacks it
+    timed("nar_preprocess_adressa", nar_preprocess_adressa.main, [
+        "--input_clicks_json_path", str(bundle / "clicks.jsonl"),
+        "--output_sessions_tfrecords_path", str(sessions),
+        "--output_nar_preprocessing_resources_path", str(resources),
+        *flags["nar_preprocess_adressa"]])
+    nar_argv = ["--train_set_path_regex", str(sessions),
+                "--acr_module_resources_path", str(ace_path),
+                "--nar_module_preprocessing_resources_path", str(resources),
+                "--model_dir", str(model_dir), *flags["nar_trainer_adressa"],
+                "--save_scalars"]
+    print(f"adressa cli: nar_trainer_adressa {' '.join(nar_argv[8:])}; Europe/Oslo in "
+          "the tz database")
+    t0 = time.perf_counter()
+    nar_counts, rows = run_trainer_cli(nar_trainer_adressa, nar_argv, "adressa cli")
+    walls["nar_trainer_adressa"] = time.perf_counter() - t0
+    n_files = len(list(sessions.parent.iterdir()))
+    expected_rows = (n_files - 1) // 5
+    check(n_files == ADRESSA_CLI_FILES and len(rows) == expected_rows,
+          f"adressa cli: {n_files} hour files, {len(rows)} eval rows")
+    for i, row in enumerate(rows):
+        values = {k: float(v) for k, v in row.items()}
+        print(f"adressa cli eval row {i}: eval_hour {row['eval_hour']}, clicks "
+              f"{row['clicks_count']}, sessions {row['sessions_count']}; HR@5 / MRR@5 "
+              + ", ".join(f"{b} {values[f'hitrate_at_n_{b}']:.4f} / "
+                          f"{values[f'mrr_at_n_{b}']:.4f}"
+                          for b in ("chameleon",) + G1_BASELINES))
+    print("adressa cli walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    acr_cpu_vs_card(articles, trainer.model.word_embeddings.cpu().numpy(), encoders,
+                    pickle_load(acr / "acr_label_encoders.pickle")["class_weights"])
+    return {k: acr_counts[k] + nar_counts[k] for k in nar_counts}, profile_acr_step
+
+
+def pickle_load(path):
+    import pickle
+
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def train_cpu_vs_card(port, corpus_fn):
@@ -1601,15 +1888,18 @@ def main() -> int:
     # ---- 6. the G1 pipeline through its CLIs, on the card ----
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
         cli_counts = g1_cli_phase(Path(workdir))
+    # ---- 7. the Adressa chain through its CLIs, on the card ----
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
+        adressa_counts, profile_acr_step = adressa_cli_phase(Path(workdir))
     paths = (serve_counts, eval_counts, train_counts, recompute_counts, harness_counts,
-             cli_counts)
+             cli_counts, adressa_counts)
     main_launches = {k: sum(path.get(k, 0) for path in paths)
                      for k in KERNEL_NAMES + UGRNN_INSTANTIATIONS}
     print(f"launches over the counted paths: {main_launches}")
     check(main_launches["ugrnn_fwd_stream"] == main_launches["ugrnn_bwd_stream"] == 0,
           "a G1 path ran a streaming UGRNN kernel")
 
-    # ---- 7. each kernel against its plain twin ----
+    # ---- 8. each kernel against its plain twin ----
     serve_mask = captured[max(SERVE_BATCHES)]
     g = torch.Generator().manual_seed(1)
     lengths = torch.randint(1, serve_mask.shape[1] + 1, (256,), generator=g)
@@ -1745,7 +2035,7 @@ def main() -> int:
                 name, operands, g_case, tol)
     del train_cases
 
-    # ---- 8. served scores, an eval and a train step against the CPU ----
+    # ---- 9. served scores, an eval and a train step against the CPU ----
     tcfg, tsess, tart = tiny_setup(port)
     tcorpus = make_synthetic_corpus(tart, ace_dim=8)
     tsessions = synthetic_hour_sessions(tcorpus, tsess, 0, 24, tcfg.max_session_length)
@@ -1773,7 +2063,7 @@ def main() -> int:
     eval_cpu_vs_card(port, make_synthetic_corpus)
     train_cpu_vs_card(port, make_synthetic_corpus)
 
-    # ---- 9. times ----
+    # ---- 10. times ----
     # K2f at serving batches 1 and 32 and the train batch 256, with the
     # training outputs (states and stash) and without, beside the chain
     # floor and the launch's clusters; then at T 1, 4 and 19 (the slope is a
@@ -2036,6 +2326,8 @@ def main() -> int:
     print("ugrnn_bwd chain launch [256,T,510] bf16 by step count (torch profiler): "
           + ", ".join(f"T {t} {us / 1e3:.4f} ms" for t, us in chain.items())
           + f"; {(chain[19] - chain[1]) / 18:.2f} us a step")
+
+    profile_acr_step()  # the Adressa phase's ACR step, after every other profile
 
     print(json.dumps({"kernels": [
         {

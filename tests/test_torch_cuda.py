@@ -53,6 +53,8 @@ from chameleon_recsys_tpu_torch.train.steps import (
     train_step,
 )
 
+from test_adressa_cli import raw  # noqa: F401  (the tiny raw fixture; no JAX)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -718,3 +720,206 @@ def test_steps_at_a_bf16_c_past_1280_launch_the_kernels_on_card(card):
                                     train=True)
     assert gpu[4] == [1, 1, 1, 0]
     _assert_steps_match(cpu, gpu, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# ACR and the Adressa chain: the card against the CPU.  The port's ACR runs
+# float32 with TF32 off (its trainer turns both TF32 flags off around its
+# steps), so the card computes the CPU's f32 sums in another order: the
+# ACE of the initial weights within 1e-5, one step's gradients within 2e-5
+# of each parameter's norm (cuDNN's f32 LSTM backward is the noisiest, some
+# 10x torch's own CUDA LSTM) and each of 20 steps' task losses within 1e-4
+# relative.  After those 20 Adam steps (lr 1e-3) the ACE agrees within 1e-4
+# for the CNN and the GRU (chip_smoke.py's ACR_CARD_TOL for the published
+# CNN) and within 1e-3 for the unidirectional LSTM: Adam's normalised step
+# turns the gradient noise of near-zero elements into lr-sized moves, and
+# cuDNN's LSTM backward gives it the most noise.  scripts/card_cpu_drift.py
+# prints each of these readings on the card (PERF.md, PR 9, has them).
+# ---------------------------------------------------------------------------
+
+ACR_CARD_TOL = {"loss": 1e-4, "ace": 1e-4}
+ACR_FORWARD_TOL = 1e-5  # the ACE at the same weights
+ACR_GRAD_TOL = 2e-5  # one step's gradients, normwise
+ACR_LSTM_FIT_ACE_TOL = 1e-3
+
+
+def _acr_corpus(seed=0, n=160, vocab=300, dim=32, length=40):
+    rng = np.random.RandomState(seed)
+    word_emb = (rng.randn(vocab, dim) * 0.3).astype(np.float32)
+    lengths = rng.randint(8, length + 1, n)
+    text = np.where(np.arange(length)[None] < lengths[:, None],
+                    rng.randint(2, vocab, (n, length)), 0).astype(np.int32)
+    articles = {"article_id": np.arange(1, n + 1), "text": text,
+                "text_length": lengths.astype(np.int32),
+                "category0": rng.randint(1, 12, n), "keywords": rng.randint(0, 20, (n, 4))}
+    return word_emb, articles, {"category0": (rng.rand(12) + 0.5).astype(np.float32)}
+
+
+@pytest.mark.parametrize("extractor,direction", [
+    ("CNN", "unidirectional"), ("GRU", "bidirectional"), ("LSTM", "unidirectional")])
+def test_acr_train_steps_on_card_match_cpu(card, extractor, direction):
+    from chameleon_recsys_tpu_torch.acr.trainer import ACRTrainer
+    from chameleon_recsys_tpu_torch.config import ACRConfig
+    from chameleon_recsys_tpu_torch.models.acr import ACRLabelSpec
+
+    class RecordingTrainer(ACRTrainer):
+        def train_step(self, batch, weights):
+            loss, task_loss = super().train_step(batch, weights)
+            if not self.task_losses:  # the first step's gradients
+                self.grads = {n: p.grad.detach().cpu()
+                              for n, p in self.model.named_parameters()}
+            self.task_losses.append(task_loss)
+            return loss, task_loss
+
+    word_emb, articles, class_weights = _acr_corpus()
+    cfg = ACRConfig(text_feature_extractor=extractor, rnn_direction=direction,
+                    word_embedding_size=32, vocab_size=300, truncate_tokens_length=40,
+                    acr_embeddings_size=24, rnn_units=16, batch_size=8, training_epochs=1,
+                    learning_rate=1e-3, l2_reg_lambda=1e-5)
+    specs = (ACRLabelSpec("category0", 12, "multiclass"),
+             ACRLabelSpec("keywords", 20, "multilabel"))
+    torch.backends.cudnn.allow_tf32 = True  # the trainer turns it off for its steps
+    runs = {}
+    for device in ("cpu", card):
+        trainer = RecordingTrainer(cfg, word_emb, specs, class_weights, device=device)
+        trainer.task_losses = []
+        initial_ace = trainer.predict_all_ace(articles)
+        trainer.fit(articles)
+        runs[str(device)] = (initial_ace, trainer.grads,
+                             torch.stack(trainer.task_losses).cpu().numpy(),
+                             trainer.predict_all_ace(articles))
+    assert torch.backends.cudnn.allow_tf32  # restored after the steps
+    (cpu_ace0, cpu_grads, cpu_losses, cpu_ace), (gpu_ace0, gpu_grads, gpu_losses, gpu_ace) = (
+        runs["cpu"], runs[str(card)])
+    np.testing.assert_allclose(gpu_ace0, cpu_ace0, rtol=0, atol=ACR_FORWARD_TOL)
+    for name, g in cpu_grads.items():
+        assert (gpu_grads[name] - g).norm() <= ACR_GRAD_TOL * g.norm(), name
+    assert len(cpu_losses) == len(gpu_losses) == 20
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=ACR_CARD_TOL["loss"], atol=0)
+    fit_tol = ACR_LSTM_FIT_ACE_TOL if extractor == "LSTM" else ACR_CARD_TOL["ace"]
+    np.testing.assert_allclose(gpu_ace, cpu_ace, rtol=0, atol=fit_tol)
+
+
+# The Adressa NAR trainer on the card against the CPU, 3 hours of Adam
+# steps from the same weights and draws: the pooled gather's backward sums
+# with atomics on the card (ROADMAP section 3) and Adam turns f32 noise of
+# near-zero gradients into lr-sized moves, so the recommended items'
+# probabilities part where the ranked ids agree, the more the more steps
+# (scripts/card_cpu_drift.py reads it on a longer stream): over this
+# fixture's three short hours two candidates whose CPU probabilities lie
+# within 1e-3 are a near tie either side may rank first.
+NAR_PROB_TOL = 1e-3
+
+
+def _near_tie_swaps(card_log, cpu_log, gap=NAR_PROB_TOL):
+    """Ranked positions where the two recommendation logs differ (each must
+    sit in a near tie of the CPU's probabilities, and the probabilities of
+    steps ranked alike within ``gap``); returns their count."""
+    swaps = 0
+    for card_rec, cpu_rec in zip(card_log, cpu_log):
+        assert card_rec["session_id"] == cpu_rec["session_id"]
+        for c_ids, p_ids, c_probs, p_probs in zip(
+                card_rec["predicted_item_ids"], cpu_rec["predicted_item_ids"],
+                card_rec["predicted_item_probs"], cpu_rec["predicted_item_probs"]):
+            differ = np.flatnonzero(np.asarray(c_ids) != np.asarray(p_ids))
+            if not differ.size:
+                assert np.max(np.abs(np.subtract(c_probs, p_probs))) <= gap
+            for pos in differ:
+                assert any(abs(p_probs[pos] - p_probs[q]) <= gap
+                           for q in (pos - 1, pos + 1) if 0 <= q < len(p_probs)), (
+                    card_rec["session_id"], c_ids, c_probs, p_ids, p_probs)
+                swaps += 1
+    return swaps
+
+
+def test_adressa_chain_on_card_matches_cpu(card, raw, tmp_path, monkeypatch):
+    """The port's Adressa CLIs over the tiny raw fixture of
+    ``tests/test_adressa_cli.py``: ``acr_trainer_adressa`` on the card and
+    on the CPU export ACEs within ``ACR_CARD_TOL["ace"]``;
+    ``nar_trainer_adressa`` (float32) on the card and on the CPU, from the
+    same ACE pickle and with the same sampler uniforms (numpy, one stream
+    across the steps), give the same eval rows: the baseline columns equal,
+    CHAMELEON's within 1e-6 (widened by one label's share per near tie
+    ranked the other way, ``NAR_PROB_TOL``), no kernel launched."""
+    import csv
+    import json
+    import pickle
+
+    from chameleon_recsys_tpu_torch.cli import (
+        acr_preprocess_adressa,
+        acr_trainer_adressa,
+        nar_preprocess_adressa,
+        nar_trainer_adressa,
+    )
+    from chameleon_recsys_tpu_torch.train import steps, temporal
+
+    raw_dir, _ = raw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    acr_preprocess_adressa.main([
+        "--input_articles_json_path", str(raw_dir / "articles.jsonl"),
+        "--input_word_embeddings_path", str(raw_dir / "w2v.txt"),
+        "--output_dir", str(tmp_path / "acr"), "--truncate_tokens_length", "12",
+        "--min_label_freq", "1"])
+    aces = {}
+    for platform in ("cpu", "cuda"):
+        acr_trainer_adressa.main([
+            "--train_set_path_regex", str(tmp_path / "acr" / "articles_tokenized_*.tfrecord.gz"),
+            "--input_word_vocab_embeddings_path",
+            str(tmp_path / "acr" / "acr_word_vocab_embeddings.pickle"),
+            "--input_label_encoders_path", str(tmp_path / "acr" / "acr_label_encoders.pickle"),
+            "--output_acr_metadata_embeddings_path", str(tmp_path / f"ace_{platform}.pickle"),
+            "--text_feature_extractor", "CNN", "--acr_embeddings_size", "8",
+            "--batch_size", "8", "--training_epochs", "2", "--learning_rate", "3e-3",
+            "--truncate_tokens_length", "12", "--platform", platform])
+        aces[platform] = pickle.loads((tmp_path / f"ace_{platform}.pickle").read_bytes())[2]
+    np.testing.assert_allclose(aces["cuda"], aces["cpu"], rtol=0, atol=ACR_CARD_TOL["ace"])
+
+    nar_preprocess_adressa.main([
+        "--input_clicks_json_path", str(raw_dir / "clicks.jsonl"),
+        "--output_sessions_tfrecords_path", str(tmp_path / "s" / "sessions_hour_*.tfrecord.gz"),
+        "--output_nar_preprocessing_resources_path", str(tmp_path / "resources.pickle")])
+    b, length, buffer, factor = 8, 6, 64, 20
+    rows = {}
+    for platform in ("cpu", "cuda"):
+        rng = np.random.RandomState(5)
+
+        def draw(negatives, from_buffer, device):
+            nc = min(negatives * factor, b * length + from_buffer)
+            return SamplerUniforms(*(
+                torch.from_numpy(rng.uniform(size=shape).astype(np.float32)).to(device)
+                for shape in ((buffer,), (b * length + from_buffer,), (b, length, nc))))
+
+        monkeypatch.setattr(temporal, "train_step", lambda state, batch, ace, meta: (
+            steps.train_step(state, batch, ace, meta, uniforms=draw(3, 16, ace.device))))
+        monkeypatch.setattr(temporal, "eval_step", lambda model, stream, batch, ace, meta,
+                            **kw: steps.eval_step(model, stream, batch, ace, meta,
+                                                  uniforms=draw(3, 16, ace.device), **kw))
+        before = (cand_scorer.launches, ugrnn.launches)
+        model_dir = tmp_path / f"model_{platform}"
+        nar_trainer_adressa.main([
+            "--train_set_path_regex", str(tmp_path / "s" / "sessions_hour_*.tfrecord.gz"),
+            "--acr_module_resources_path", str(tmp_path / "ace_cpu.pickle"),
+            "--nar_module_preprocessing_resources_path", str(tmp_path / "resources.pickle"),
+            "--model_dir", str(model_dir), "--training_hours_for_each_eval", "1",
+            "--batch_size", str(b), "--truncate_session_length", str(length),
+            "--CAR_embedding_size", "16", "--rnn_units", "10",
+            "--train_total_negative_samples", "3", "--train_negative_samples_from_buffer", "16",
+            "--eval_total_negative_samples", "3", "--eval_negative_samples_from_buffer", "16",
+            "--eval_metrics_top_n", "3", "--recent_clicks_buffer_max_size", str(buffer),
+            "--recent_clicks_for_normalization", "32", "--compute_dtype", "float32",
+            "--save_eval_sessions_recommendations", "--platform", platform])
+        assert (cand_scorer.launches, ugrnn.launches) == before  # the plain branch
+        with open(model_dir / "eval_stats_benchmarks.csv") as f:
+            rows[platform] = list(csv.DictReader(f))
+        rows[platform + "_log"] = [json.loads(line) for line in (
+            model_dir / "eval_chameleon_recommendations_log.json").read_text().splitlines()]
+    assert len(rows["cpu"]) == len(rows["cuda"]) == 2
+    swaps = _near_tie_swaps(rows["cuda_log"], rows["cpu_log"])
+    for gpu_row, cpu_row in zip(rows["cuda"], rows["cpu"]):
+        assert list(gpu_row) == list(cpu_row)
+        tol = 1e-6 + swaps / int(cpu_row["clicks_count"])
+        for key, value in cpu_row.items():
+            if key.endswith("_chameleon") or key in ("hitrate_at_n", "mrr_at_n"):
+                assert float(gpu_row[key]) == pytest.approx(float(value), abs=tol), key
+            elif not key.endswith(("elapsed_s", "per_s")):
+                assert gpu_row[key] == value, key

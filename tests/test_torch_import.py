@@ -38,6 +38,21 @@ import chameleon_recsys_tpu_torch.data.preprocessing
 import chameleon_recsys_tpu_torch.cli.make_pseudo_g1
 import chameleon_recsys_tpu_torch.cli.nar_preprocess_gcom
 import chameleon_recsys_tpu_torch.cli.nar_trainer_gcom
+import chameleon_recsys_tpu_torch.acr
+import chameleon_recsys_tpu_torch.acr.trainer
+import chameleon_recsys_tpu_torch.models.acr
+import chameleon_recsys_tpu_torch.ops.rnn
+import chameleon_recsys_tpu_torch.data.pseudo_adressa
+import chameleon_recsys_tpu_torch.data.preprocessing.tokenization
+import chameleon_recsys_tpu_torch.data.preprocessing.word_embeddings
+import chameleon_recsys_tpu_torch.data.preprocessing.sessionization
+import chameleon_recsys_tpu_torch.data.preprocessing.user_agent
+import chameleon_recsys_tpu_torch.cli.make_pseudo_adressa
+import chameleon_recsys_tpu_torch.cli.acr_preprocess_gcom
+import chameleon_recsys_tpu_torch.cli.acr_preprocess_adressa
+import chameleon_recsys_tpu_torch.cli.acr_trainer_adressa
+import chameleon_recsys_tpu_torch.cli.nar_preprocess_adressa
+import chameleon_recsys_tpu_torch.cli.nar_trainer_adressa
 loaded = [m for m in sys.modules
           if m == "chameleon_recsys_tpu" or m.startswith("chameleon_recsys_tpu.")]
 jax = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
