@@ -19,10 +19,15 @@ the host metric suite, the six classical baselines, the scalar and
 histogram writers, an artifact store and checkpoint/resume) and the G1
 pipeline through its CLIs (``cli.make_pseudo_g1``,
 ``cli.nar_preprocess_gcom``, ``cli.nar_trainer_gcom``, on the session
-TFRecord IO of ``data/``), with
-the UGRNN forward and backward (``ops/kernels/ugrnn.py``) and the fused
-candidate scorer's forward, stash forward, stash backward and recompute
-backward (``ops/kernels/cand_scorer.py``) as CUDA kernels.
+TFRecord IO of ``data/``), the ACR module with the Adressa chain through
+its CLIs, dropout (``ops/dropout.py``) and the dense train path it takes,
+the G1 hyperparameter sweep (``train.sweep``, ``cli.nar_hypertuning_gcom``),
+the G1 ACR chain with the denoising autoencoder (``cli.acr_preprocess_gcom``,
+``cli.acr_trainer_gcom``) and the unsupervised ACE baselines
+(``acr.ace_baselines``, ``cli.ace_baselines_cli``), with the UGRNN forward
+and backward (``ops/kernels/ugrnn.py``) and the fused candidate scorer's
+forward, stash forward, stash backward and recompute backward
+(``ops/kernels/cand_scorer.py``) as CUDA kernels.
 """
 from .config import (
     ArticleFeaturesSchema,

@@ -1,10 +1,11 @@
 """ACR training driver: train the ACE side task, export the ACE matrix
-(port of ``chameleon_recsys_tpu/acr/trainer.py``, the classifier task).
+(port of ``chameleon_recsys_tpu/acr/trainer.py``).
 
 Re-creation of the reference ACR trainers
 (acr_module/acr/acr_trainer_gcom.py:1-352, acr_trainer_adressa.py:1-408):
 
-  * train N epochs on the article corpus (metadata classification);
+  * train N epochs on the article corpus (metadata classification, or the
+    denoising autoencoder);
   * evaluate on the train set: "the objective is to overfit"
     (acr_trainer_adressa.py:368-375);
   * predict an ACE for every article, sorted by article id;
@@ -16,12 +17,15 @@ Re-creation of the reference ACR trainers
 As the JAX trainer: Adam (optax's defaults, eps 1e-8), the L2 term
 (``l2_reg_lambda`` times half the squared sum of every non-bias parameter)
 inside the loss, the tail batch padded with row 0 at weight 0, one
-``RandomState(0)`` shuffling every epoch.  The corpus moves to the device
-once; a step indexes it there, and the losses stay on the device until the
-epoch's end (one fetch an epoch).  The steps run in float32 with TF32 off
+``RandomState(0)`` shuffling every epoch; for the autoencoder the decoder's
+special token drawn from ``RandomState(seed)`` and optax's
+``clip_by_global_norm(5.0)`` before Adam (``_clip_by_global_norm``).  The
+dropout masks and the autoencoder's noise come from ``self.generator``
+(seeded with ``seed``).  The corpus moves to the device once; a step
+indexes it there, and the losses stay on the device until the epoch's end
+(one fetch an epoch).  The steps run in float32 with TF32 off
 (``torch.backends.cudnn.allow_tf32`` and ``cuda.matmul.allow_tf32``), as
-the JAX package's f32 ACR computes.  The autoencoder task comes with the G1
-ACR slice.
+the JAX package's f32 ACR computes.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from ..config import ACRConfig
-from ..models.acr import ACRClassifierModel, ACRLabelSpec
+from ..models.acr import ACRAutoencoderModel, ACRClassifierModel, ACRLabelSpec
 from ..utils.io import deserialize, serialize
 
 log = logging.getLogger("chameleon_tpu.acr")
@@ -50,6 +54,18 @@ def _epoch_plan(n: int, batch_size: int, shuffle_rng=None) -> Tuple[np.ndarray, 
     pad = -n % batch_size
     weights = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
     return np.concatenate([rows, np.zeros(pad, rows.dtype)]), weights
+
+
+def _clip_by_global_norm(params, max_norm: float) -> None:
+    """optax's ``clip_by_global_norm`` on the gradients of ``params``, in
+    place: where the global norm is at least ``max_norm`` every gradient
+    becomes ``g / norm * max_norm`` (no epsilon, unlike
+    ``torch.nn.utils.clip_grad_norm_``)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    clip = norm >= max_norm
+    for g in grads:
+        g.copy_(torch.where(clip, g / norm * max_norm, g))
 
 
 @contextlib.contextmanager
@@ -81,16 +97,24 @@ class ACRTrainer:
         seed: int = 42,
         device="cuda",
     ):
-        if cfg.training_task == "autoencoder":
-            raise NotImplementedError(
-                "the ACR autoencoder task is not ported yet: it comes with the "
-                "G1 ACR slice")
         self.cfg = cfg
         self.device = torch.device(device)
         self.label_specs = tuple(label_specs)
-        self.model = ACRClassifierModel(cfg, self.label_specs, word_embeddings)
+        self.autoencoder = cfg.training_task == "autoencoder"
+        if self.autoencoder:
+            self.model = ACRAutoencoderModel(cfg, word_embeddings)
+            # the decoder's seed token ~ U(-0.04, 0.04)
+            # (acr_trainer_adressa.py:338-339)
+            self.special_token_embedding = torch.as_tensor(
+                np.random.RandomState(seed).uniform(
+                    -0.04, 0.04, size=(1, cfg.word_embedding_size)),
+                dtype=torch.float32, device=self.device)
+        else:
+            self.model = ACRClassifierModel(cfg, self.label_specs, word_embeddings)
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
+        # dropout masks and the autoencoder's noise
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.label_class_weights = (
             {k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
              for k, v in label_class_weights.items()}
@@ -111,16 +135,28 @@ class ACRTrainer:
                     torch.zeros((), device=self.device))
         return self.cfg.l2_reg_lambda * total
 
+    def _task_loss(self, batch, weights) -> torch.Tensor:
+        if self.autoencoder:
+            return self.model(batch["text"], self.special_token_embedding, weights,
+                              train=True, generator=self.generator)[2]
+        return self.model(batch["text"], self._labels(batch), self.label_class_weights,
+                          example_weights=weights, train=True,
+                          generator=self.generator).loss
+
     def train_step(self, batch: Dict[str, torch.Tensor], weights: torch.Tensor):
-        """One Adam step on a device batch; returns (loss, task loss) as
-        device scalars."""
-        out = self.model(batch["text"], self._labels(batch), self.label_class_weights,
-                         example_weights=weights)
-        loss = out.loss + self._l2()
+        """One Adam step on a device batch (the autoencoder's gradients
+        clipped to a global norm of 5 first, acr_model.py:519); returns
+        (loss, task loss) as device scalars.  The model is put in training
+        mode: cuDNN's RNN backward runs only there."""
+        self.model.train()
+        task_loss = self._task_loss(batch, weights)
+        loss = task_loss + self._l2()
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.autoencoder:
+            _clip_by_global_norm(self.model.parameters(), 5.0)
         self.optimizer.step()
-        return loss.detach(), out.loss.detach()
+        return loss.detach(), task_loss.detach()
 
     def _device_columns(self, articles: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.asarray(v), device=self.device)
@@ -142,7 +178,6 @@ class ACRTrainer:
         n = len(articles["article_id"])
         columns = self._device_columns(articles)
         epoch_losses = []
-        self.model.train()
         with _full_f32():
             for epoch in range(cfg.training_epochs):
                 plan = _epoch_plan(n, cfg.batch_size, shuffle_rng)
@@ -162,6 +197,10 @@ class ACRTrainer:
         self.model.eval()
         with torch.no_grad(), _full_f32():
             for batch, weights in self._device_batches(columns, plan):
+                if self.autoencoder:
+                    ace = self.model(batch["text"], self.special_token_embedding)[0]
+                    yield batch, ace, {}, weights
+                    continue
                 out = self.model(batch["text"])
                 yield batch, out.ace, out.label_logits, weights
 
@@ -170,7 +209,7 @@ class ACRTrainer:
         reference's deliberate-overfit check (acr_trainer_adressa.py:368-375):
         accuracy for multiclass heads, precision/recall for multilabel
         (acr_model.py:240-268).  Counts stay on the device to the end."""
-        if not self.label_specs:
+        if self.autoencoder or not self.label_specs:
             return {}
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         stats = {s.name: {"correct": zero, "total": zero, "tp": zero,

@@ -11,12 +11,12 @@ negatives, top-5: scripts/run_nar_train_adressa_local.sh:9-40).
 
 ``--platform`` picks the device as ``nar_trainer_gcom``'s does.  The flags
 of features not ported yet (``--data_parallelism``,
-``--model_parallelism`` > 1, ``--dropout_keep_prob`` < 1) exit at parse
-time, before any file is read.  Where the JAX model would read an id past
-its table (a NaN row from Flax's ``Embed``), this CLI stops on the host
-with the feature, the id and the table's size: every metadata column is
-checked when the schema is built, every hour's context ids when the hour
-is read.
+``--model_parallelism`` > 1) exit at parse time, before any file is read;
+``--dropout_keep_prob`` < 1 trains on the dense path with dropout.  Where
+the JAX model would read an id past its table (a NaN row from Flax's
+``Embed``), this CLI stops on the host with the feature, the id and the
+table's size: every metadata column is checked when the schema is built,
+every hour's context ids when the hour is read.
 
 Usage (mirrors run_nar_train_adressa_local.sh):
   python -m chameleon_recsys_tpu_torch.cli.nar_trainer_adressa \
@@ -118,8 +118,6 @@ def create_args_parser():
 _NOT_PORTED = {
     "--data_parallelism": (lambda a: a.data_parallelism != 0, "multi-GPU"),
     "--model_parallelism": (lambda a: a.model_parallelism > 1, "multi-GPU"),
-    "--dropout_keep_prob": (lambda a: a.dropout_keep_prob < 1.0,
-                            "dropout and dense grid path"),
 }
 
 

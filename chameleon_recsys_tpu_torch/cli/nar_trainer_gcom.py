@@ -10,8 +10,9 @@ flags, their names and defaults are the JAX CLI's.
 ``cpu`` the CPU.  Without a card and without ``--platform cpu`` the CLI
 exits with an error; it never carries on on the CPU.  The flags of features
 not ported yet (``--data_parallelism``, ``--model_parallelism`` > 1,
-``--use_native_loader``, ``--dropout_keep_prob`` < 1) exit at parse time,
-before any file is read, naming the slice they wait for.
+``--use_native_loader``) exit at parse time, before any file is read,
+naming the slice they wait for.  ``--dropout_keep_prob`` < 1 trains on the
+dense path with dropout, as the JAX model does.
 
 Usage (mirrors run_nar_train_gcom_local.sh):
   python -m chameleon_recsys_tpu_torch.cli.nar_trainer_gcom \
@@ -147,8 +148,6 @@ _NOT_PORTED = {
     "--model_parallelism": (lambda a: a.model_parallelism > 1, "multi-GPU"),
     "--use_native_loader": (lambda a: a.use_native_loader,
                             "native loader (libchio)"),
-    "--dropout_keep_prob": (lambda a: a.dropout_keep_prob < 1.0,
-                            "dropout and dense grid path"),
 }
 
 

@@ -126,27 +126,36 @@ def params_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]
     return state
 
 
-# (Flax path pattern of the ACR classifier, torch key template, the kernel's
-# layout change: None, "T" (Dense) or "conv" ([w, in, out] -> [out, in, w]))
+# (Flax path pattern of the ACR classifier or autoencoder, torch key
+# template, the kernel's layout change: None, "T" (Dense) or "conv" ([w, in,
+# out] -> [out, in, w])).  The classifier's stack is Flax's "rnn", the
+# autoencoder's "encoder" and "decoder"; each is the torch module's "rnn".
 _ACR_RULES = (
     (r"cnn/(conv_\d+)/kernel", r"encoder.convs.\1.weight", "conv"),
     (r"cnn/(conv_\d+)/bias", r"encoder.convs.\1.bias", None),
-    (r"rnn/layer_(\d+)(_bwd)?/input_proj/kernel", r"encoder.rnn.weight_ih_l\1\2", "T"),
-    (r"rnn/layer_(\d+)(_bwd)?/input_proj/bias", r"encoder.rnn.bias_ih_l\1\2", None),
-    (r"rnn/layer_(\d+)(_bwd)?/recurrent_kernel", r"encoder.rnn.weight_hh_l\1\2", "T"),
-    (r"rnn/layer_(\d+)(_bwd)?/recurrent_bias", r"encoder.rnn.bias_hh_l\1\2", None),
-    (r"(fc2|article_content_embedding)/kernel", r"\1.weight", "T"),
-    (r"(fc2|article_content_embedding)/bias", r"\1.bias", None),
+    (r"(?:rnn|(encoder|decoder))/layer_(\d+)(_bwd)?/input_proj/kernel",
+     r"\1.rnn.weight_ih_l\2\3", "T"),
+    (r"(?:rnn|(encoder|decoder))/layer_(\d+)(_bwd)?/input_proj/bias",
+     r"\1.rnn.bias_ih_l\2\3", None),
+    (r"(?:rnn|(encoder|decoder))/layer_(\d+)(_bwd)?/recurrent_kernel",
+     r"\1.rnn.weight_hh_l\2\3", "T"),
+    (r"(?:rnn|(encoder|decoder))/layer_(\d+)(_bwd)?/recurrent_bias",
+     r"\1.rnn.bias_hh_l\2\3", None),
+    (r"(fc2|article_content_embedding|bottleneck|state_reconstruction"
+     r"|output_projection)/kernel", r"\1.weight", "T"),
+    (r"(fc2|article_content_embedding|bottleneck|state_reconstruction"
+     r"|output_projection)/bias", r"\1.bias", None),
     (r"output_(\w+)/kernel", r"outputs.\1.weight", "T"),
     (r"output_(\w+)/bias", r"outputs.\1.bias", None),
 )
 
 
 def acr_params_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Flax ACR classifier params (nested dicts of arrays) -> ``state_dict``
-    for ``model`` (a ``models.acr.ACRClassifierModel``, or any module whose
-    ``encoder`` is a ``TextCNN`` or a GRU/LSTM stack), its word-embedding
-    buffer included as the model holds it.  Like ``params_from_flax``, a
+    """Flax ACR params (nested dicts of arrays) -> ``state_dict`` for
+    ``model``: a ``models.acr.ACRClassifierModel`` (or any module whose
+    ``encoder`` is a ``TextCNN`` or a GRU/LSTM stack) or an
+    ``ACRAutoencoderModel`` (GRU ``encoder`` and ``decoder``), its
+    word-embedding buffer included as the model holds it.  Like ``params_from_flax``, a
     parameter that matches no rule, is missing, is not consumed or has
     another shape raises."""
     state = {}
@@ -157,15 +166,16 @@ def acr_params_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Ten
                 break
         else:
             raise KeyError(f"no rule maps the Flax parameter {path!r}")
-        key = match.expand(template).replace("_bwd", "_reverse")
+        key = re.sub(r"^\.", "encoder.", match.expand(template)).replace(
+            "_bwd", "_reverse")
         array = np.asarray(value, np.float32)
         if layout == "T":
             array = array.T
         elif layout == "conv":
             array = array.transpose(2, 1, 0)
         tensor = torch.tensor(np.ascontiguousarray(array))
-        if key.startswith("encoder.rnn.bias_hh"):
-            tensor = tensor + model.encoder.forget_bias_vector()
+        if ".rnn.bias_hh" in key:
+            tensor = tensor + getattr(model, key.split(".")[0]).forget_bias_vector()
         state[key] = tensor
     expected = model.state_dict()
     if "word_embeddings" in expected:

@@ -6,14 +6,20 @@ Port of ``chameleon_recsys_tpu/models/nar.py::NARModel`` in three cases:
   * eval: every (session, step) of the grid scored against its negatives
     from a shared candidate pool (``neg_pool`` / ``neg_pool_idx``), with the
     masked cross-entropy and, under ``rank``, the ranked candidates;
-  * training (``train=True``) on the same pooled path, over the grid or over
-    the (session, step) rows that the train step's compaction selected
-    (``scoring_rows``); gradients come from autograd and the kernels'
-    ``autograd.Function``s.
-With ``use_pallas_scorer`` and three matching layers the negatives go
-through the hand-written fused scorer kernels (``ops/kernels/cand_scorer.py``).
-Dropout (``keep_prob < 1``) and the dense per-candidate grid path it takes
-are not ported.  One forward pass:
+  * training (``train=True``): at ``keep_prob`` 1 on the same pooled path,
+    over the grid or over the (session, step) rows that the train step's
+    compaction selected (``scoring_rows``); with dropout (``keep_prob`` < 1),
+    as in the JAX package, on the dense path: every (row, negative) pair's
+    item features and CAR tower computed per pair, with feature dropout,
+    and the fused scorer off.  Gradients come from autograd and the
+    kernels' ``autograd.Function``s.
+With ``use_pallas_scorer`` and three matching layers the pooled negatives
+go through the hand-written fused scorer kernels
+(``ops/kernels/cand_scorer.py``).  Dropout (``ops/dropout.py``) acts in
+training at the JAX package's sites: the stacked input/positive features,
+each UGRNN layer's output, the FC1 output and the dense negatives'
+features; its masks are drawn from the ``generator`` passed to ``forward``,
+in that order.  One forward pass:
 
   user-context towers | item features (metadata towers + frozen ACE + item
   embedding + recency/novelty against the click buffer's stats)
@@ -44,6 +50,7 @@ from ..config import (
     SessionFeaturesSchema,
     embedding_dim_for_cardinality,
 )
+from ..ops.dropout import dropout
 from ..ops.embedding import pool_gather
 from ..ops.kernels.cand_scorer import cand_score, kernel_takes
 from ..ops.normalization import log1p_base, log_base, normalize_values
@@ -137,7 +144,7 @@ class NARModel(nn.Module):
 
         self.rnn = StackedUGRNN(
             c, cfg.rnn_units, cfg.rnn_num_layers, dtype=dt,
-            use_kernel=cfg.use_pallas_rnn,
+            use_kernel=cfg.use_pallas_rnn, keep_prob=cfg.keep_prob,
         )
         self.session_FC1 = nn.Linear(cfg.rnn_units, 512)
         self.session_FC2 = nn.Linear(512, c)
@@ -293,6 +300,13 @@ class NARModel(nn.Module):
             dim=-1,
         )
 
+    def _dropper(self, train: bool, generator: Optional[torch.Generator]):
+        """The dropout of the model's sites: the identity outside training
+        or at ``keep_prob`` 1, else masks drawn from ``generator``."""
+        if not train or self.cfg.keep_prob >= 1.0:
+            return lambda x: x
+        return lambda x: dropout(x, self.cfg.keep_prob, generator)
+
     # -- forward -----------------------------------------------------------------
     def forward(
         self,
@@ -306,44 +320,47 @@ class NARModel(nn.Module):
         neg_pool: Optional[torch.Tensor] = None,  # [NC+1] shared pool
         neg_pool_idx: Optional[torch.Tensor] = None,  # [B, T, K] / [M, K]
         scoring_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ):
         """Serving (``candidate_positions`` given): the softmax over
         [label slot | K candidates] at each session's candidate position,
-        [B, 1, 1+K] f32.  The grid with a shared candidate pool (eval, or
-        training): ``NAROutputs`` over every (session, step), or with
-        ``scoring_rows`` = (rows_sel [M] flat indices into the B*T grid,
-        row_mask [M] f32) over those M rows only, ``neg_items`` and
-        ``neg_pool_idx`` then [M, K].  ``train`` changes nothing at
-        ``keep_prob`` 1 (dropout of rate 0 is the identity); autograd records
-        whenever grad is enabled."""
-        if train and self.cfg.keep_prob < 1.0:
-            raise NotImplementedError(
-                "dropout (keep_prob < 1) and the dense train path it takes "
-                "are not ported"
-            )
+        [B, 1, 1+K] f32.  The grid (eval, or training): ``NAROutputs`` over
+        every (session, step), or with ``scoring_rows`` = (rows_sel [M] flat
+        indices into the B*T grid, row_mask [M] f32) over those M rows only,
+        ``neg_items`` (and ``neg_pool_idx``) then [M, K].  The negatives come
+        from the shared candidate pool (``neg_pool`` / ``neg_pool_idx``)
+        except in training with dropout or without a pool, where the dense
+        path scores ``neg_items`` one by one, as the JAX package's
+        ``pooled`` decision says.  In training the dropout masks are drawn
+        from ``generator``; ``train`` changes nothing else (dropout of rate
+        0 is the identity).  Autograd records whenever grad is enabled."""
         if candidate_positions is not None:
             if rank or neg_pool is not None or scoring_rows is not None:
                 raise NotImplementedError(
                     "serving takes neither rank, neg_pool nor scoring_rows"
                 )
-            return self._serve(batch, aux, neg_items, candidate_positions)
+            return self._serve(batch, aux, neg_items, candidate_positions, train,
+                               generator)
         if scoring_rows is not None and rank:
             raise ValueError(
                 "scoring_rows supports the train path only (rank=False, no "
                 "candidate_positions)"
             )
-        if neg_pool is None or neg_pool_idx is None:
+        if not train and (neg_pool is None or neg_pool_idx is None):
             raise NotImplementedError(
-                "the grid path needs neg_pool and neg_pool_idx: the dense "
-                "per-candidate grid path is not ported"
+                "the eval grid path needs neg_pool and neg_pool_idx: the JAX "
+                "eval step always scores from its pool"
             )
-        return self._pooled(batch, aux, neg_items, neg_pool, neg_pool_idx, rank,
-                            scoring_rows)
+        pooled = neg_pool is not None and (not train or self.cfg.keep_prob >= 1.0)
+        return self._grid(batch, aux, neg_items, neg_pool if pooled else None,
+                          neg_pool_idx, rank, scoring_rows, train, generator)
 
-    def _encode(self, batch, aux: NARAux):
+    def _encode(self, batch, aux: NARAux, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """User context, the positive CAR rows and the session encoder's
         predicted embedding, all [B, T, ...], with the valid-step mask."""
         dt = self.dtype
+        drop = self._dropper(train, generator)
         item_clicked = batch["item_clicked"]  # [B, T]
         next_item_label = batch["label_next_item"]  # [B, T]
         b, t = item_clicked.shape
@@ -382,40 +399,54 @@ class NARModel(nn.Module):
             + self._dynamic_item_feats(next_item_label, max_event_ts, aux),
             dim=-1,
         )
-        stacked = self._scale_center(torch.stack([
+        stacked = drop(self._scale_center(torch.stack([
             torch.cat([user_ctx, input_item_feats], -1),
             torch.cat([user_ctx, pos_item_feats], -1),
-        ]))
+        ])))
         stacked_car = self._car_tower(stacked)  # [2, B, T, C]
         input_car, pos_car = stacked_car[0], stacked_car[1]
 
-        rnn_out = self.rnn(input_car, mask)
-        h = _leaky(self._dense(self.session_FC1, rnn_out))
+        rnn_out = self.rnn(input_car, mask, train=train, generator=generator)
+        h = drop(_leaky(self._dense(self.session_FC1, rnn_out)))
         predicted_emb = torch.tanh(self._dense(self.session_FC2, h))  # [B, T, C]
         return user_ctx, pos_car, predicted_emb, mask, max_event_ts
 
-    def _serve(self, batch, aux, neg_items, candidate_positions):
+    def _dense_neg_car(self, ctx_for_neg, neg_items, max_event_ts, aux: NARAux,
+                       drop):
+        """The dense candidate path: each candidate id's item features beside
+        its row's user context ``ctx_for_neg`` [..., F_u], scale/center,
+        ``drop`` and the CAR tower, [..., K, C] for ``neg_items`` [..., K]."""
+        neg_item_feats = self._item_features(neg_items, max_event_ts, aux)
+        ctx = ctx_for_neg[..., None, :].expand(
+            tuple(neg_items.shape) + (ctx_for_neg.shape[-1],))
+        return self._car_tower(drop(self._scale_center(
+            torch.cat([ctx, neg_item_feats], -1))))
+
+    def _score_candidates(self, pos_car, neg_car, pred):
+        """(positive [...], negatives [..., K]) scores: the positive rides
+        the candidate axis, so the matching MLP runs once."""
+        cand_car = torch.cat([pos_car[..., None, :], neg_car], dim=-2)
+        all_scores = self._match_score(cand_car * pred[..., None, :])
+        return all_scores[..., 0], all_scores[..., 1:]
+
+    def _serve(self, batch, aux, neg_items, candidate_positions, train=False,
+               generator=None):
         """Candidates at one position per session (the dense candidate
         path): [B, 1, 1+K] f32."""
         cfg = self.cfg
-        user_ctx, pos_car, predicted_emb, _, max_event_ts = self._encode(batch, aux)
-        b, k = user_ctx.shape[0], neg_items.shape[-1]
-        rows = torch.arange(b, device=user_ctx.device)
+        user_ctx, pos_car, predicted_emb, _, max_event_ts = self._encode(
+            batch, aux, train, generator)
+        rows = torch.arange(user_ctx.shape[0], device=user_ctx.device)
         pos_idx = candidate_positions.long()
-        ctx_for_neg = user_ctx[rows, pos_idx][:, None]  # [B, 1, F_u]
-        neg_item_feats = self._item_features(neg_items, max_event_ts, aux)
-        user_ctx_tiled = ctx_for_neg[:, :, None, :].expand(b, 1, k, -1)
-        neg_car = self._car_tower(
-            self._scale_center(torch.cat([user_ctx_tiled, neg_item_feats], -1))
+        neg_car = self._dense_neg_car(
+            user_ctx[rows, pos_idx][:, None], neg_items, max_event_ts, aux,
+            self._dropper(train, generator),
         )  # [B, 1, K, C]
-
-        pred_for_neg = predicted_emb[rows, pos_idx][:, None]  # [B, 1, C]
-        pos_for_neg = pos_car[rows, pos_idx][:, None]
-        # the label slot rides the candidate axis and enters the softmax
-        cand_car = torch.cat([pos_for_neg[:, :, None, :], neg_car], dim=2)
-        all_scores = self._match_score(cand_car * pred_for_neg[:, :, None, :])
-        scores = all_scores.float() / cfg.softmax_temperature
-        return torch.softmax(scores, dim=-1)
+        pos_score, neg_score = self._score_candidates(
+            pos_car[rows, pos_idx][:, None], neg_car,
+            predicted_emb[rows, pos_idx][:, None])
+        scores = torch.cat([pos_score[..., None], neg_score], -1).float()
+        return torch.softmax(scores / cfg.softmax_temperature, dim=-1)
 
     def _pre_split(self, user_ctx, neg_pool, max_event_ts, aux: NARAux):
         """The PreCAR projection split in three: the user half [B, T, C], the
@@ -464,24 +495,11 @@ class NARModel(nn.Module):
             pred, neg_pool_idx,
         )
 
-    def _pooled(self, batch, aux, neg_items, neg_pool, neg_pool_idx, rank,
-                scoring_rows=None):
-        """Every (session, step), or the ``scoring_rows`` selection of them,
-        scored against its K negatives from the shared pool: per-item
-        features and the item half of the PreCAR projection run once per
-        pool row, not per (row, k)."""
+    def _pooled_scores(self, user_ctx, pos_car, pred, neg_pool, neg_pool_idx,
+                       max_event_ts, aux: NARAux, k: int):
+        """(positive, negatives) scores of the pooled path: the negatives'
+        item half of PreCAR once per pool row, gathered per (row, k)."""
         cfg, dt = self.cfg, self.dtype
-        user_ctx, pos_car, pred, mask, max_event_ts = self._encode(batch, aux)
-        b, t = mask.shape
-        k = neg_items.shape[-1]
-        loss_mask = mask.to(torch.float32)
-        labels = batch["label_next_item"]
-        ce_mask = loss_mask
-        if scoring_rows is not None:
-            rows_sel, ce_mask = scoring_rows
-            user_ctx, pos_car, pred, labels = (
-                _select_rows(x, rows_sel) for x in (user_ctx, pos_car, pred, labels)
-            )
         u_pre, i_pre, const = self._pre_split(user_ctx, neg_pool, max_event_ts, aux)
 
         # As the JAX package's gate, the fused branch only for shapes its
@@ -498,16 +516,39 @@ class NARModel(nn.Module):
                 *self._scorer_operands(u_pre, i_pre, const, pred, neg_pool_idx),
                 _LEAKY_ALPHA,
             ) + self.matching_out_bias.to(dt)[0].float()
-            neg_score = neg_score.reshape(pred.shape[:-1] + (k,))
+            return pos_score, neg_score.reshape(pred.shape[:-1] + (k,))
+        car_w, car_b = self.CAR_kernel.to(dt), self.CAR_bias.to(dt)
+        i_rows = pool_gather(i_pre, neg_pool_idx)  # [B, T, K, C] / [M, K, C]
+        pre_neg = _leaky(u_pre[..., None, :] + i_rows + const)
+        neg_car = torch.tanh(pre_neg @ car_w + car_b)
+        return self._score_candidates(pos_car, neg_car, pred)
+
+    def _grid(self, batch, aux, neg_items, neg_pool, neg_pool_idx, rank,
+              scoring_rows, train, generator):
+        """Every (session, step), or the ``scoring_rows`` selection of them,
+        scored against its K negatives.  Pooled (``neg_pool`` given):
+        per-item features and the item half of the PreCAR projection run
+        once per pool row, not per (row, k).  Dense (``neg_pool`` None): per
+        (row, k) from ``neg_items``, with dropout in training."""
+        cfg = self.cfg
+        user_ctx, pos_car, pred, mask, max_event_ts = self._encode(
+            batch, aux, train, generator)
+        k = neg_items.shape[-1]
+        loss_mask = mask.to(torch.float32)
+        labels = batch["label_next_item"]
+        ce_mask = loss_mask
+        if scoring_rows is not None:
+            rows_sel, ce_mask = scoring_rows
+            user_ctx, pos_car, pred, labels = (
+                _select_rows(x, rows_sel) for x in (user_ctx, pos_car, pred, labels)
+            )
+        if neg_pool is None:
+            neg_car = self._dense_neg_car(user_ctx, neg_items, max_event_ts, aux,
+                                          self._dropper(train, generator))
+            pos_score, neg_score = self._score_candidates(pos_car, neg_car, pred)
         else:
-            car_w, car_b = self.CAR_kernel.to(dt), self.CAR_bias.to(dt)
-            i_rows = pool_gather(i_pre, neg_pool_idx)  # [B, T, K, C] / [M, K, C]
-            pre_neg = _leaky(u_pre[..., None, :] + i_rows + const)
-            neg_car = torch.tanh(pre_neg @ car_w + car_b)
-            # the positive rides the candidate axis: one matching MLP pass
-            cand_car = torch.cat([pos_car[..., None, :], neg_car], dim=-2)
-            all_scores = self._match_score(cand_car * pred[..., None, :])
-            pos_score, neg_score = all_scores[..., 0], all_scores[..., 1:]
+            pos_score, neg_score = self._pooled_scores(
+                user_ctx, pos_car, pred, neg_pool, neg_pool_idx, max_event_ts, aux, k)
 
         scores = torch.cat([pos_score[..., None].float(), neg_score.float()], -1)
         items_prob = torch.softmax(scores / cfg.softmax_temperature, dim=-1)

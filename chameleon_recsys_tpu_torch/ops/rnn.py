@@ -21,8 +21,15 @@ in ``bias_hh``'s f slice (``reset_parameters`` puts it there,
 Bidirectional stacks concatenate [fwd | bwd] per step and per final state,
 and layer l + 1 reads 2U features, as in the JAX stacks.  Every step is
 valid: the JAX stacks' all-ones mask, the only one the ACR models pass
-(cuDNN ignores lengths there).  Inter-layer dropout (``keep_prob`` < 1) and
-the decoder's ``h0`` seeding come with later slices.
+(cuDNN ignores lengths there).  In training with ``keep_prob`` < 1 the
+stacks drop out each layer's input past the first (``ops/dropout.py``; not
+``nn.GRU``'s own dropout, which draws from the global generator), so they
+run one cuDNN layer at a time; the autoencoder's decoder seeds each layer
+with its own ``h0`` (unidirectional only, as in the JAX ``StackedGRU``).
+
+``StackedUGRNN`` drops out every layer's output in training, the last
+included, before the padded steps are zeroed (the reference's
+``DropoutWrapper(output_keep_prob)`` on each cell).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from .dropout import dropout
 from .kernels.ugrnn import UGRNNScan, ugrnn_scan_kernel
 
 
@@ -95,8 +103,9 @@ class UGRNNLayer(nn.Module):
 
 
 class StackedUGRNN(nn.Module):
-    """Stacked UGRNN; outputs at padded steps are zeroed.  The per-layer
-    output dropout of training (``keep_prob < 1``) is not ported."""
+    """Stacked UGRNN; in training each layer's output is dropped out
+    (``keep_prob`` < 1), then the outputs at padded steps are zeroed.  The
+    kernel path's gradient arrives through the dropout masks."""
 
     def __init__(
         self,
@@ -105,8 +114,10 @@ class StackedUGRNN(nn.Module):
         num_layers: int = 1,
         dtype: torch.dtype = torch.float32,
         use_kernel: bool = False,
+        keep_prob: float = 1.0,
     ):
         super().__init__()
+        self.keep_prob = keep_prob
         self.layers = nn.ModuleList(
             UGRNNLayer(
                 in_features if i == 0 else units, units, dtype=dtype,
@@ -115,10 +126,13 @@ class StackedUGRNN(nn.Module):
             for i in range(num_layers)
         )
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x
         for layer in self.layers:
             h = layer(h, mask)
+            if train:
+                h = dropout(h, self.keep_prob, generator)
         return h * mask[..., None].to(h.dtype)
 
 
@@ -137,11 +151,8 @@ class _CudnnStack(nn.Module):
         super().__init__()
         if direction not in DIRECTIONS:
             raise ValueError(f"invalid rnn direction {direction}")
-        if keep_prob < 1.0:
-            raise NotImplementedError(
-                "inter-layer dropout (keep_prob < 1) is not ported yet: it comes "
-                "with the dropout slice")
         self.units = units
+        self.keep_prob = keep_prob
         self.bidirectional = direction == "bidirectional"
         self.rnn = self.cell(in_features, units, num_layers, batch_first=True,
                              bidirectional=self.bidirectional)
@@ -167,13 +178,56 @@ class _CudnnStack(nn.Module):
     def forget_bias_vector(self) -> torch.Tensor:
         return torch.zeros(self.gates * self.units)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[B, T, D], every step valid -> (outputs [B, T, U or 2U], final
-        states [layers, B, U or 2U])."""
-        out, last = self.rnn(x)
-        h_n = last[0] if isinstance(last, tuple) else last  # [layers*dirs, B, U]
+    def forward(self, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, T, D], every step valid, and optionally each layer's initial
+        state ``h0`` [layers, B, U] (unidirectional) -> (outputs [B, T, U or
+        2U], final states [layers, B, U or 2U])."""
+        if h0 is not None and self.bidirectional:
+            raise ValueError("h0 seeding requires unidirectional direction")
+        layers = self.rnn.num_layers
+        if not train or self.keep_prob >= 1.0 or layers == 1:
+            out, h_n = self._run(x, h0, 0, layers)
+        else:
+            out, finals = x, []
+            for i in range(layers):
+                if i > 0:
+                    out = dropout(out, self.keep_prob, generator)
+                out, h_i = self._run(out, None if h0 is None else h0[i: i + 1], i, 1)
+                finals.append(h_i)
+            h_n = torch.cat(finals)
         finals = h_n.view(-1, 2 if self.bidirectional else 1, x.shape[0], self.units)
         return out, torch.cat(finals.unbind(1), -1)
+
+    def _run(self, x, h0, first: int, layers: int):
+        """Layers ``first`` .. ``first + layers - 1`` of the stack on ``x``:
+        (outputs, final hidden states [layers * dirs, B, U])."""
+        if first == 0 and layers == self.rnn.num_layers:
+            out, last = self.rnn(x, self._hx(h0, x))
+            return out, last[0] if isinstance(last, tuple) else last
+        # a slice of the stack: torch's own entry point for one nn.GRU /
+        # nn.LSTM call (what their forward calls), on that slice's weights
+        per_layer = 4 * (2 if self.bidirectional else 1)
+        weights = self.rnn._flat_weights[first * per_layer:(first + layers) * per_layer]
+        hx = self._hx(h0, x, layers)
+        if self.cell is nn.LSTM:
+            out, h_n, _ = torch._VF.lstm(x, hx, weights, True, layers, 0.0,
+                                         self.training, self.bidirectional, True)
+        else:
+            out, h_n = torch._VF.gru(x, hx, weights, True, layers, 0.0,
+                                     self.training, self.bidirectional, True)
+        return out, h_n
+
+    def _hx(self, h0, x, layers: Optional[int] = None):
+        """The cell's initial state: ``h0`` or zeros (and zero cells for an
+        LSTM); None for the whole stack from zeros."""
+        if h0 is None and layers is None:
+            return None
+        shape = ((layers or self.rnn.num_layers) * (2 if self.bidirectional else 1),
+                 x.shape[0], self.units)
+        h = x.new_zeros(shape) if h0 is None else h0.to(x.dtype).contiguous()
+        return (h, torch.zeros_like(h)) if self.cell is nn.LSTM else h
 
 
 class StackedGRU(_CudnnStack):

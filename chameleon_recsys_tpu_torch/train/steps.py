@@ -7,9 +7,11 @@ Port of ``chameleon_recsys_tpu/train/steps.py`` (``build_nar_train``'s
 (session, step) rows of the batch to the front of the flat grid and keep the
 first ``capacity`` (``compact_valid_rows``), sample ``negative_samples``
 negatives for those rows only (``sample_negatives_pooled_rows``), else for
-the whole grid; run the model with ``train=True``; take loss = XE + L2 -
-novelty, back-propagate, step Adam; then fold the batch's clicks into the
-streaming state.  ``train_compaction_groups > 1`` (the mesh layout) is not
+the whole grid; run the model with ``train=True`` (at ``keep_prob`` < 1 the
+model takes the dense path over the sampled ``neg_ids``, as the JAX model
+does, with its dropout masks drawn from the state's generator after the
+sampler's draws); take loss = XE + L2 - novelty, back-propagate, step Adam;
+then fold the batch's clicks into the streaming state.  ``train_compaction_groups > 1`` (the mesh layout) is not
 ported.
 
 ``eval_step``: sample ``eval_negative_samples`` negatives per click from the
@@ -204,7 +206,8 @@ def train_step(
 
     ``batch`` is a collated batch on the model's device.  The sampler draws
     from ``state.generator``, or takes ``uniforms`` (click keys [M, NC] with
-    compaction, [B, L, NC] without).  After the step every parameter's
+    compaction, [B, L, NC] without); the dropout masks always come from
+    ``state.generator``.  After the step every parameter's
     ``.grad`` holds this batch's gradient.  Metrics: ``loss``, ``ce_loss``,
     ``reg_loss``, ``sessions``, ``clicks`` and, with a capacity,
     ``dropped_clicks``.
@@ -216,7 +219,7 @@ def train_step(
                                state.generator, uniforms)
         out = model(batch, inputs.aux, inputs.neg_ids, train=True,
                     neg_pool=inputs.pool, neg_pool_idx=inputs.neg_idx,
-                    scoring_rows=inputs.scoring_rows)
+                    scoring_rows=inputs.scoring_rows, generator=state.generator)
         reg = l2_regularization(model, cfg.reg_weight_decay)
         loss = out.ce_loss + reg - out.nov_reg_loss
         state.optimizer.zero_grad(set_to_none=True)

@@ -14,7 +14,10 @@ pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
 -> ``nar_trainer_gcom``) and the Adressa chain through its CLIs
 (``cli.make_pseudo_adressa`` -> ``acr_preprocess_adressa`` ->
 ``acr_trainer_adressa`` -> ``nar_preprocess_adressa`` ->
-``nar_trainer_adressa``), and every hand-written kernel of those paths:
+``nar_trainer_adressa``), the dense train path with dropout, the G1 sweep
+(``cli.nar_hypertuning_gcom``) and G1 ACR with the ACE baselines
+(``cli.acr_preprocess_gcom`` -> ``acr_trainer_gcom``, ``ace_baselines_cli``),
+and every hand-written kernel of those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
    per source, started together) and reports the build time and what ptxas
@@ -83,8 +86,26 @@ pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
    phases, HR@5 and MRR@5 per recommender and the peak device memory; then
    20 ACR steps at the published width on the CPU and on the card from the
    same weights and batches, the losses and the ACE held against each
-   other (the ACR step's device busy share is profiled last, after 11);
-8. holds each kernel against its plain PyTorch twin on the card: the UGRNN
+   other (the ACR step's device busy share is profiled last, after 14);
+8. the dense train path with dropout, counted: the G1 config at keep_prob
+   0.8 with the UGRNN kernels on, compaction at the bench's capacity, ten
+   steps (per step K2f and K2b twice, no scorer kernel), timed by CUDA
+   events with the peak device memory, its busy share and top device
+   operations profiled after 14; then one dense step of a small float32
+   model on the CPU and on the card with the same dropout masks;
+9. the G1 sweep through ``nar_hypertuning_gcom.main`` on phase 6's session
+   files 0-5 with ``scripts/run_nar_train_gcom_full.sh``'s flags and an ML
+   Engine JSON spec (``dropout_keep_prob`` 0.8 and 1.0, two trials, two at a
+   time): each trial's wall and objective, the order, no kernel launch;
+10. G1 ACR and the ACE baselines through their CLIs: a G1-layout articles
+   CSV from the pseudo-Adressa generator's 13,000 articles and a 300-dim
+   word2vec file, ``acr_preprocess_gcom`` and ``acr_trainer_gcom`` (the GRU
+   autoencoder) with their ``scripts/run_*`` flags cut to one epoch, then
+   ``ace_baselines_cli`` for LSA, W2V-TF-IDF and doc2vec (5 epochs): each
+   wall, the autoencoder's ms a step (its busy share profiled after 14),
+   each ACE matrix's shape ([13,001, 250], W2V-TF-IDF the word width 300)
+   with row 0 the mean, no kernel launch;
+11. holds each kernel against its plain PyTorch twin on the card: the UGRNN
    forward at batch 1, 32 and 256 and the backward at the train shape (from
    the forward's f32 stash, against the twin that recomputes the gates; the
    stash against that recompute), the UGRNN streaming instantiations at
@@ -95,10 +116,10 @@ pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
    (``train_scorer_operands``; the recompute backward also bit for bit
    against the stash backward on the stash forward's nc), and all of them on
    random operands at the G1 shapes, a float32 shape and an odd shape;
-9. checks the served scores, one eval step and one train step against the
+12. checks the served scores, one eval step and one train step against the
    same code on the CPU, where the kernel wrappers run their plain twins, on
    a small float32 input;
-10. times each kernel, its plain twin, ``recommend``, the eval step and the
+13. times each kernel, its plain twin, ``recommend``, the eval step and the
    train step (with the stash and without) with CUDA events or a
    synchronised host clock, and breaks one request, one eval step and one
    train step with the stash and one without down by device kernel (torch
@@ -118,7 +139,7 @@ pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
    its chain launch at T 1, 4 and 19 (torch profiler, every record kept:
    a session that is not ``calls`` repeats of one launch sequence is
    profiled again, eight times at most);
-11. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
+14. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
    against ``torch.matmul`` at dpre's shape (134,400 x 1024 by 1024^T, bf16)
    and times both (its own line: it is no TPU kernel), splits one backward
    (K1b) at the train path's operands by device launch (torch profiler),
@@ -204,6 +225,31 @@ G1_BASELINES = ("pop_recent", "coocurrent", "item_knn", "v-sknn", "cb", "sr")
 # loss >= 2.2e-4, HR >= 3.9e-4, MRR >= 1.7e-3, parameters >= 2.8e-4.  HR and
 # MRR allow about one ranked click of ~5,000 to flip
 RESUME_TOL = {"loss": 1e-5, "hr": 2.5e-4, "mrr": 2.5e-4, "param": 1e-5}
+# the dense train path with dropout at G1 width: the keep probability (the
+# reference's hypertuning grid, nar_mlengine_hypertuning.yaml) and its counted
+# steps; the card against the CPU on a small model with the same masks: the
+# losses (relative) and each gradient normwise
+DROPOUT_KEEP = 0.8
+DROPOUT_STEPS = 10
+DROPOUT_CARD_TOL = 1e-4
+# the G1 sweep through its CLI: phase 6's first session files, the fewest that
+# give one eval at the script's 5 training hours an eval, and an ML Engine
+# spec over the reference grid's dropout values, two trials at a time
+SWEEP_FILES = 6
+SWEEP_SPEC = {"trainingInput": {"hyperparameters": {
+    "goal": "MAXIMIZE", "hyperparameterMetricTag": "mrr_at_n", "maxTrials": 2,
+    "maxParallelTrials": 2, "params": [{"parameterName": "dropout_keep_prob",
+                                        "type": "DISCRETE", "discreteValues": [0.8, 1.0]}]}}}
+# G1 ACR through its CLIs: the pseudo-Adressa generator's 13,000 articles with
+# a 300-dim word2vec file (G1's skip_s300), each CLI with its script's flags,
+# the autoencoder cut to one of its 20 epochs and doc2vec to 5 of its 30
+G1_ACR_SPEC = {"num_articles": 13000, "word_dim": 300, "seed": 11}
+G1_ACR_SCRIPTS = {
+    "acr_preprocess_gcom": "scripts/run_acr_preprocessing_gcom.sh",
+    "acr_trainer_gcom": "scripts/run_acr_training_gcom_autoencoder.sh",
+}
+G1_ACR_EPOCHS = "1"
+DOC2VEC_EPOCHS = "5"
 KERNELS = ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd", "cand_score_bwd")  # sources
 KERNEL_NAMES = ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd", "cand_score_fwd_stash",
                 "cand_score_bwd", "cand_score_bwd_recompute")
@@ -1372,6 +1418,38 @@ def acr_cpu_vs_card(articles, word_embeddings, encoders, class_weights):
     check(ace_err <= ACR_CARD_TOL["ace"], "adressa acr: card ACE differs from the CPU's")
 
 
+def recording_acr_trainer(base):
+    """A subclass of the ACR trainer class ``base`` that records its step
+    losses (device scalars, fetched after the run), its instance and
+    corpus, its fit's steps and time (CUDA events over the epochs) and its
+    train-set metrics; returns (the subclass, the record)."""
+    record = {"step_losses": []}
+
+    class RecordingACRTrainer(base):
+        def train_step(self, batch, weights):
+            loss, task_loss = super().train_step(batch, weights)
+            record["step_losses"].append(task_loss)
+            return loss, task_loss
+
+        def fit(self, articles):
+            record.update(trainer=self, articles=articles)
+            steps = -(-len(articles["article_id"]) // self.cfg.batch_size)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            losses = super().fit(articles)
+            end.record()
+            torch.cuda.synchronize()
+            record.update(steps=steps * self.cfg.training_epochs, losses=losses,
+                          fit_ms=start.elapsed_time(end))
+            return losses
+
+        def evaluate(self, articles):
+            record["metrics"] = super().evaluate(articles)
+            return record["metrics"]
+
+    return RecordingACRTrainer, record
+
+
 def adressa_cli_phase(workdir):
     """The Adressa chain through the port's CLIs, on the card:
     ``make_pseudo_adressa`` at the published shape (``ADRESSA_BUNDLE``,
@@ -1433,29 +1511,7 @@ def adressa_cli_phase(workdir):
 
     # the ACR trainer: timed by CUDA events over its epoch, its step losses
     # (device scalars, fetched after the run) and its instance kept
-    record = {"step_losses": []}
-
-    class TimedACRTrainer(acr_trainer_adressa.ACRTrainer):
-        def train_step(self, batch, weights):
-            loss, task_loss = super().train_step(batch, weights)
-            record["step_losses"].append(task_loss)
-            return loss, task_loss
-
-        def fit(self, articles):
-            record.update(trainer=self, articles=articles)
-            steps = -(-len(articles["article_id"]) // self.cfg.batch_size)
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            losses = super().fit(articles)
-            end.record()
-            torch.cuda.synchronize()
-            record.update(steps=steps * self.cfg.training_epochs, losses=losses,
-                          fit_ms=start.elapsed_time(end))
-            return losses
-
-        def evaluate(self, articles):
-            record["metrics"] = super().evaluate(articles)
-            return record["metrics"]
+    timed_class, record = recording_acr_trainer(acr_trainer_adressa.ACRTrainer)
 
     acr_argv = ["--train_set_path_regex", str(acr / "articles_tokenized_*.tfrecord.gz"),
                 "--input_word_vocab_embeddings_path",
@@ -1465,7 +1521,7 @@ def adressa_cli_phase(workdir):
                 *flags["acr_trainer_adressa"]]
     print(f"adressa cli: acr_trainer_adressa {' '.join(acr_argv[8:])}")
     trainer_class = acr_trainer_adressa.ACRTrainer
-    acr_trainer_adressa.ACRTrainer = TimedACRTrainer
+    acr_trainer_adressa.ACRTrainer = timed_class
     zero_launch_counts()
     try:
         timed("acr_trainer_adressa", acr_trainer_adressa.main, acr_argv)
@@ -1543,6 +1599,345 @@ def pickle_load(path):
 
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+@contextlib.contextmanager
+def seeded_draws(seed):
+    """Within the block the port's dropout masks (and the ACR autoencoder's
+    noise) come from ``np.random.RandomState(seed)``, call by call: a run on
+    the CPU and one on the card draw the same."""
+    from chameleon_recsys_tpu_torch.models import acr as acr_models
+    from chameleon_recsys_tpu_torch.ops import dropout as dropout_module
+
+    rng = np.random.RandomState(seed)
+    saved = dropout_module._draw_mask, acr_models._draw_noise
+    dropout_module._draw_mask = lambda shape, keep, generator, device: torch.from_numpy(
+        rng.rand(*shape) < keep).to(device)
+    acr_models._draw_noise = lambda shape, generator, device: torch.from_numpy(
+        rng.randn(*shape).astype(np.float32)).to(device)
+    try:
+        yield
+    finally:
+        dropout_module._draw_mask, acr_models._draw_noise = saved
+
+
+def dropout_cpu_vs_card(port, corpus_fn):
+    """One dense train step at ``DROPOUT_KEEP`` of the small float32 model
+    (compaction, both kernel flags on) on the CPU and on the card, with the
+    same uniforms and dropout masks (numpy, seeded): the losses (relative)
+    and every gradient (``||card - cpu|| <= 1e-4 ||cpu|| + 1e-5``) within
+    ``DROPOUT_CARD_TOL``; the card step launches K2f and K2b and no scorer
+    kernel."""
+    from chameleon_recsys_tpu_torch.data.collate import collate_sessions
+    from chameleon_recsys_tpu_torch.data.synthetic import synthetic_hour_sessions
+    from chameleon_recsys_tpu_torch.ops.sampling import SamplerUniforms
+    from chameleon_recsys_tpu_torch.state.stream_state import init_stream_state
+    from chameleon_recsys_tpu_torch.train.steps import init_train_state, train_step
+
+    cfg, sess, art = tiny_setup(port)
+    cfg = dataclasses.replace(cfg, keep_prob=DROPOUT_KEEP, train_valid_row_capacity=48)
+    corpus = corpus_fn(art, ace_dim=8)
+    b, length = cfg.batch_size, cfg.max_session_length
+    warm, batch = (collate_sessions(synthetic_hour_sessions(corpus, sess, h, b, length),
+                                    sess, b, length) for h in (0, 1))
+    m = cfg.negative_sample_from_buffer
+    nc = min(cfg.negative_samples * cfg.neg_sampling_multiplying_factor, b * length + m)
+    rng = np.random.RandomState(7)
+    uniforms = [rng.uniform(size=shape).astype(np.float32) for shape in (
+        (cfg.recent_clicks_buffer_max_size,), (b * length + m,), (48, nc))]
+    base = port.NARModel(cfg, sess, art, corpus.ace_matrix.shape[1])
+    base.reset_parameters(torch.Generator().manual_seed(8))
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = port.NARModel(cfg, sess, art, corpus.ace_matrix.shape[1]).to(device)
+        model.load_state_dict(base.state_dict())
+        stream = warm_stream(init_stream_state(cfg, art.num_items, device=device), [warm],
+                             cfg, device)
+        before = launch_counts()
+        with seeded_draws(9):
+            _, metrics = train_step(
+                init_train_state(model, stream, torch.Generator(device=device)),
+                to_device(batch, device), torch.from_numpy(corpus.ace_matrix).to(device),
+                {k: torch.from_numpy(np.asarray(v)).to(device)
+                 for k, v in corpus.metadata.items()},
+                uniforms=SamplerUniforms(*(torch.from_numpy(u).to(device) for u in uniforms)))
+        launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        out[device] = (metrics, {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                       launched)
+    (cpu_metrics, cpu_grads, _), (gpu_metrics, gpu_grads, launched) = out["cpu"], out["cuda"]
+    excess = {n: ((gpu_grads[n] - g).norm() - DROPOUT_CARD_TOL * g.norm()).item()
+              for n, g in cpu_grads.items()}
+    worst = max(excess, key=excess.get)
+    loss_err = max(abs(float(gpu_metrics[k]) - float(cpu_metrics[k])) / abs(float(cpu_metrics[k]))
+                   for k in ("loss", "ce_loss"))
+    print(f"dropout step (keep {DROPOUT_KEEP}, small f32) card vs CPU, the same masks: loss "
+          f"{float(gpu_metrics['loss']):.7g} vs {float(cpu_metrics['loss']):.7g} (relative "
+          f"{loss_err:.2e}, tolerance {DROPOUT_CARD_TOL}); gradients: largest ||card - cpu|| "
+          f"- {DROPOUT_CARD_TOL} ||cpu|| {excess[worst]:.3e} ({worst}; tolerance 1e-5); card "
+          f"launches {launched}")
+    check(loss_err <= DROPOUT_CARD_TOL, "dropout step: card loss differs from the CPU's")
+    check(excess[worst] <= 1e-5, "dropout step: card and CPU gradients disagree")
+    check(launched == {"ugrnn_fwd": 2, "ugrnn_bwd": 2, "ugrnn_fwd_resident": 2,
+                       "ugrnn_bwd_resident": 2},
+          f"dropout step: the small card step's launches {launched}")
+
+
+def dropout_phase(port, server, cfg, session_schema, article_schema, corpus):
+    """(8) The dense train path with dropout at G1 width, counted: the G1
+    config at ``keep_prob`` ``DROPOUT_KEEP`` with the UGRNN kernels on, a
+    stream warmed over two hours, compaction at the bench's capacity;
+    ``DROPOUT_STEPS`` steps over two batches of the next hour, timed by CUDA
+    events, with the peak device memory.  Checks the launches (per step K2f
+    and K2b twice each, on the resident instantiation, no scorer kernel), that
+    no click is dropped, every loss finite; then ``dropout_cpu_vs_card``.
+    Returns the launch counts and a function that profiles one step (the
+    busy share and the top device operations), run by ``main`` after its
+    other timings."""
+    from chameleon_recsys_tpu_torch.data.synthetic import make_synthetic_corpus
+    from chameleon_recsys_tpu_torch.state.stream_state import init_stream_state
+    from chameleon_recsys_tpu_torch.train.steps import init_train_state, train_step
+
+    b = cfg.batch_size
+    warm = warm_stream(
+        init_stream_state(cfg, corpus.num_items, device="cuda"),
+        hour_batches(corpus, session_schema, cfg, 0, 2 * b)
+        + hour_batches(corpus, session_schema, cfg, 1, 2 * b), cfg, "cuda")
+    batches = [to_device(batch, "cuda") for batch in
+               hour_batches(corpus, session_schema, cfg, 3, TRAIN_STEPS * b)]
+    capacity = train_capacity(batches, cfg)
+    dcfg = dataclasses.replace(cfg, keep_prob=DROPOUT_KEEP, train_valid_row_capacity=capacity)
+    model = port.NARModel(dcfg, session_schema, article_schema,
+                          corpus.ace_matrix.shape[1]).to("cuda")
+    model.load_state_dict(server.model.state_dict())
+    state = init_train_state(model, warm, torch.Generator(device="cuda").manual_seed(31))
+
+    def step(i):
+        nonlocal state
+        state, metrics = train_step(state, batches[i % len(batches)], server.ace_matrix,
+                                    server.metadata)
+        return metrics
+
+    step(0)  # first use: allocations, cuDNN/cuBLAS plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    per_step, metrics = [], []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(DROPOUT_STEPS):
+        before = launch_counts()
+        metrics.append(step(i))
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / DROPOUT_STEPS
+    device_ms = start.elapsed_time(end) / DROPOUT_STEPS
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    print(f"dropout train path (keep {DROPOUT_KEEP}, capacity {capacity} rows of "
+          f"{b * cfg.max_inputs_length}, {DROPOUT_STEPS} steps): {device_ms:.3f} ms a step "
+          f"(CUDA events), {wall_ms:.3f} ms host wall, peak device memory "
+          f"{peak / 2**30:.4f} GiB; loss {values[0]['loss']:.6g} -> {values[-1]['loss']:.6g}; "
+          f"launches {counts}, per step {per_step[0]}")
+    check(all(np.isfinite(v).all() for m in values for v in m.values()),
+          "dropout train: a metric is not finite")
+    check(all(m["dropped_clicks"] == 0 for m in values), "dropout train: clicks dropped")
+    expected = {k: v for k, v in ugrnn_expected(cfg.rnn_num_layers,
+                                                cfg.rnn_num_layers).items() if v}
+    check(per_step == [expected] * DROPOUT_STEPS,
+          f"kernel launches per dropout train step {per_step}")
+    dropout_cpu_vs_card(port, make_synthetic_corpus)
+
+    def profile_dropout_step():
+        device_profile(f"dropout train step (keep {DROPOUT_KEEP}, capacity {capacity})",
+                       lambda: step(0), 3, device_ms)
+
+    return counts, profile_dropout_step
+
+
+def sweep_phase(workdir):
+    """(9) The G1 sweep through ``nar_hypertuning_gcom.main`` on phase 6's
+    pseudo-G1 session TFRecords (files 0 to ``SWEEP_FILES`` - 1: train 0-4,
+    evaluate 5) with ``G1_SCRIPT``'s flags and an ML Engine JSON spec
+    (``SWEEP_SPEC``: ``dropout_keep_prob`` 0.8 and 1.0, two trials, two at a
+    time), counted.  Checks each trial's eval row and objective, the order and
+    ``sweep_results.json``, and that no kernel launched (the CLI's default
+    path is the plain one); prints each trial's wall, objective and the
+    order.  Returns the launch counts."""
+    from chameleon_recsys_tpu_torch.cli import nar_hypertuning_gcom
+
+    bundle = workdir / "bundle"
+    spec = workdir / "sweep_spec.json"
+    spec.write_text(json.dumps(SWEEP_SPEC))
+    argv = ["--train_set_path_regex", str(bundle / "sessions" / "sessions_hour_*.tfrecord.gz"),
+            "--acr_module_articles_metadata_csv_path", str(bundle / "articles_metadata.csv"),
+            "--acr_module_articles_content_embeddings_pickle_path",
+            str(bundle / "articles_embeddings.pickle"), "--model_dir", str(workdir / "sweep"),
+            "--train_files_from", "0", "--train_files_up_to", str(SWEEP_FILES),
+            *g1_script_flags(), "--sweep_spec", str(spec)]
+    walls = {}
+
+    class TimedHarness(nar_hypertuning_gcom.TemporalHarness):
+        def run(self, hour_source, hours):
+            t0 = time.perf_counter()
+            rows = super().run(hour_source, hours)
+            torch.cuda.synchronize()
+            walls[Path(self.run_cfg.model_dir).name] = (self.cfg.keep_prob,
+                                                        time.perf_counter() - t0)
+            return rows
+
+    harness_class = nar_hypertuning_gcom.TemporalHarness
+    nar_hypertuning_gcom.TemporalHarness = TimedHarness
+    print(f"sweep: nar_hypertuning_gcom {' '.join(argv[8:])}; spec {json.dumps(SWEEP_SPEC)}")
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        results = nar_hypertuning_gcom.main(argv)
+    finally:
+        nar_hypertuning_gcom.TemporalHarness = harness_class
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    for rank, r in enumerate(results):
+        keep, wall = walls[f"trial_{r.trial_id:03d}"]
+        print(f"sweep trial {r.trial_id} (rank {rank}): {r.overrides}, keep_prob {keep}, "
+              f"{wall:.3f} s wall, mrr_at_n {r.objective:.6f}, hitrate_at_n "
+              f"{r.metrics.get('hitrate_at_n', float('nan')):.6f}, eval clicks "
+              f"{r.metrics.get('clicks_count')}, train_sessions_per_s "
+              f"{r.metrics.get('train_sessions_per_s', float('nan')):.1f}")
+    saved = json.loads((workdir / "sweep" / "sweep_results.json").read_text())
+    print(f"sweep: {run_s:.3f} s wall for {len(results)} trials, order "
+          f"{[r.trial_id for r in results]}; kernel launches {counts}")
+    check(len(results) == 2 and sorted(r.overrides["keep_prob"] for r in results) == [0.8, 1.0],
+          f"sweep: trials {[r.overrides for r in results]}")
+    check(all(np.isfinite(r.objective) for r in results), "sweep: an objective is not finite")
+    check(results[0].objective >= results[1].objective, "sweep: trials out of order")
+    check([r["trial_id"] for r in saved] == [r.trial_id for r in results],
+          "sweep: sweep_results.json differs from the run")
+    check(all(r.metrics["hitrate_at_n"] == r.metrics["hitrate_at_n_chameleon"]
+              for r in results), "sweep: device HR != host HR")
+    check(not any(counts.values()), f"sweep: a kernel launched on the plain path: {counts}")
+    return counts
+
+
+def g1_articles(workdir):
+    """A G1-layout articles CSV (article_id, category_id, created_at_ts in ms,
+    text: the title and the body) from the pseudo-Adressa generator's
+    articles, and its word2vec text file at ``G1_ACR_SPEC``'s 300 dims (the
+    dims of G1's skip_s300); returns both paths."""
+    from chameleon_recsys_tpu_torch.data.pseudo_adressa import (
+        PseudoAdressaSpec,
+        make_pseudo_g1_articles,
+        write_articles_json,
+        write_word_embeddings,
+    )
+
+    spec = PseudoAdressaSpec(**G1_ACR_SPEC)
+    jsonl, articles, w2v = (workdir / n for n in ("articles.jsonl", "articles.csv", "w2v.txt"))
+    write_articles_json(spec, make_pseudo_g1_articles(spec.g1_spec()), str(jsonl))
+    with open(jsonl) as src, open(articles, "w", newline="") as dst:
+        writer = csv.DictWriter(dst, ["article_id", "category_id", "created_at_ts", "text"])
+        writer.writeheader()
+        for line in src:
+            rec = json.loads(line)
+            writer.writerow({"article_id": rec["id"], "category_id": rec["category0"],
+                             "created_at_ts": rec["createtime"] * 1000,
+                             "text": f"{rec['title']}. {rec['body']}"})
+    write_word_embeddings(spec, str(w2v))
+    return articles, w2v
+
+
+def g1_acr_phase(workdir):
+    """(10) G1 ACR and the ACE baselines through their CLIs, counted: a
+    G1-layout corpus (``g1_articles``: 13,000 articles, a 300-dim word2vec
+    file), ``acr_preprocess_gcom`` and ``acr_trainer_gcom`` with their
+    ``G1_ACR_SCRIPTS`` flags (the autoencoder: GRU 512, 30 tokens, batch 32,
+    noise 0.05, ACE 250) cut to ``G1_ACR_EPOCHS`` epoch, then
+    ``ace_baselines_cli`` for LSA, W2V-TF-IDF and doc2vec (250 dims,
+    ``DOC2VEC_EPOCHS`` epochs), on the card.  Checks each run's pickle (the
+    ACE matrix [13,001, 250], or the word width for W2V-TF-IDF, finite, row 0
+    the mean), the autoencoder's step losses and that no kernel launched;
+    prints each wall and the ACR ms a step (CUDA events over the epoch).
+    Returns the launch counts and a function that profiles one autoencoder
+    step (the busy share), run by ``main`` after its other profiles."""
+    from chameleon_recsys_tpu_torch.cli import ace_baselines_cli, acr_preprocess_gcom, acr_trainer_gcom
+
+    walls = {}
+
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    articles, w2v = timed("g1_articles", g1_articles, workdir)
+    pre, ace_path = workdir / "acr_pre", workdir / "ace_autoencoder.pickle"
+    paths = {"--input_articles_csv_path", "--input_word_embeddings_path", "--output_dir",
+             "--train_set_path_regex", "--input_word_vocab_embeddings_path",
+             "--input_label_encoders_path", "--output_acr_metadata_embeddings_path"}
+    flags = {name: script_flags(script, paths) for name, script in G1_ACR_SCRIPTS.items()}
+    zero_launch_counts()
+    timed("acr_preprocess_gcom", acr_preprocess_gcom.main, [
+        "--input_articles_csv_path", str(articles), "--input_word_embeddings_path", str(w2v),
+        "--output_dir", str(pre), *flags["acr_preprocess_gcom"]])
+    inputs = ["--train_set_path_regex", str(pre / "articles_tokenized_*.tfrecord.gz"),
+              "--input_word_vocab_embeddings_path", str(pre / "acr_word_vocab_embeddings.pickle"),
+              "--input_label_encoders_path", str(pre / "acr_label_encoders.pickle")]
+    trainer_class = acr_trainer_gcom.ACRTrainer
+    timed_class, record = recording_acr_trainer(trainer_class)
+    acr_argv = inputs + ["--output_acr_metadata_embeddings_path", str(ace_path),
+                         *flags["acr_trainer_gcom"], "--training_epochs", G1_ACR_EPOCHS]
+    print(f"g1 acr: acr_trainer_gcom {' '.join(acr_argv[6:])}")
+    acr_trainer_gcom.ACRTrainer = timed_class
+    try:
+        timed("acr_trainer_gcom", acr_trainer_gcom.main, acr_argv)
+    finally:
+        acr_trainer_gcom.ACRTrainer = trainer_class
+    n_articles = G1_ACR_SPEC["num_articles"]
+    step_losses = torch.stack(record["step_losses"]).cpu().numpy()
+    trainer = record["trainer"]
+    print(f"g1 acr: autoencoder {record['steps']} steps at batch {trainer.cfg.batch_size}, "
+          f"{record['fit_ms'] / record['steps']:.3f} ms a step (CUDA events over the epoch), "
+          f"task loss first / last 20 steps {step_losses[:20].mean():.5f} / "
+          f"{step_losses[-20:].mean():.5f}")
+    check(len(step_losses) == record["steps"] and np.isfinite(step_losses).all(),
+          "g1 acr: autoencoder step losses")
+    shapes = {}
+    for method, ace_file in [("autoencoder", ace_path)] + [
+            (m, workdir / f"ace_{m}.pickle") for m in ("lsa", "w2v_tfidf", "doc2vec")]:
+        if method != "autoencoder":
+            timed(f"ace_baselines_cli {method}", ace_baselines_cli.main, inputs + [
+                "--method", method, "--output_acr_metadata_embeddings_path", str(ace_file),
+                "--acr_embeddings_size", "250", "--training_epochs", DOC2VEC_EPOCHS])
+        encoders, metadata, ace = pickle_load(ace_file)
+        width = 300 if method == "w2v_tfidf" else 250  # W2V-TF-IDF: the word width
+        row0_err = float(np.max(np.abs(ace[0] - ace[1:].mean(axis=0))))
+        shapes[method] = list(ace.shape)
+        check(ace.shape == (n_articles + 1, width) and np.isfinite(ace).all(),
+              f"g1 acr: {method} ACE matrix {ace.shape}")
+        check(row0_err <= 1e-6, f"g1 acr: {method} ACE row 0 is not the mean embedding")
+        check(set(encoders) == {"category_id", "article_id"} and len(metadata["article_id"])
+              == n_articles + 1, f"g1 acr: {method} handoff pickle")
+    counts = launch_counts()
+    print("g1 acr: ACE matrices " + ", ".join(f"{k} {v}" for k, v in shapes.items())
+          + "; walls (s) " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; kernel launches {counts}")
+    check(not any(counts.values()), f"g1 acr: a kernel launched: {counts}")
+    batch = {k: torch.as_tensor(v[:32], device="cuda") for k, v in record["articles"].items()}
+    weights = torch.ones(32, device="cuda")
+
+    def profile_autoencoder_step():
+        host_ms = cuda_ms(lambda: trainer.train_step(batch, weights), ACR_PROFILE_STEPS)
+        device_profile("g1 acr autoencoder train step (batch 32, GRU 512, 30 tokens)",
+                       lambda: trainer.train_step(batch, weights), ACR_PROFILE_STEPS, host_ms)
+
+    return counts, profile_autoencoder_step
 
 
 def train_cpu_vs_card(port, corpus_fn):
@@ -1885,14 +2280,22 @@ def main() -> int:
         )
         checkpoint_phase(port, harness, source, make, corpus)
         del harness, make
-    # ---- 6. the G1 pipeline through its CLIs, on the card ----
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as g1_workdir:
+        # ---- 6. the G1 pipeline through its CLIs, on the card ----
+        cli_counts = g1_cli_phase(Path(g1_workdir))
+        # ---- 7. the Adressa chain through its CLIs, on the card ----
+        with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
+            adressa_counts, profile_acr_step = adressa_cli_phase(Path(workdir))
+        # ---- 8. the dense train path with dropout at G1 width, counted ----
+        dropout_counts, profile_dropout_step = dropout_phase(
+            port, server, cfg, session_schema, article_schema, corpus)
+        # ---- 9. the G1 sweep through its CLI, on phase 6's files ----
+        sweep_counts = sweep_phase(Path(g1_workdir))
+    # ---- 10. G1 ACR and the ACE baselines through their CLIs ----
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
-        cli_counts = g1_cli_phase(Path(workdir))
-    # ---- 7. the Adressa chain through its CLIs, on the card ----
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
-        adressa_counts, profile_acr_step = adressa_cli_phase(Path(workdir))
+        g1_acr_counts, profile_autoencoder_step = g1_acr_phase(Path(workdir))
     paths = (serve_counts, eval_counts, train_counts, recompute_counts, harness_counts,
-             cli_counts, adressa_counts)
+             cli_counts, adressa_counts, dropout_counts, sweep_counts, g1_acr_counts)
     main_launches = {k: sum(path.get(k, 0) for path in paths)
                      for k in KERNEL_NAMES + UGRNN_INSTANTIATIONS}
     print(f"launches over the counted paths: {main_launches}")
@@ -2327,7 +2730,10 @@ def main() -> int:
           + ", ".join(f"T {t} {us / 1e3:.4f} ms" for t, us in chain.items())
           + f"; {(chain[19] - chain[1]) / 18:.2f} us a step")
 
-    profile_acr_step()  # the Adressa phase's ACR step, after every other profile
+    # the CLI phases' ACR steps and the dropout step, after every other profile
+    profile_acr_step()
+    profile_autoencoder_step()
+    profile_dropout_step()
 
     print(json.dumps({"kernels": [
         {

@@ -318,11 +318,6 @@ NOT_PORTED = {
     nar_trainer_adressa: {
         "--data_parallelism": (["--data_parallelism", "2"], "multi-GPU"),
         "--model_parallelism": (["--model_parallelism", "2"], "multi-GPU"),
-        "--dropout_keep_prob": (["--dropout_keep_prob", "0.8"], "dropout"),
-    },
-    acr_trainer_adressa: {
-        "--training_task": (["--training_task", "autoencoder"], "G1 ACR"),
-        "--dropout_keep_prob": (["--dropout_keep_prob", "0.5"], "dropout"),
     },
 }
 MISSING = {
@@ -362,3 +357,25 @@ def test_card_asked_without_a_card_exits(cli, monkeypatch, tmp_path):
         with pytest.raises(SystemExit, match="--platform cpu"):
             cli.main(MISSING[cli] + _out_args(cli, tmp_path) + platform)
     assert not (tmp_path / "m").exists()
+
+
+def test_dropout_and_autoencoder_flags_run(runs, tmp_path):
+    """``--dropout_keep_prob`` < 1 passes both trainers' parsers, and the
+    ACR trainer trains the denoising autoencoder (two GRU layers, dropout
+    between them, noise) on the port's preprocessed corpus, exporting the
+    handoff pickle: the flat encoders, the metadata, an [articles + 1, ACE]
+    matrix with the mean in row 0."""
+    assert nar_trainer_adressa.parse_args(
+        nar_argv(runs / "port", runs / "port") + ["--dropout_keep_prob", "0.8"]
+    ).dropout_keep_prob == 0.8
+    argv = acr_argv(runs / "port")
+    argv[argv.index("--output_acr_metadata_embeddings_path") + 1] = str(tmp_path / "ae.pkl")
+    acr_trainer_adressa.main(argv + [
+        "--training_task", "autoencoder", "--dropout_keep_prob", "0.8",
+        "--autoencoder_noise", "0.05", "--rnn_layers", "2", "--rnn_units", "16",
+        "--text_feature_extractor", "GRU"])
+    enc, meta, ace = pickle.loads((tmp_path / "ae.pkl").read_bytes())
+    port_enc, port_meta, port_ace = pickle.loads((runs / "port" / "ace.pickle").read_bytes())
+    assert enc == port_enc and list(meta) == list(port_meta)
+    assert ace.shape == port_ace.shape and np.isfinite(ace).all()
+    np.testing.assert_allclose(ace[0], ace[1:].mean(axis=0), atol=1e-6)

@@ -211,7 +211,6 @@ NOT_PORTED = {
     "--data_parallelism": (["--data_parallelism", "2"], "multi-GPU"),
     "--model_parallelism": (["--model_parallelism", "2"], "multi-GPU"),
     "--use_native_loader": (["--use_native_loader"], "native loader"),
-    "--dropout_keep_prob": (["--dropout_keep_prob", "0.8"], "dropout"),
 }
 MISSING = ["--train_set_path_regex", "/nonexistent/sessions_*.tfrecord.gz",
            "--acr_module_articles_metadata_csv_path", "/nonexistent/meta.csv",
@@ -229,8 +228,9 @@ def test_not_ported_flag_exits_before_reading(flag, capsys, tmp_path):
     assert flag in err and slice_name in err and "not ported" in err
     assert not (tmp_path / "m").exists()
     # the flag's default value and a value the port runs pass the check
-    args = nar_trainer_gcom.parse_args(MISSING + ["--model_parallelism", "1"])
-    assert args.dropout_keep_prob == 1.0 and args.data_parallelism == 0
+    args = nar_trainer_gcom.parse_args(MISSING + ["--model_parallelism", "1",
+                                                  "--dropout_keep_prob", "0.8"])
+    assert args.dropout_keep_prob == 0.8 and args.data_parallelism == 0
 
 
 def test_card_asked_without_a_card_exits(monkeypatch, tmp_path):

@@ -923,3 +923,104 @@ def test_adressa_chain_on_card_matches_cpu(card, raw, tmp_path, monkeypatch):
                 assert float(gpu_row[key]) == pytest.approx(float(value), abs=tol), key
             elif not key.endswith(("elapsed_s", "per_s")):
                 assert gpu_row[key] == value, key
+
+
+def _seeded_masks(monkeypatch, seed):
+    """Dropout masks and autoencoder noise from numpy, call by call: the CPU
+    run and the card run draw the same ones."""
+    from chameleon_recsys_tpu_torch.models import acr as acr_models
+    from chameleon_recsys_tpu_torch.ops import dropout as dropout_module
+
+    rng = np.random.RandomState(seed)
+    monkeypatch.setattr(dropout_module, "_draw_mask", lambda shape, keep, generator, device:
+                        torch.from_numpy(rng.rand(*shape) < keep).to(device))
+    monkeypatch.setattr(acr_models, "_draw_noise", lambda shape, generator, device:
+                        torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device))
+
+
+@pytest.mark.parametrize("capacity", [48, None], ids=["rows", "grid"])
+def test_dense_dropout_train_step_on_card_matches_cpu(card, capacity, monkeypatch):
+    """A train step at keep_prob 0.8 (the dense path) with the same masks and
+    uniforms on the CPU and on the card: K2f and K2b twice each on the card,
+    no fused-scorer kernel; the losses within 1e-4 and every gradient within
+    1e-4 of its norm, as ``_assert_steps_match``'s float32 case."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, sess, art = _tiny_eval_world()
+    cfg = dataclasses.replace(cfg, keep_prob=0.8, train_valid_row_capacity=capacity,
+                              negative_samples=5, negative_sample_from_buffer=30)
+    corpus = make_synthetic_corpus(art, ace_dim=8)
+    b, length = cfg.batch_size, cfg.max_session_length
+    warm = collate_sessions(synthetic_hour_sessions(corpus, sess, 0, b, length), sess, b, length)
+    batch = collate_sessions(synthetic_hour_sessions(corpus, sess, 1, b, length), sess, b, length)
+    pool = b * length + 30
+    nc = min(5 * cfg.neg_sampling_multiplying_factor, pool)
+    rng = np.random.RandomState(4)
+    uniforms = SamplerUniforms(*(torch.from_numpy(rng.uniform(size=s).astype(np.float32))
+                                 for s in ((128,), (pool,),
+                                           (capacity, nc) if capacity else (b, length, nc))))
+    results = {}
+    for device in ("cpu", card):
+        _seeded_masks(monkeypatch, 5)
+        model = port.NARModel(cfg, sess, art, 8)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model = model.to(device)
+        stream = update_stream_state(init_stream_state(cfg, 200, device=device),
+                                     *_batch_all_clicks({k: torch.from_numpy(v).to(device)
+                                                         for k, v in warm.items()}), cfg)
+        counts = [cand_scorer.launches, cand_scorer.stash_launches, cand_scorer.bwd_launches,
+                  cand_scorer.bwd_recompute_launches, ugrnn.launches, ugrnn.bwd_launches]
+        _, metrics = train_step(
+            init_train_state(model, stream, torch.Generator(device=device)),
+            {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+            torch.from_numpy(corpus.ace_matrix).to(device),
+            {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in corpus.metadata.items()},
+            uniforms=SamplerUniforms(*(u.to(device) for u in uniforms)))
+        if device == card:
+            torch.cuda.synchronize()
+            counts = [n - c for n, c in zip(
+                [cand_scorer.launches, cand_scorer.stash_launches, cand_scorer.bwd_launches,
+                 cand_scorer.bwd_recompute_launches, ugrnn.launches, ugrnn.bwd_launches],
+                counts)]
+            assert counts == [0, 0, 0, 0, 2, 2], counts
+        results[str(device)] = (metrics, {n: p.grad.detach().cpu()
+                                          for n, p in model.named_parameters()})
+    (cpu_metrics, cpu_grads), (gpu_metrics, gpu_grads) = results["cpu"], results[str(card)]
+    for key in ("loss", "ce_loss"):
+        assert float(gpu_metrics[key]) == pytest.approx(float(cpu_metrics[key]), rel=1e-4)
+    for name, g in cpu_grads.items():
+        assert (gpu_grads[name] - g).norm() <= 1e-4 * g.norm() + 1e-5, name
+
+
+@pytest.mark.parametrize("direction", ["unidirectional", "bidirectional"])
+def test_acr_autoencoder_steps_on_card_match_cpu(card, direction, monkeypatch):
+    """20 autoencoder steps (two GRU layers, noise 0.05 and dropout 0.8 from
+    the same numpy draws) from the same weights on the CPU and on the card:
+    the task losses and the ACE at the tolerances of the ACR card test."""
+    from chameleon_recsys_tpu_torch.acr.trainer import ACRTrainer
+    from chameleon_recsys_tpu_torch.config import ACRConfig
+
+    class RecordingTrainer(ACRTrainer):
+        def train_step(self, batch, weights):
+            loss, task_loss = super().train_step(batch, weights)
+            self.task_losses.append(task_loss)
+            return loss, task_loss
+
+    word_emb, articles, _ = _acr_corpus()
+    articles = {k: articles[k] for k in ("article_id", "text", "text_length")}
+    cfg = ACRConfig(training_task="autoencoder", text_feature_extractor="GRU",
+                    rnn_direction=direction, rnn_layers=2, rnn_units=16,
+                    autoencoder_noise=0.05, dropout_keep_prob=0.8, word_embedding_size=32,
+                    vocab_size=300, truncate_tokens_length=40, acr_embeddings_size=24,
+                    batch_size=8, training_epochs=1, learning_rate=1e-3, l2_reg_lambda=1e-5)
+    runs = {}
+    for device in ("cpu", card):
+        _seeded_masks(monkeypatch, 6)
+        trainer = RecordingTrainer(cfg, word_emb, device=device)
+        trainer.task_losses = []
+        trainer.fit(articles)
+        runs[str(device)] = (torch.stack(trainer.task_losses).cpu().numpy(),
+                             trainer.build_ace_matrix(articles))
+    (cpu_losses, cpu_ace), (gpu_losses, gpu_ace) = runs["cpu"], runs[str(card)]
+    assert len(cpu_losses) == 20 and np.isfinite(cpu_losses).all()
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=ACR_CARD_TOL["loss"], atol=0)
+    np.testing.assert_allclose(gpu_ace, cpu_ace, rtol=0, atol=ACR_CARD_TOL["ace"])

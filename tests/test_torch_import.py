@@ -53,6 +53,12 @@ import chameleon_recsys_tpu_torch.cli.acr_preprocess_adressa
 import chameleon_recsys_tpu_torch.cli.acr_trainer_adressa
 import chameleon_recsys_tpu_torch.cli.nar_preprocess_adressa
 import chameleon_recsys_tpu_torch.cli.nar_trainer_adressa
+import chameleon_recsys_tpu_torch.ops.dropout
+import chameleon_recsys_tpu_torch.train.sweep
+import chameleon_recsys_tpu_torch.acr.ace_baselines
+import chameleon_recsys_tpu_torch.cli.acr_trainer_gcom
+import chameleon_recsys_tpu_torch.cli.ace_baselines_cli
+import chameleon_recsys_tpu_torch.cli.nar_hypertuning_gcom
 loaded = [m for m in sys.modules
           if m == "chameleon_recsys_tpu" or m.startswith("chameleon_recsys_tpu.")]
 jax = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]

@@ -449,10 +449,6 @@ def test_train_step_raises_on_what_is_not_ported(world):
         train_valid_row_capacity=16, train_compaction_groups=2))
     with pytest.raises(NotImplementedError, match="groups"):
         train_step(state, to_torch(world["batches"][0]), ace, metadata)
-    state, ace, metadata = port_setup(world, config(keep_prob=0.8))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        train_step(state, to_torch(world["batches"][0]), ace, metadata,
-                   uniforms=None)
 
 
 def test_train_scorer_operands_are_the_train_steps(world):
