@@ -4,7 +4,9 @@ The port's copies of ``chameleon_recsys_tpu/baselines``: the benchmark
 contract (``benchmarks.py``), the six classical baselines of the G1 trainer
 (recently popular, item co-occurrence, item-kNN, session-kNN on its numpy
 path, content-based, sequential rules) and the host candidate sampler.  The
-neural baselines (GRU4Rec, SR-GNN) come with a later slice.
+external neural baselines run on their own temporal loop
+(``neural_runner.py``): ``gru4rec.GRU4Rec`` and ``sr_gnn.SRGNN``, imported
+from their modules.
 """
 from .benchmarks import BenchmarkRecommender, StreamStateView
 from .candidate_sampling import CandidateSamplingManager

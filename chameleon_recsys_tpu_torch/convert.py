@@ -22,6 +22,12 @@ GRU or LSTM stack's layers (``layer_{k}``, ``layer_{k}_bwd``) the
 ``weight_ih_l{k}[_reverse]``, ``weight_hh_…`` and ``bias_…`` of one
 ``nn.GRU`` / ``nn.LSTM``, the LSTM's forget bias added to ``bias_hh``.
 
+``gru4rec_params_from_jax`` and ``srgnn_params_from_jax`` take the fields of
+the JAX baselines' parameter NamedTuples (``GRU4RecParams``,
+``SRGNNParams``, e.g. ``params._asdict()`` with numpy leaves) to a
+``state_dict`` of the port's modules of the same names: a tuple field's
+entries become ``<field>.<i>``, the layouts stay as they are.
+
 ``checkpoint_from_jax`` turns a JAX harness checkpoint, given as numpy trees
 (unpickling the JAX file needs the JAX package, which this one never
 imports), into a checkpoint of this package's format: the params through
@@ -198,6 +204,34 @@ def _check_state(state: Mapping[str, torch.Tensor], expected: Mapping[str, torch
                 f"{key}: Flax shape {tuple(tensor.shape)} != model shape "
                 f"{tuple(expected[key].shape)}"
             )
+
+
+def _fields_state(fields: Mapping[str, Any], model: nn.Module) -> Dict[str, torch.Tensor]:
+    state = {}
+    for name, value in fields.items():
+        leaves = enumerate(value) if isinstance(value, (tuple, list)) else [(None, value)]
+        for i, leaf in leaves:
+            key = name if i is None else f"{name}.{i}"
+            state[key] = torch.tensor(np.asarray(leaf, np.float32))
+    _check_state(state, model.state_dict())
+    return state
+
+
+def gru4rec_params_from_jax(fields: Mapping[str, Any],
+                            model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``GRU4RecParams`` fields (``wx``, ``wh``, ``wrz``, ``bh`` per
+    layer; ``wy``, ``by``) -> ``state_dict`` for a
+    ``baselines.gru4rec.GRU4RecParams``; a missing, extra or misshapen
+    parameter raises."""
+    return _fields_state(fields, model)
+
+
+def srgnn_params_from_jax(fields: Mapping[str, Any],
+                          model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``SRGNNParams`` fields -> ``state_dict`` for a
+    ``baselines.sr_gnn.SRGNNParams``; a missing, extra or misshapen
+    parameter raises."""
+    return _fields_state(fields, model)
 
 
 _STREAM_DTYPES = {

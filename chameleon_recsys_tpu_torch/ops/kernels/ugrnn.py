@@ -29,6 +29,9 @@ by the pure width predicate ``resident_takes`` (the same answer on the CPU):
 - *streaming* (every wider U up to 1024): one block per two batch rows, one
   thread per unit, W_hh read from L2 every step.
 
+Past 1024 units neither takes the width (``kernel_takes``); the wrappers
+raise there, and ``ops/rnn.py`` runs the plain scan instead.
+
 Numerics follow the Pallas kernel, not ``ops.rnn.ugrnn_scan``: inputs are
 widened to f32, h and the gates stay f32 for the whole sequence, and the
 output is rounded once to x_proj's dtype.
@@ -116,6 +119,16 @@ def resident_takes(units: int, dtype: torch.dtype, train: bool = False) -> bool:
     if _resident_layout(units, dtype, bwd=False) is None:
         return False
     return not train or _resident_layout(units, dtype, bwd=True) is not None
+
+
+def kernel_takes(units: int, dtype: torch.dtype) -> bool:
+    """Whether the card's kernels take this width on one instantiation or
+    the other, the forward and the backward alike: a dtype they are built
+    for, and at most the streaming kernels' 1024 units (one thread a unit;
+    every resident width is narrower).  A pure function of the widths, the
+    same on the CPU: the gate of ``ops/rnn.py``, which runs the plain scan
+    past it, as the JAX package's scan runs at any width."""
+    return dtype in _DTYPE_CODES and 0 < units <= _MAX_UNITS
 
 
 def ugrnn_scan_reference(

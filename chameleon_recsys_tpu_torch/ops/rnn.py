@@ -40,7 +40,7 @@ import torch
 from torch import nn
 
 from .dropout import dropout
-from .kernels.ugrnn import UGRNNScan, ugrnn_scan_kernel
+from .kernels.ugrnn import UGRNNScan, kernel_takes, ugrnn_scan_kernel
 
 
 def ugrnn_scan(
@@ -71,7 +71,8 @@ class UGRNNLayer(nn.Module):
     """One UGRNN layer.  ``use_kernel`` runs the recurrence through the
     hand-written CUDA kernels (f32 state, as the TPU kernel keeps it): the
     forward alone with grad off, ``UGRNNScan`` (forward and backward
-    kernels) with grad on."""
+    kernels) with grad on.  Widths the kernels do not take
+    (``kernel_takes``) run the plain scan."""
 
     def __init__(
         self,
@@ -94,7 +95,7 @@ class UGRNNLayer(nn.Module):
             self.input_proj.bias.to(dt)
         )
         w_hh = self.recurrent_kernel.to(dt)
-        if self.use_kernel:
+        if self.use_kernel and kernel_takes(self.units, dt):
             operands = (x_proj.contiguous(), w_hh.contiguous(), mask)
             if torch.is_grad_enabled():
                 return UGRNNScan.apply(*operands, self.forget_bias)

@@ -17,7 +17,8 @@ pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
 ``nar_trainer_adressa``), the dense train path with dropout, the G1 sweep
 (``cli.nar_hypertuning_gcom``) and G1 ACR with the ACE baselines
 (``cli.acr_preprocess_gcom`` -> ``acr_trainer_gcom``, ``ace_baselines_cli``),
-and every hand-written kernel of those paths:
+the neural baselines through their CLIs (``cli.run_gru4rec``,
+``cli.run_sr_gnn``), and every hand-written kernel of those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
    per source, started together) and reports the build time and what ptxas
@@ -86,12 +87,12 @@ and every hand-written kernel of those paths:
    phases, HR@5 and MRR@5 per recommender and the peak device memory; then
    20 ACR steps at the published width on the CPU and on the card from the
    same weights and batches, the losses and the ACE held against each
-   other (the ACR step's device busy share is profiled last, after 14);
+   other (the ACR step's device busy share is profiled last, after 15);
 8. the dense train path with dropout, counted: the G1 config at keep_prob
    0.8 with the UGRNN kernels on, compaction at the bench's capacity, ten
    steps (per step K2f and K2b twice, no scorer kernel), timed by CUDA
    events with the peak device memory, its busy share and top device
-   operations profiled after 14; then one dense step of a small float32
+   operations profiled after 15; then one dense step of a small float32
    model on the CPU and on the card with the same dropout masks;
 9. the G1 sweep through ``nar_hypertuning_gcom.main`` on phase 6's session
    files 0-5 with ``scripts/run_nar_train_gcom_full.sh``'s flags and an ML
@@ -102,10 +103,23 @@ and every hand-written kernel of those paths:
    word2vec file, ``acr_preprocess_gcom`` and ``acr_trainer_gcom`` (the GRU
    autoencoder) with their ``scripts/run_*`` flags cut to one epoch, then
    ``ace_baselines_cli`` for LSA, W2V-TF-IDF and doc2vec (5 epochs): each
-   wall, the autoencoder's ms a step (its busy share profiled after 14),
+   wall, the autoencoder's ms a step (its busy share profiled after 15),
    each ACE matrix's shape ([13,001, 250], W2V-TF-IDF the word width 300)
    with row 0 the mean, no kernel launch;
-11. holds each kernel against its plain PyTorch twin on the card: the UGRNN
+11. the neural baselines through their CLIs, on the card, on phase 6's
+   session files 0-10 and the eval negatives its trainer wrote:
+   ``run_gru4rec`` with ``scripts/run_gru4rec_gcom.sh``'s flags (364,047
+   items, one GRU layer of 300, bpr-max 0.5, 200 negatives, batch 128) and
+   ``run_sr_gnn`` with its defaults (hidden 100, one GNN step) at the same
+   ``--num_items``; checks each run, its eval CSV (two rows, the model's
+   columns, finite) and that no kernel launched; prints each CLI's wall,
+   every train and eval hour's wall, the peak device memory, GRU4Rec's
+   parameter and optimizer-state bytes and its dense update's time, a train
+   step's time by CUDA events (its busy share and top device operations
+   profiled after 15); then a few steps of each at that width on the CPU
+   and on the card from the same weights and draws, the losses and the
+   parameters held against each other;
+12. holds each kernel against its plain PyTorch twin on the card: the UGRNN
    forward at batch 1, 32 and 256 and the backward at the train shape (from
    the forward's f32 stash, against the twin that recomputes the gates; the
    stash against that recompute), the UGRNN streaming instantiations at
@@ -116,10 +130,10 @@ and every hand-written kernel of those paths:
    (``train_scorer_operands``; the recompute backward also bit for bit
    against the stash backward on the stash forward's nc), and all of them on
    random operands at the G1 shapes, a float32 shape and an odd shape;
-12. checks the served scores, one eval step and one train step against the
+13. checks the served scores, one eval step and one train step against the
    same code on the CPU, where the kernel wrappers run their plain twins, on
    a small float32 input;
-13. times each kernel, its plain twin, ``recommend``, the eval step and the
+14. times each kernel, its plain twin, ``recommend``, the eval step and the
    train step (with the stash and without) with CUDA events or a
    synchronised host clock, and breaks one request, one eval step and one
    train step with the stash and one without down by device kernel (torch
@@ -139,7 +153,7 @@ and every hand-written kernel of those paths:
    its chain launch at T 1, 4 and 19 (torch profiler, every record kept:
    a session that is not ``calls`` repeats of one launch sequence is
    profiled again, eight times at most);
-14. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
+15. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
    against ``torch.matmul`` at dpre's shape (134,400 x 1024 by 1024^T, bf16)
    and times both (its own line: it is no TPU kernel), splits one backward
    (K1b) at the train path's operands by device launch (torch profiler),
@@ -171,6 +185,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from chameleon_recsys_tpu_torch.utils.profiling import cuda_ms, device_profile, launch_split
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM
 H100_F32_FLOP_PER_S = 67e12  # CUDA cores, no tensor cores
@@ -250,6 +266,15 @@ G1_ACR_SCRIPTS = {
 }
 G1_ACR_EPOCHS = "1"
 DOC2VEC_EPOCHS = "5"
+# the neural baselines through their CLIs on phase 6's session files: GRU4Rec
+# with its script's flags, SR-GNN with its CLI's defaults at the script's
+# --num_items; NEURAL_CPU_STEPS steps of each at that width on the CPU and on
+# the card (f32, TF32 off) from the same weights and draws: each step's loss
+# (relative) and each parameter (normwise); NEURAL_PROFILE_STEPS profiled steps
+GRU4REC_SCRIPT = "scripts/run_gru4rec_gcom.sh"
+NEURAL_CPU_STEPS = 3
+NEURAL_CARD_TOL = 1e-4
+NEURAL_PROFILE_STEPS = 5
 KERNELS = ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd", "cand_score_bwd")  # sources
 KERNEL_NAMES = ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd", "cand_score_fwd_stash",
                 "cand_score_bwd", "cand_score_bwd_recompute")
@@ -374,19 +399,6 @@ def warm_stream(stream, batches, cfg, device):
             stream, *_batch_all_clicks(to_device(batch, device)), cfg
         )
     return stream
-
-
-def cuda_ms(fn, iters, warmup=5):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def queued_ms(fn, iters, warmup=5):
@@ -664,43 +676,6 @@ def scorer_inputs(bt, k, c, m1, m2, m3, dtype, seed):
     ]
 
 
-def launch_split(fn, calls):
-    """[(kernel name, mean device us)] for each launch of one ``fn()`` call,
-    in launch order, over ``calls`` profiled calls (torch profiler, device
-    events only).  A session counts only where its device events are
-    ``calls`` repeats of one launch sequence, every record kept; the
-    profiler now and then records no device event, or one of an earlier
-    session, so a session that is not is profiled again, and after eight
-    such sessions the split fails."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(8):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        names = [e.name for e in events]
-        per_call = len(events) // calls
-        if (events and per_call * calls == len(events)
-                and names == names[:per_call] * calls):
-            return [
-                (events[i].name,
-                 sum(events[c * per_call + i].time_range.elapsed_us()
-                     for c in range(calls)) / calls)
-                for i in range(per_call)
-            ]
-        print(f"launch split: {len(events)} device events over {calls} calls, not "
-              f"{calls} repeats of one sequence; profiling again")
-    check(False, f"launch split: no even session in eight over {calls} calls: "
-                 + ", ".join(f"{name[:60]} x{n}" for name, n in
-                             collections.Counter(e.name for e in events).items()))
-
-
 def print_split(label, split):
     total = sum(us for _, us in split)
     print(f"split {label}: {len(split)} launches, {total / 1e3:.4f} ms device time")
@@ -724,32 +699,19 @@ def ptxas_entries(log):
     return entries
 
 
-def device_profile(label, fn, calls, host_ms):
-    """Device time by kernel over ``calls`` calls of ``fn`` (torch profiler,
-    device-side events only), and that time's share of the unprofiled
-    ``host_ms`` per call: the share of a call the card is busy."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [
-        (e.key, e.self_device_time_total, e.count)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    if not kernels:
+def print_profile(label, fn, calls, host_ms):
+    """Prints ``device_profile`` over ``calls`` calls of ``fn``: the card's
+    busy time and launches a call, its share of the unprofiled ``host_ms`` a
+    call (the share of a call the card is busy) and the top kernels."""
+    prof = device_profile(fn, calls)
+    if prof is None:
         print(f"profile {label}: the profiler saw no device time")
         return
-    busy_us = sum(k[1] for k in kernels) / calls
-    launches = sum(k[2] for k in kernels) / calls
-    print(f"profile {label}: device busy {busy_us:.1f} us per call, "
-          f"{launches:.0f} device kernels/copies per call; busy share of the "
-          f"unprofiled {host_ms:.3f} ms {busy_us / (host_ms * 1e3):.3f}")
-    for name, us, count in sorted(kernels, key=lambda k: -k[1])[:8]:
-        print(f"  {us / calls:9.1f} us/call  x{count / calls:<5.1f} {name[:100]}")
+    print(f"profile {label}: device busy {prof.busy_us:.1f} us per call, "
+          f"{prof.launches:.0f} device kernels/copies per call; busy share of the "
+          f"unprofiled {host_ms:.3f} ms {prof.busy_share(host_ms):.3f}")
+    for name, us, count in prof.kernels[:8]:
+        print(f"  {us:9.1f} us/call  x{count:<5.1f} {name[:100]}")
 
 
 def gemm_core_phase(rows, c):
@@ -1557,9 +1519,9 @@ def adressa_cli_phase(workdir):
 
     def profile_acr_step():
         host_ms = cuda_ms(lambda: trainer.train_step(batch, weights), ACR_PROFILE_STEPS)
-        device_profile("adressa acr train step (batch 8, CNN)",
-                       lambda: trainer.train_step(batch, weights), ACR_PROFILE_STEPS,
-                       host_ms)
+        print_profile("adressa acr train step (batch 8, CNN)",
+                      lambda: trainer.train_step(batch, weights), ACR_PROFILE_STEPS,
+                      host_ms)
 
     zoneinfo.ZoneInfo("Europe/Oslo")  # raises where the tz database lacks it
     timed("nar_preprocess_adressa", nar_preprocess_adressa.main, [
@@ -1752,8 +1714,8 @@ def dropout_phase(port, server, cfg, session_schema, article_schema, corpus):
     dropout_cpu_vs_card(port, make_synthetic_corpus)
 
     def profile_dropout_step():
-        device_profile(f"dropout train step (keep {DROPOUT_KEEP}, capacity {capacity})",
-                       lambda: step(0), 3, device_ms)
+        print_profile(f"dropout train step (keep {DROPOUT_KEEP}, capacity {capacity})",
+                      lambda: step(0), 3, device_ms)
 
     return counts, profile_dropout_step
 
@@ -1934,10 +1896,200 @@ def g1_acr_phase(workdir):
 
     def profile_autoencoder_step():
         host_ms = cuda_ms(lambda: trainer.train_step(batch, weights), ACR_PROFILE_STEPS)
-        device_profile("g1 acr autoencoder train step (batch 32, GRU 512, 30 tokens)",
-                       lambda: trainer.train_step(batch, weights), ACR_PROFILE_STEPS, host_ms)
+        print_profile("g1 acr autoencoder train step (batch 32, GRU 512, 30 tokens)",
+                      lambda: trainer.train_step(batch, weights), ACR_PROFILE_STEPS, host_ms)
 
     return counts, profile_autoencoder_step
+
+
+@contextlib.contextmanager
+def timed_neural_runner(label):
+    """Within the block the neural CLIs' runner times every train and eval
+    hour (synchronised host clock), prints each eval hour's wall and
+    records itself; yields ``(walls, record)``."""
+    from chameleon_recsys_tpu_torch.cli import run_gru4rec
+
+    walls = {"train": [], "eval": []}
+    record = {}
+    base = run_gru4rec.NeuralBaselineRunner
+
+    class TimedRunner(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            record["runner"] = self
+
+        def train_hour(self, sessions, update_buffer=True):
+            t0 = time.perf_counter()
+            loss = super().train_hour(sessions, update_buffer)
+            torch.cuda.synchronize()
+            walls["train"].append(time.perf_counter() - t0)
+            return loss
+
+        def evaluate_hour(self, sessions):
+            t0 = time.perf_counter()
+            row = super().evaluate_hour(sessions)
+            torch.cuda.synchronize()
+            walls["eval"].append(time.perf_counter() - t0)
+            print(f"{label} eval hour {len(walls['eval'])}: {len(sessions)} sessions, "
+                  f"{walls['eval'][-1]:.3f} s wall")
+            return row
+
+    run_gru4rec.NeuralBaselineRunner = TimedRunner
+    try:
+        yield walls, record
+    finally:
+        run_gru4rec.NeuralBaselineRunner = base
+
+
+def neural_cpu_vs_card(batches, buffer_ids, num_items):
+    """``NEURAL_CPU_STEPS`` steps of GRU4Rec (the script's widths) and of
+    SR-GNN (the CLI's defaults) at ``num_items`` on the CPU and on the card,
+    from the same weights (both initialise from a CPU generator of one seed)
+    and the same negatives (GRU4Rec's drawn by one numpy generator in place
+    of its own, SR-GNN's numpy draws from one seed); holds each step's loss
+    (relative) and each parameter (normwise) within ``NEURAL_CARD_TOL``."""
+    from chameleon_recsys_tpu_torch.baselines import gru4rec
+    from chameleon_recsys_tpu_torch.baselines.sr_gnn import SRGNN, SRGNNSessionAdapter
+
+    draw = gru4rec._draw_negative_indices
+    makers = {
+        "gru4rec": lambda device: gru4rec.GRU4Rec(num_items, layers=(300,), loss="bpr-max",
+                                                  bpreg=0.5, n_sample=200, device=device),
+        "sr-gnn": lambda device: SRGNNSessionAdapter(SRGNN(num_items, device=device)),
+    }
+    try:
+        for name, make in makers.items():
+            runs = []
+            for device in ("cpu", "cuda"):
+                rng = np.random.RandomState(0)
+                gru4rec._draw_negative_indices = lambda n, n_valid, g: torch.from_numpy(
+                    rng.randint(0, n_valid, n)).to(g.device)
+                model = make(device)
+                losses = np.array([float(model.fit_batch(items, labels, buffer_ids))
+                                   for items, labels in batches[:NEURAL_CPU_STEPS]])
+                params = getattr(model, "model", model).params
+                runs.append((losses, {n: p.detach().cpu() for n, p in params.named_parameters()}))
+                del model, params
+            (cpu_losses, cpu_params), (card_losses, card_params) = runs
+            loss_err = float(np.max(np.abs(card_losses - cpu_losses) / np.abs(cpu_losses)))
+            param_err = max(float((card_params[n] - p).norm() / p.norm())
+                            for n, p in cpu_params.items())
+            print(f"neural cpu vs card {name}: {len(cpu_losses)} steps at batch "
+                  f"{batches[0][0].shape[0]}, {num_items} items, loss {cpu_losses[0]:.5f} -> "
+                  f"{cpu_losses[-1]:.5f}; max relative loss difference {loss_err:.3e}, max "
+                  f"parameter difference (normwise) {param_err:.3e} (tolerance "
+                  f"{NEURAL_CARD_TOL})")
+            check(np.isfinite(cpu_losses).all() and len(cpu_losses) == NEURAL_CPU_STEPS,
+                  f"neural cpu vs card {name}: losses")
+            check(loss_err <= NEURAL_CARD_TOL and param_err <= NEURAL_CARD_TOL,
+                  f"neural cpu vs card {name}: the card differs from the CPU")
+    finally:
+        gru4rec._draw_negative_indices = draw
+
+
+def neural_cli_phase(workdir):
+    """(11) The neural baselines through the port's CLIs on phase 6's session
+    files and the eval negatives its trainer wrote: ``run_gru4rec`` with
+    ``GRU4REC_SCRIPT``'s flags and ``run_sr_gnn`` with its defaults at the
+    script's ``--num_items``, each on the card with the launch counters zeroed
+    just before and read just after.  Checks each run, its eval CSV and that
+    no kernel launched; prints the walls, the peak device memory, GRU4Rec's
+    memory and dense update, and each model's train step by CUDA events;
+    then ``neural_cpu_vs_card``.  Returns the launches and a function that
+    profiles each model's train step."""
+    from chameleon_recsys_tpu_torch.cli import run_gru4rec, run_sr_gnn
+    from chameleon_recsys_tpu_torch.data.collate import batches_from_sessions
+    from chameleon_recsys_tpu_torch.data.sessions import read_sessions_tfrecord
+
+    pattern = workdir / "bundle" / "sessions" / "sessions_hour_*.tfrecord.gz"
+    negatives = workdir / "model" / "eval_sessions_negative_samples.json"
+    check(negatives.is_file(), "neural cli: phase 6 wrote no eval negatives")
+    flags = script_flags(GRU4REC_SCRIPT, {"--train_set_path_regex", "--output_csv",
+                                          "--eval_sessions_negative_samples_json_path"})
+    num_items = flags[flags.index("--num_items") + 1]
+    common = ["--train_set_path_regex", str(pattern),
+              "--eval_sessions_negative_samples_json_path", str(negatives)]
+    runs = {"gru4rec": (run_gru4rec, flags), "sr-gnn": (run_sr_gnn, ["--num_items", num_items])}
+    counts, models, expected_rows = collections.Counter(), {}, (G1_CLI_FILES - 1) // 5
+    for name, (module, extra) in runs.items():
+        label = f"neural cli {name}"
+        csv_path = workdir / f"{name}_eval.csv"
+        argv = common + extra + ["--output_csv", str(csv_path)]
+        print(f"{label}: {module.__name__.rsplit('.', 1)[1]} {' '.join(extra)}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        memory_before = torch.cuda.max_memory_allocated()
+        with timed_neural_runner(label) as (walls, record):
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                module.main(argv)
+                rc = 0
+            except SystemExit as exit_info:  # main exits only on an error
+                rc = exit_info.code
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            run_counts = launch_counts()
+        memory_peak = torch.cuda.max_memory_allocated()
+        print(f"{label}: rc {rc}, {run_s:.3f} s wall; train hours (extra epochs included) "
+              + ", ".join(f"{w:.3f}" for w in walls["train"]) + " s wall; eval hours "
+              + ", ".join(f"{w:.3f}" for w in walls["eval"])
+              + f" s wall, {statistics.mean(walls['eval'] or [0.0]):.3f} s an eval hour; "
+              f"peak device memory {memory_peak / 2**30:.3f} GiB (before "
+              f"{memory_before / 2**30:.3f}); kernel launches {run_counts}")
+        check(rc in (0, None), f"{label}: {module.__name__} exited with {rc}")
+        check(memory_peak > memory_before, f"{label}: the steps did not run on the card")
+        check(not any(run_counts.values()), f"{label}: a kernel launched: {run_counts}")
+        with open(csv_path) as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == expected_rows, f"{label}: {len(rows)} eval rows, expected "
+              f"{expected_rows}")
+        for i, row in enumerate(rows):
+            check(f"hitrate_at_n_{name}" in row and f"mrr_at_n_{name}" in row,
+                  f"{label}: eval row {i} lacks the model's columns")
+            check(all(np.isfinite(float(v)) for v in row.values()),
+                  f"{label}: eval row {i}: a column is not finite")
+            print(f"{label} eval row {i}: eval_hour {row['eval_hour']}, hitrate_at_n "
+                  f"{float(row[f'hitrate_at_n_{name}']):.4f}, mrr_at_n "
+                  f"{float(row[f'mrr_at_n_{name}']):.4f}")
+        counts.update(run_counts)
+        models[name] = record["runner"]
+
+    # a train batch of hour 0 at the CLI's batch and length, the GRU4Rec
+    # runner's last buffer as the negatives' pool
+    schema = run_gru4rec.minimal_session_schema(int(num_items))
+    hour0 = read_sessions_tfrecord(sorted(pattern.parent.glob(pattern.name))[0], schema)
+    batches = [(b["item_clicked"], b["label_next_item"])
+               for b in batches_from_sessions(hour0, schema, 128, 20)]
+    buffer_ids = models["gru4rec"]._buffer_ids()
+    gru = models["gru4rec"].model
+    n_params = sum(p.numel() for p in gru.params.parameters())
+    state_bytes = sum(t.numel() * t.element_size() for s in gru.optimizer.state.values()
+                      for t in s.values() if torch.is_tensor(t))
+    items, labels = batches[0]
+    gru.fit_batch(items, labels, buffer_ids)  # leaves the gradients for the update alone
+    update_ms = cuda_ms(gru.optimizer.step, iters=10, warmup=2)
+    update_bytes = 5 * 4 * n_params  # read p, g, acc; write p, acc
+    print(f"neural cli gru4rec memory: {n_params} parameters, {n_params * 4 / 1e9:.3f} GB; "
+          f"with their gradients and Adagrad's accumulator ({state_bytes / 1e9:.3f} GB) "
+          f"{(2 * n_params * 4 + state_bytes) / 1e9:.3f} GB; the dense update (CUDA events "
+          f"over 10) {update_ms:.3f} ms, {update_bytes / 1e9:.3f} GB at the least "
+          f"(p, g, acc read, p, acc written), {update_bytes / update_ms / 1e9:.3f} TB/s of it")
+    step_ms = {}
+    for name, runner in models.items():
+        step_ms[name] = cuda_ms(lambda: runner.model.fit_batch(items, labels, buffer_ids),
+                                iters=10, warmup=2)
+        print(f"neural cli {name} train step (batch {items.shape[0]}, CUDA events over 10 "
+              f"steps): {step_ms[name]:.3f} ms")
+    neural_cpu_vs_card(batches, buffer_ids, int(num_items))
+
+    def profile_neural_steps():
+        for name, runner in models.items():
+            print_profile(f"neural cli {name} train step (batch {items.shape[0]})",
+                          lambda: runner.model.fit_batch(items, labels, buffer_ids),
+                          NEURAL_PROFILE_STEPS, step_ms[name])
+
+    return dict(counts), profile_neural_steps
 
 
 def train_cpu_vs_card(port, corpus_fn):
@@ -2291,11 +2443,14 @@ def main() -> int:
             port, server, cfg, session_schema, article_schema, corpus)
         # ---- 9. the G1 sweep through its CLI, on phase 6's files ----
         sweep_counts = sweep_phase(Path(g1_workdir))
-    # ---- 10. G1 ACR and the ACE baselines through their CLIs ----
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
-        g1_acr_counts, profile_autoencoder_step = g1_acr_phase(Path(workdir))
+        # ---- 10. G1 ACR and the ACE baselines through their CLIs ----
+        with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
+            g1_acr_counts, profile_autoencoder_step = g1_acr_phase(Path(workdir))
+        # ---- 11. the neural baselines through their CLIs, on phase 6's files ----
+        neural_counts, profile_neural_steps = neural_cli_phase(Path(g1_workdir))
     paths = (serve_counts, eval_counts, train_counts, recompute_counts, harness_counts,
-             cli_counts, adressa_counts, dropout_counts, sweep_counts, g1_acr_counts)
+             cli_counts, adressa_counts, dropout_counts, sweep_counts, g1_acr_counts,
+             neural_counts)
     main_launches = {k: sum(path.get(k, 0) for path in paths)
                      for k in KERNEL_NAMES + UGRNN_INSTANTIATIONS}
     print(f"launches over the counted paths: {main_launches}")
@@ -2573,7 +2728,7 @@ def main() -> int:
               f"{p50[bs]:.3f} ms, p99 {times[98]:.3f} ms, max {times[-1]:.3f} ms "
               f"over {len(times)} calls")
     cand32 = np.broadcast_to(pool, (32, NUM_CANDIDATES))
-    device_profile(
+    print_profile(
         "recommend b32",
         lambda: server.recommend(sessions[:32], candidates=cand32, top_k=TOP_K),
         10, p50[32],
@@ -2591,7 +2746,7 @@ def main() -> int:
     print(f"eval_step b{cfg.batch_size} (CUDA events over 20 steps): "
           f"{step_ms:.3f} ms per batch, {sessions_per_batch / step_ms * 1e3:.1f} "
           f"sessions/s")
-    device_profile("eval_step", one_eval_step, 5, step_ms)
+    print_profile("eval_step", one_eval_step, 5, step_ms)
 
     # the train path's kernels at the compacted G1 train shape
     with torch.no_grad():
@@ -2705,10 +2860,10 @@ def main() -> int:
           f"steps): {train_ms:.3f} ms per batch, "
           f"{train_sessions / train_ms * 1e3:.1f} sessions/s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    device_profile("train_step", one_train_step, 3, train_ms)
+    print_profile("train_step", one_train_step, 3, train_ms)
     cand_scorer._STASH_NC = False
     nostash_ms = cuda_ms(one_train_step, iters=10, warmup=2)
-    device_profile("train_step without the stash", one_train_step, 3, nostash_ms)
+    print_profile("train_step without the stash", one_train_step, 3, nostash_ms)
     cand_scorer._STASH_NC = True
     print(f"train_step without the stash (CUDA events over 10 steps): "
           f"{nostash_ms:.3f} ms per batch against {train_ms:.3f} ms with it; peak "
@@ -2730,10 +2885,12 @@ def main() -> int:
           + ", ".join(f"T {t} {us / 1e3:.4f} ms" for t, us in chain.items())
           + f"; {(chain[19] - chain[1]) / 18:.2f} us a step")
 
-    # the CLI phases' ACR steps and the dropout step, after every other profile
+    # the CLI phases' ACR steps, the dropout step and the neural baselines' steps,
+    # after every other profile
     profile_acr_step()
     profile_autoencoder_step()
     profile_dropout_step()
+    profile_neural_steps()
 
     print(json.dumps({"kernels": [
         {

@@ -722,6 +722,18 @@ def test_steps_at_a_bf16_c_past_1280_launch_the_kernels_on_card(card):
     _assert_steps_match(cpu, gpu, torch.bfloat16)
 
 
+def test_steps_past_the_ugrnn_kernels_width_run_on_card(card):
+    """1,040 RNN units with ``use_pallas_rnn`` on, past the UGRNN kernels'
+    1,024 (``ugrnn.kernel_takes``): the layers run the plain scan, so an
+    eval step and a train step run on the card without raising, launch no
+    K2f or K2b, and match the CPU (``_assert_steps_match``)."""
+    before = (ugrnn.launches, ugrnn.bwd_launches)
+    cfg, cpu, gpu = _steps_on_card_and_cpu(card, torch.float32, rnn_units=1040)
+    assert cfg.use_pallas_rnn and not ugrnn.kernel_takes(cfg.rnn_units, torch.float32)
+    assert (ugrnn.launches, ugrnn.bwd_launches) == before
+    _assert_steps_match(cpu, gpu, torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # ACR and the Adressa chain: the card against the CPU.  The port's ACR runs
 # float32 with TF32 off (its trainer turns both TF32 flags off around its
@@ -1024,3 +1036,109 @@ def test_acr_autoencoder_steps_on_card_match_cpu(card, direction, monkeypatch):
     assert len(cpu_losses) == 20 and np.isfinite(cpu_losses).all()
     np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=ACR_CARD_TOL["loss"], atol=0)
     np.testing.assert_allclose(gpu_ace, cpu_ace, rtol=0, atol=ACR_CARD_TOL["ace"])
+
+
+# ---------------------------------------------------------------------------
+# The neural baselines and the device-time helpers on the card.  GRU4Rec and
+# SR-GNN initialise from a CPU generator, so the card and the CPU start from
+# the same weights; both draw the same negatives (GRU4Rec's replaced by one
+# numpy draw, SR-GNN's numpy draws from one seed).  float32 with TF32 off:
+# each step's loss within rel 1e-5 and each parameter within 1e-5 of its
+# norm (the same f32 arithmetic summed in another order).
+# ---------------------------------------------------------------------------
+
+NEURAL_CARD_TOL = 1e-5
+
+
+def _neural_batches(n_items, steps, b=16, t=8, seed=0):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        items = rng.randint(1, n_items, size=(b, t))
+        labels = rng.randint(1, n_items, size=(b, t))
+        lengths = rng.randint(1, t + 1, size=b)
+        pad = np.arange(t)[None, :] >= lengths[:, None]
+        items[pad], labels[pad] = 0, 0
+        out.append((items, labels, rng.randint(0, n_items, size=300)))
+    return out
+
+
+def _assert_params_match(card_params, cpu_params):
+    for (name, p), (_, ref) in zip(card_params.named_parameters(),
+                                   cpu_params.named_parameters()):
+        diff = (p.detach().cpu() - ref.detach()).norm()
+        assert diff <= NEURAL_CARD_TOL * ref.detach().norm() + 1e-7, name
+
+
+def test_gru4rec_steps_on_card_match_cpu(card, monkeypatch):
+    from chameleon_recsys_tpu_torch.baselines import gru4rec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    draws = np.random.RandomState(1)
+    indices = []
+    monkeypatch.setattr(gru4rec, "_draw_negative_indices",
+                        lambda n, n_valid, g: torch.from_numpy(indices.pop(0)).to(g.device))
+    batches = _neural_batches(500, 4)
+    picks = [draws.randint(0, (buf != 0).sum(), size=32) for _, _, buf in batches]
+    runs = []
+    for device in ("cpu", card):
+        model = gru4rec.GRU4Rec(500, layers=(48, 32), n_sample=32, dropout_p_hidden=0.0,
+                                seed=3, device=device)
+        indices[:] = [p.copy() for p in picks]
+        losses = [float(model.fit_batch(*batch)) for batch in batches]
+        runs.append((losses, model))
+    (cpu_losses, cpu_model), (card_losses, card_model) = runs
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=NEURAL_CARD_TOL)
+    _assert_params_match(card_model.params, cpu_model.params)
+    neg = np.random.RandomState(2).randint(0, 500, size=batches[0][1].shape + (10,))
+    ranked = card_model.rank_candidates(batches[0][0], batches[0][1], neg)
+    assert ranked.shape == neg.shape[:2] + (11,)
+
+
+def test_srgnn_steps_on_card_match_cpu(card):
+    from chameleon_recsys_tpu_torch.baselines.sr_gnn import SRGNN
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batches = _neural_batches(500, 4)
+    runs = []
+    for device in ("cpu", card):
+        model = SRGNN(500, hidden_size=24, seed=3, device=device)
+        rng = np.random.RandomState(4)
+        losses = [float(model.fit_batch(items, labels[:, 0], buf, n_sample=32, rng=rng))
+                  for items, labels, buf in batches]
+        runs.append((losses, model))
+    (cpu_losses, cpu_model), (card_losses, card_model) = runs
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=NEURAL_CARD_TOL)
+    _assert_params_match(card_model.params, cpu_model.params)
+
+
+def test_device_time_helpers_on_card(card, tmp_path):
+    """The timers and the trace readers see the card's work: a [512]^2
+    matmul (one or more cuBLAS launches) then an in-place add, inside a
+    ``record_function`` range whose device-side span is no launch."""
+    from chameleon_recsys_tpu_torch.utils import profiling
+
+    a = torch.randn(512, 512, device=card)
+
+    def fn():
+        with torch.profiler.record_function("helper_range"):
+            return (a @ a).add_(1.0)
+
+    times = profiling.device_call_times_ms(fn, (), 5)
+    assert len(times) == 5 and all(t > 0 for t in times)
+    assert profiling.device_time_ms(fn) > 0
+    assert profiling.cuda_ms(fn, 5) > 0
+    split = profiling.launch_split(fn, 3)
+    assert len(split) >= 2 and all(us > 0 for _, us in split)
+    assert "add" in split[-1][0]
+    prof = profiling.device_profile(fn, 3)
+    assert prof is not None and prof.launches == pytest.approx(len(split))
+    assert not any("helper_range" in name for name, _ in split)
+    assert not any("helper_range" in name for name, _, _ in prof.kernels)
+    assert prof.busy_us == pytest.approx(sum(us for _, us in split), rel=0.5)
+    with profiling.torch_trace(str(tmp_path)):
+        fn()
+        torch.cuda.synchronize()
+    totals = profiling.device_op_totals(str(tmp_path))
+    assert len(totals) >= 2 and all(ms > 0 for ms in totals.values())
+    assert len(profiling.device_op_durations_by_track(str(tmp_path))) == 1

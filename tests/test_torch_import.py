@@ -59,6 +59,11 @@ import chameleon_recsys_tpu_torch.acr.ace_baselines
 import chameleon_recsys_tpu_torch.cli.acr_trainer_gcom
 import chameleon_recsys_tpu_torch.cli.ace_baselines_cli
 import chameleon_recsys_tpu_torch.cli.nar_hypertuning_gcom
+import chameleon_recsys_tpu_torch.baselines.gru4rec
+import chameleon_recsys_tpu_torch.baselines.sr_gnn
+import chameleon_recsys_tpu_torch.baselines.neural_runner
+import chameleon_recsys_tpu_torch.cli.run_gru4rec
+import chameleon_recsys_tpu_torch.cli.run_sr_gnn
 loaded = [m for m in sys.modules
           if m == "chameleon_recsys_tpu" or m.startswith("chameleon_recsys_tpu.")]
 jax = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]

@@ -14,7 +14,9 @@ gradients at rtol 1e-4 / atol 1e-5, the tolerances of
 ``resident_takes`` (which instantiation the wrappers launch on the card) is a
 pure function of the widths; its edges are those of the layout arithmetic
 in ``csrc/ugrnn_common.cuh``, which the card tests hold against the
-library's own count.
+library's own count.  ``kernel_takes`` (whether either instantiation takes
+the width) is the gate of ``ops/rnn.py::UGRNNLayer``: past it the layer runs
+the plain scan, as the JAX scan runs at any width.
 """
 import jax
 import jax.numpy as jnp
@@ -24,9 +26,11 @@ import torch
 
 from chameleon_recsys_tpu.ops.pallas.ugrnn_pallas import ugrnn_scan_pallas
 
+from chameleon_recsys_tpu_torch.ops import rnn
 from chameleon_recsys_tpu_torch.ops.kernels import ugrnn
 from chameleon_recsys_tpu_torch.ops.kernels.ugrnn import (
     UGRNNScan,
+    kernel_takes,
     resident_takes,
     ugrnn_scan_bwd_kernel,
     ugrnn_scan_bwd_reference,
@@ -169,3 +173,48 @@ def test_resident_layout_at_g1():
             takes = [resident_takes(u, dtype, train) for u in range(1, 1025)]
             edge = takes.index(False)
             assert all(takes[:edge]) and not any(takes[edge:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("units,takes", [(255, True), (1024, True), (1040, False),
+                                         (0, False)])
+def test_kernel_takes_is_a_width_predicate(units, dtype, takes):
+    assert kernel_takes(units, dtype) is takes
+    if takes:  # every resident width is one the kernels take
+        assert kernel_takes(units, dtype) >= resident_takes(units, dtype, train=True)
+    assert not kernel_takes(units, torch.float16)
+
+
+@pytest.mark.parametrize("units,kernel", [(1040, False), (1024, True)])
+def test_layer_gates_the_kernel_on_the_width(units, kernel, monkeypatch):
+    """With ``use_kernel`` on, a layer of 1,040 units never calls a kernel
+    wrapper (both replaced by ones that raise) and gives the plain layer's
+    output and gradients; at 1,024 it calls them (here the CPU twins)."""
+    calls = []
+
+    def refuse(name, real):
+        def call(*args, **kwargs):
+            calls.append(name)
+            if not kernel:
+                raise AssertionError(f"{name} called at {units} units")
+            return real(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(rnn, "ugrnn_scan_kernel", refuse("forward", rnn.ugrnn_scan_kernel))
+    monkeypatch.setattr(rnn.UGRNNScan, "apply", refuse("train", rnn.UGRNNScan.apply))
+    torch.manual_seed(0)
+    plain = rnn.UGRNNLayer(6, units)
+    torch.nn.init.normal_(plain.recurrent_kernel, std=units ** -0.5)
+    gated = rnn.UGRNNLayer(6, units, use_kernel=True)
+    gated.load_state_dict(plain.state_dict())
+    x = torch.randn(2, 4, 6)
+    mask = torch.tensor([[True, True, True, False], [True, True, True, True]])
+    with torch.no_grad():
+        torch.testing.assert_close(gated(x, mask), plain(x, mask), rtol=1e-5, atol=1e-6)
+    out, ref = gated(x, mask), plain(x, mask)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    out.square().sum().backward()
+    ref.square().sum().backward()
+    torch.testing.assert_close(gated.recurrent_kernel.grad, plain.recurrent_kernel.grad,
+                               rtol=1e-4, atol=1e-6)
+    assert calls == (["forward", "train"] if kernel else [])
