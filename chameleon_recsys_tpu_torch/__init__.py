@@ -24,7 +24,11 @@ its CLIs, dropout (``ops/dropout.py``) and the dense train path it takes,
 the G1 hyperparameter sweep (``train.sweep``, ``cli.nar_hypertuning_gcom``),
 the G1 ACR chain with the denoising autoencoder (``cli.acr_preprocess_gcom``,
 ``cli.acr_trainer_gcom``) and the unsupervised ACE baselines
-(``acr.ace_baselines``, ``cli.ace_baselines_cli``), with the UGRNN forward
+(``acr.ace_baselines``, ``cli.ace_baselines_cli``), the neural baselines
+(``cli.run_gru4rec``, ``cli.run_sr_gnn``), the native host code
+(``native``: the session-kNN's C++ predictor and the C++ session loader,
+built with ``g++`` at first use), grouped train compaction and ACR in
+bfloat16, with the UGRNN forward
 and backward (``ops/kernels/ugrnn.py``) and the fused candidate scorer's
 forward, stash forward, stash backward and recompute backward
 (``ops/kernels/cand_scorer.py``) as CUDA kernels.

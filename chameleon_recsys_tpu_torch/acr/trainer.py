@@ -25,7 +25,10 @@ dropout masks and the autoencoder's noise come from ``self.generator``
 indexes it there, and the losses stay on the device until the epoch's end
 (one fetch an epoch).  The steps run in float32 with TF32 off
 (``torch.backends.cudnn.allow_tf32`` and ``cuda.matmul.allow_tf32``), as
-the JAX package's f32 ACR computes.
+the JAX package's f32 ACR computes.  With ``compute_dtype`` "bfloat16" the
+models compute in bf16 (``models/acr.py``) while the parameters, Adam's
+moments, the L2 term, the losses and the exported ACE matrix stay float32,
+as in the JAX trainer.
 """
 from __future__ import annotations
 
@@ -244,10 +247,11 @@ class ACRTrainer:
         return results
 
     def predict_all_ace(self, articles: Dict[str, np.ndarray]) -> np.ndarray:
-        """ACE for every article row, in input order (one fetch)."""
+        """ACE for every article row, in input order (one fetch), float32
+        (a bf16 model's ACE cast)."""
         aces, weights = zip(*((ace, w) for _, ace, _, w in self._predict(articles)))
         keep = torch.cat(weights) > 0
-        return torch.cat(aces)[keep].cpu().numpy()
+        return torch.cat(aces)[keep].float().cpu().numpy()
 
     def build_ace_matrix(self, articles: Dict[str, np.ndarray]) -> np.ndarray:
         """[num_articles + 1, acr_dim] matrix indexed by article id; row 0

@@ -9,22 +9,40 @@ scored by cosine/jaccard similarity — with positional decay of the active
 session's early clicks when ``first_session_clicks_decay != 'same'``
 (= V-SkNN) — and neighbor similarities vote for their sessions' items.
 
-The port's copy of ``chameleon_recsys_tpu/baselines/session_knn.py``.  It
-runs the numpy paths only: the row-batched ``predict`` and the per-click
-oracle ``_predict_per_click``.  The JAX package's ``use_native`` dispatch to
-its C++ predictor (``native/sknn.cc``, documented bit-equal to the numpy
-path) has no counterpart here; the parameter is ignored.
+The port's copy of ``chameleon_recsys_tpu/baselines/session_knn.py``.  As
+there, ``predict`` runs the C++ batch predictor (``native/sknn.cc``, the
+port's own copy, built with ``g++`` at first use) unless
+``params["use_native"]`` is False; where the library cannot be built it
+falls through to the numpy row loop, which is bit-equal, as is the
+per-click oracle ``_predict_per_click``.  The module's ``native_calls`` and
+``numpy_calls`` count the ``predict`` calls that each path served.
 """
 from __future__ import annotations
 
 import math
 import random
+import threading
 from collections import defaultdict
 from typing import Dict, List, Set, Tuple
 
 import numpy as np
 
 from .benchmarks import BenchmarkRecommender, fill_ranked_topk
+
+# predict calls served by the C++ predictor and by the numpy row loop
+native_calls = 0
+numpy_calls = 0
+_count_lock = threading.Lock()  # the benchmark tier predicts on a thread pool
+
+
+def _count(native: bool) -> None:
+    global native_calls, numpy_calls
+    with _count_lock:
+        if native:
+            native_calls += 1
+        else:
+            numpy_calls += 1
+
 
 POS_DECAY_FNS = {
     "same": lambda i: 1.0,
@@ -341,14 +359,26 @@ class SessionBasedKNNRecommender(BenchmarkRecommender):
         Output is identical to the per-click path (``_predict_per_click``,
         kept as the test oracle) — every accumulation runs in the same
         floating-point ORDER, so similarities are bit-equal and tie/boundary
-        behavior at the neighbor cut matches exactly.  At G1 scale the row
-        loop is bound by per-click numpy dispatch."""
+        behavior at the neighbor cut matches exactly.
+
+        When the native predictor is available (native/sknn.cc — the same
+        algorithm with the same float64 op order, rows on a thread pool) it
+        replaces the numpy row loop, which is bound by per-click
+        numpy-dispatch overhead at G1 scale; ``use_native: False`` in params
+        forces the numpy path (the oracle chain stays
+        native == numpy batched == per-click)."""
         if self.sampling_strategy != "recent":
             # "random" draws from Python's RNG per click — per-call stream
             # differs between the two paths, so keep the oracle path
             return self._predict_per_click(
                 users_ids, sessions_items, topk=topk, valid_items=valid_items
             )
+        if self.params.get("use_native", True):
+            out = self._predict_native(sessions_items, valid_items, topk)
+            if out is not None:
+                _count(native=True)
+                return out
+        _count(native=False)
         sessions_items = np.asarray(sessions_items)
         preds = np.zeros(
             (sessions_items.shape[0], sessions_items.shape[1], topk), np.int64
@@ -368,6 +398,26 @@ class SessionBasedKNNRecommender(BenchmarkRecommender):
                     state,
                 )
         return preds
+
+    def _predict_native(self, sessions_items, valid_items, topk):
+        """Dispatch to the C++ predictor; None when it cannot build (no
+        compiler) so the caller falls through to the numpy row loop."""
+        from ..native import sknn as native_sknn
+
+        if not native_sknn.native_available():
+            return None
+        state = self._state()
+        return native_sknn.predict_batch(
+            self._vote_table(state),
+            lambda item: self._item_arr(state, item),
+            np.asarray(sessions_items),
+            valid_items,
+            sample_size=self.candidate_sample_size,
+            nearest_neighbors=self.nearest_neighbors,
+            topk=topk,
+            similarity=self.similarity,
+            decay=self.first_clicks_decay,
+        )
 
     def _predict_row(self, row, cols, valid_row, out, topk, state):
         def item_arr(item) -> np.ndarray:

@@ -6,10 +6,12 @@ replaces the reference's ML Engine hypertuning job
 30 trials over discrete grids of batch size, negatives, CAR width, RNN
 units, learning rate, dropout and L2) with a local sweep over the same
 grids (``train/sweep.py``).  It takes the flags of the port's
-``nar_trainer_gcom`` (and refuses the same ones at parse time) plus
-``--max_trials``, ``--param_grid``, ``--sweep_spec``, ``--objective`` and
-``--max_parallel``; each trial runs the temporal harness on the session
-files without the classical baselines, in ``model_dir/trial_NNN``.
+``nar_trainer_gcom`` (and refuses the same ones at parse time: the
+multi-GPU flags) plus ``--max_trials``, ``--param_grid``, ``--sweep_spec``,
+``--objective`` and ``--max_parallel``; each trial runs the temporal
+harness on the session files without the classical baselines, in
+``model_dir/trial_NNN``.  As in the JAX CLI, ``--use_native_loader`` is
+accepted and ignored: the trials read through the Python reader.
 ``--train_valid_row_capacity`` reaches the trials' config (the JAX CLI
 drops it).
 

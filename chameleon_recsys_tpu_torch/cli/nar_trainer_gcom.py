@@ -9,10 +9,12 @@ flags, their names and defaults are the JAX CLI's.
 ``--platform`` picks the device: empty, ``cuda`` or ``gpu`` the card,
 ``cpu`` the CPU.  Without a card and without ``--platform cpu`` the CLI
 exits with an error; it never carries on on the CPU.  The flags of features
-not ported yet (``--data_parallelism``, ``--model_parallelism`` > 1,
-``--use_native_loader``) exit at parse time, before any file is read,
-naming the slice they wait for.  ``--dropout_keep_prob`` < 1 trains on the
-dense path with dropout, as the JAX model does.
+not ported yet (``--data_parallelism``, ``--model_parallelism`` > 1) exit
+at parse time, before any file is read, naming the slice they wait for.
+``--dropout_keep_prob`` < 1 trains on the dense path with dropout, as the
+JAX model does.  ``--use_native_loader`` reads and collates each hour's
+file with the C++ loader (``native/chio.cc``, built with ``g++`` at first
+use); where it cannot be built the CLI exits, as the JAX CLI does.
 
 Usage (mirrors run_nar_train_gcom_local.sh):
   python -m chameleon_recsys_tpu_torch.cli.nar_trainer_gcom \
@@ -138,7 +140,7 @@ def create_args_parser():
                    help="the device: empty, cuda or gpu = the card, cpu = the CPU")
     p.add_argument("--use_native_loader", action="store_true",
                    help="parse/collate session TFRecords with the C++ "
-                        "libchio loader (not ported yet)")
+                        "libchio loader instead of the Python path")
     return p
 
 
@@ -146,8 +148,6 @@ def create_args_parser():
 _NOT_PORTED = {
     "--data_parallelism": (lambda a: a.data_parallelism != 0, "multi-GPU"),
     "--model_parallelism": (lambda a: a.model_parallelism > 1, "multi-GPU"),
-    "--use_native_loader": (lambda a: a.use_native_loader,
-                            "native loader (libchio)"),
 }
 
 
@@ -346,8 +346,21 @@ def main(argv=None):
     if resume_ckpt:
         harness.load_checkpoint(resume_ckpt)
 
-    def hour_source(hour_idx):
-        return read_sessions_tfrecord(files[hour_idx], session_schema)
+    if args.use_native_loader:
+        from ..native import NativeSessionLoader, native_available
+        from ..native.loader import build_error
+
+        if not native_available():
+            raise SystemExit(f"native loader unavailable (g++/zlib missing): "
+                             f"{build_error()}")
+
+        def hour_source(hour_idx):
+            return NativeSessionLoader(files[hour_idx], session_schema)
+
+    else:
+
+        def hour_source(hour_idx):
+            return read_sessions_tfrecord(files[hour_idx], session_schema)
 
     harness.run(hour_source, hours=range(len(files)))
     harness.export_artifacts()

@@ -25,8 +25,15 @@ L2 term of ``acr/trainer.py`` touches them.  Parameters are initialised
 from the distributions of the JAX package's Flax init (lecun normal
 kernels, zero biases; the ACE layer glorot uniform; the RNN layers as
 ``ops/rnn.py`` says).  ``convert.acr_params_from_flax`` loads a Flax tree.
-The models run in float32, the JAX package's ``ACRConfig`` default and the
-only ACR precision its CLIs run.
+
+``ACRConfig.compute_dtype`` "bfloat16" mirrors the JAX models' Flax
+``dtype=bf16`` with ``param_dtype=f32``: the parameters stay float32 and
+are cast to bf16 at each use; the embedding lookup's rows, the convs (the
+bias added after the product, as Flax does), the RNN stacks and every Dense
+layer compute in bf16, and so do the activations and the dropout between
+them; the noise is cast to bf16 before it is scaled and added; the logits,
+the reconstruction, the ACE the models return and every loss are float32,
+cast exactly where the JAX models cast them.
 """
 from __future__ import annotations
 
@@ -72,13 +79,31 @@ def glorot_uniform_(weight: torch.Tensor,
     weight.uniform_(-limit, limit, generator=generator)
 
 
+def compute_dtype(cfg: ACRConfig) -> torch.dtype:
+    """``cfg.compute_dtype`` as a torch dtype (float32 or bfloat16)."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if cfg.compute_dtype not in dtypes:
+        raise ValueError(f"invalid ACR compute_dtype {cfg.compute_dtype!r}")
+    return dtypes[cfg.compute_dtype]
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Flax's ``Dense(dtype=...)``: in float32 the layer itself; in bf16 the
+    input and the f32 parameters cast, the product, then the bias."""
+    if dtype == torch.float32:
+        return layer(x)
+    return x.to(dtype) @ layer.weight.to(dtype).T + layer.bias.to(dtype)
+
+
 class TextCNN(nn.Module):
     """Multi-width conv1d bank with max-pool over time
     (reference cnn_feature_extractor, acr_model.py:272-289): per width a
     VALID conv, ReLU and the max over time, concatenated."""
 
-    def __init__(self, in_features: int, filter_sizes, num_filters: int):
+    def __init__(self, in_features: int, filter_sizes, num_filters: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.convs = nn.ModuleDict({
             f"conv_{width}": nn.Conv1d(in_features, num_filters, width)
             for width in filter_sizes
@@ -96,9 +121,15 @@ class TextCNN(nn.Module):
                 conv.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, D]
+        dt = self.dtype
         xt = x.transpose(1, 2)
-        return torch.cat(
-            [F.relu(conv(xt)).amax(dim=2) for conv in self.convs.values()], dim=-1)
+        if dt == torch.float32:
+            convs = [conv(xt) for conv in self.convs.values()]
+        else:
+            xt = xt.to(dt)
+            convs = [F.conv1d(xt, conv.weight.to(dt)) + conv.bias.to(dt)[:, None]
+                     for conv in self.convs.values()]
+        return torch.cat([F.relu(c).amax(dim=2) for c in convs], dim=-1)
 
 
 class ACRClassifierModel(nn.Module):
@@ -106,23 +137,20 @@ class ACRClassifierModel(nn.Module):
 
     def __init__(self, cfg: ACRConfig, label_specs, word_embeddings):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"ACR compute_dtype {cfg.compute_dtype!r}: the port runs ACR in "
-                "float32 (ACRConfig's default, the only one its CLIs run)")
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
         self.label_specs = tuple(label_specs)
         embeddings = torch.as_tensor(np.asarray(word_embeddings, np.float32))
         self.register_buffer("word_embeddings", embeddings)
         extractor = cfg.text_feature_extractor.upper()
         if extractor == "CNN":
             self.encoder = TextCNN(embeddings.shape[1], cfg.cnn_filter_sizes,
-                                   cfg.cnn_num_filters)
+                                   cfg.cnn_num_filters, dtype=self.dtype)
         elif extractor in ("GRU", "LSTM"):
             stack = StackedLSTM if extractor == "LSTM" else StackedGRU
             self.encoder = stack(embeddings.shape[1], cfg.rnn_units, cfg.rnn_layers,
                                  keep_prob=cfg.dropout_keep_prob,
-                                 direction=cfg.rnn_direction)
+                                 direction=cfg.rnn_direction, dtype=self.dtype)
         else:
             raise ValueError(
                 f"invalid text_feature_extractor {cfg.text_feature_extractor}")
@@ -155,7 +183,8 @@ class ACRClassifierModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> ACROutputs:
         keep = self.cfg.dropout_keep_prob if train else 1.0
-        emb = self.word_embeddings[text_tokens]  # [B, L, D]
+        dt = self.dtype
+        emb = self.word_embeddings[text_tokens].to(dt)  # [B, L, D]
         if self.extractor == "CNN":
             content = self.encoder(emb)
         else:
@@ -165,19 +194,19 @@ class ACRClassifierModel(nn.Module):
             out, _ = self.encoder(emb.flip(1), train=train, generator=generator)
             content = out.amax(dim=1)
         content = dropout(content, keep, generator)
-        fc2 = F.relu(self.fc2(content))
-        ace = torch.tanh(self.article_content_embedding(fc2))
+        fc2 = F.relu(_dense(self.fc2, content, dt))
+        ace = torch.tanh(_dense(self.article_content_embedding, fc2, dt))
 
         hidden = dropout(ace, keep, generator)
         label_logits, per_label_loss = {}, {}
-        total_loss = ace.new_zeros(())
+        total_loss = torch.zeros((), device=ace.device)
         for spec in self.label_specs:
-            logits = self.outputs[spec.name](hidden)
+            logits = _dense(self.outputs[spec.name], hidden, dt).float()
             label_logits[spec.name] = logits
             if labels is None:
                 continue
             y = labels[spec.name]
-            ew = (ace.new_ones(y.shape[0]) if example_weights is None
+            ew = (logits.new_ones(y.shape[0]) if example_weights is None
                   else example_weights.float())
             if spec.classification_type == "multiclass":
                 xe = -F.log_softmax(logits, dim=1).gather(1, y[:, None])[:, 0]
@@ -222,11 +251,8 @@ class ACRAutoencoderModel(nn.Module):
 
     def __init__(self, cfg: ACRConfig, word_embeddings):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"ACR compute_dtype {cfg.compute_dtype!r}: the port runs ACR in "
-                "float32 (ACRConfig's default, the only one its CLIs run)")
         self.cfg = cfg
+        self.dtype = dt = compute_dtype(cfg)
         embeddings = torch.as_tensor(np.asarray(word_embeddings, np.float32))
         self.register_buffer("word_embeddings", embeddings)
         word_dim = embeddings.shape[1]
@@ -235,11 +261,11 @@ class ACRAutoencoderModel(nn.Module):
         # unidirectional: its layers are seeded from the bottleneck's states
         self.encoder = StackedGRU(word_dim, cfg.rnn_units, cfg.rnn_layers,
                                   keep_prob=cfg.dropout_keep_prob,
-                                  direction=cfg.rnn_direction)
+                                  direction=cfg.rnn_direction, dtype=dt)
         self.bottleneck = nn.Linear(self.encoder.out_features, cfg.acr_embeddings_size)
         self.state_reconstruction = nn.Linear(cfg.acr_embeddings_size, cfg.rnn_units)
         self.decoder = StackedGRU(word_dim, cfg.rnn_units, cfg.rnn_layers,
-                                  keep_prob=cfg.dropout_keep_prob)
+                                  keep_prob=cfg.dropout_keep_prob, dtype=dt)
         self.output_projection = nn.Linear(cfg.rnn_units, word_dim)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -263,29 +289,32 @@ class ACRAutoencoderModel(nn.Module):
         """-> (ACE [B, acr_dim], reconstruction [B, L, word_dim], loss).  In
         training the noise is drawn first, then the encoder's and the
         decoder's dropout masks, all from ``generator``."""
-        cfg = self.cfg
-        emb = self.word_embeddings[text_tokens]  # [B, L, D]
+        cfg, dt = self.cfg, self.dtype
+        emb = self.word_embeddings[text_tokens].to(dt)  # [B, L, D]
         b, _, d = emb.shape
         # denoising noise only while training (the reference injects it in
         # every mode, acr_model.py:414-417; the JAX package gates it on train)
         noisy = emb
         if cfg.autoencoder_noise > 0.0 and train:
-            noisy = emb + cfg.autoencoder_noise * _draw_noise(emb.shape, generator,
-                                                              emb.device)
+            noise = _draw_noise(emb.shape, generator, emb.device).to(dt)
+            noisy = emb + cfg.autoencoder_noise * noise
         _, enc_finals = self.encoder(noisy.flip(1), train=train, generator=generator)
-        compressed = torch.tanh(self.bottleneck(enc_finals))  # [layers, B, acr]
+        # [layers, B, acr]
+        compressed = torch.tanh(_dense(self.bottleneck, enc_finals, dt))
         ace = compressed[-1]  # the last layer's state (acr_model.py:452)
-        reexpanded = torch.tanh(self.state_reconstruction(compressed))  # [layers, B, U]
+        # [layers, B, U]
+        reexpanded = torch.tanh(_dense(self.state_reconstruction, compressed, dt))
         special = special_token_embedding.to(emb)[None].expand(b, 1, d)
         decoder_input = torch.cat([special, emb[:, :-1]], dim=1)
         dec_out, _ = self.decoder(decoder_input, reexpanded, train=train,
                                   generator=generator)
-        reconstructed = self.output_projection(dec_out)
+        reconstructed = _dense(self.output_projection, dec_out, dt).float()
 
         mask = (text_tokens != 0).float()[..., None]
         if example_weights is not None:
             mask = mask * example_weights.float()[:, None, None]
         mask = mask.expand(emb.shape)
-        sq_err = (emb * mask - reconstructed * mask).square()
+        target = emb.float()
+        sq_err = (target * mask - reconstructed * mask).square()
         loss = sq_err.sum() / mask.sum().clamp(min=1.0)
-        return ace, reconstructed, loss
+        return ace.float(), reconstructed, loss

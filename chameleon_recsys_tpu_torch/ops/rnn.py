@@ -26,6 +26,10 @@ stacks drop out each layer's input past the first (``ops/dropout.py``; not
 ``nn.GRU``'s own dropout, which draws from the global generator), so they
 run one cuDNN layer at a time; the autoencoder's decoder seeds each layer
 with its own ``h0`` (unidirectional only, as in the JAX ``StackedGRU``).
+In bfloat16 (``dtype``; the parameters stay float32 and are cast at each
+use, as Flax's ``dtype=bf16, param_dtype=f32``) the same call runs on the
+bf16 input and the bf16 copies of the weights, and carries its states
+between steps in bf16, as the JAX ``lax.scan`` does.
 
 ``StackedUGRNN`` drops out every layer's output in training, the last
 included, before the padded steps are zeroed (the reference's
@@ -148,12 +152,14 @@ class _CudnnStack(nn.Module):
     cell = None
 
     def __init__(self, in_features: int, units: int, num_layers: int = 1,
-                 keep_prob: float = 1.0, direction: str = "unidirectional"):
+                 keep_prob: float = 1.0, direction: str = "unidirectional",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if direction not in DIRECTIONS:
             raise ValueError(f"invalid rnn direction {direction}")
         self.units = units
         self.keep_prob = keep_prob
+        self.dtype = dtype
         self.bidirectional = direction == "bidirectional"
         self.rnn = self.cell(in_features, units, num_layers, batch_first=True,
                              bidirectional=self.bidirectional)
@@ -187,6 +193,7 @@ class _CudnnStack(nn.Module):
         2U], final states [layers, B, U or 2U])."""
         if h0 is not None and self.bidirectional:
             raise ValueError("h0 seeding requires unidirectional direction")
+        x = x.to(self.dtype)
         layers = self.rnn.num_layers
         if not train or self.keep_prob >= 1.0 or layers == 1:
             out, h_n = self._run(x, h0, 0, layers)
@@ -204,13 +211,15 @@ class _CudnnStack(nn.Module):
     def _run(self, x, h0, first: int, layers: int):
         """Layers ``first`` .. ``first + layers - 1`` of the stack on ``x``:
         (outputs, final hidden states [layers * dirs, B, U])."""
-        if first == 0 and layers == self.rnn.num_layers:
+        if first == 0 and layers == self.rnn.num_layers and self.dtype == torch.float32:
             out, last = self.rnn(x, self._hx(h0, x))
             return out, last[0] if isinstance(last, tuple) else last
-        # a slice of the stack: torch's own entry point for one nn.GRU /
-        # nn.LSTM call (what their forward calls), on that slice's weights
+        # a slice of the stack, or bf16: torch's own entry point for one
+        # nn.GRU / nn.LSTM call (what their forward calls), on that slice's
+        # weights cast to the compute dtype
         per_layer = 4 * (2 if self.bidirectional else 1)
-        weights = self.rnn._flat_weights[first * per_layer:(first + layers) * per_layer]
+        weights = [w.to(self.dtype) for w in
+                   self.rnn._flat_weights[first * per_layer:(first + layers) * per_layer]]
         hx = self._hx(h0, x, layers)
         if self.cell is nn.LSTM:
             out, h_n, _ = torch._VF.lstm(x, hx, weights, True, layers, 0.0,

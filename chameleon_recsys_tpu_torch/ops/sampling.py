@@ -204,6 +204,12 @@ def sample_negatives_pooled_rows(
     with one [M, NC] array of uniforms.  A row whose click is 0 gets only
     the sentinel.
 
+    Under grouped compaction the JAX sampler (``groups`` > 1) looks each
+    row's session up within its group's block of B / G sessions, to keep the
+    lookup local to a data shard; on one device that gives
+    ``valid_sorted[row_session]`` exactly, so the flat lookup serves every
+    ``groups``.
+
     Returns (pool_ext [NC+1], neg_idx int64 [M, K], neg_ids int32 [M, K]).
     """
     b, l = all_clicked_items.shape

@@ -11,8 +11,12 @@ the whole grid; run the model with ``train=True`` (at ``keep_prob`` < 1 the
 model takes the dense path over the sampled ``neg_ids``, as the JAX model
 does, with its dropout masks drawn from the state's generator after the
 sampler's draws); take loss = XE + L2 - novelty, back-propagate, step Adam;
-then fold the batch's clicks into the streaming state.  ``train_compaction_groups > 1`` (the mesh layout) is not
-ported.
+then fold the batch's clicks into the streaming state.  With
+``train_compaction_groups`` = G > 1 the compaction runs per group of B / G
+sessions (G = the data-parallel width of the mesh layout): each group's
+valid rows first, ``capacity / G`` rows a group.  On one device that
+changes which rows are kept, not how they are scored: the sampler and the
+model look the kept rows up in the flat grid.
 
 ``eval_step``: sample ``eval_negative_samples`` negatives per click from the
 grid sampler, run the model over the whole [B, T] grid with ``rank=True``,
@@ -88,26 +92,42 @@ class RowCompaction(NamedTuple):
     dropped: torch.Tensor  # [] f32 valid clicks past the capacity
 
 
-def compact_valid_rows(session_size, item_clicked, capacity: int) -> RowCompaction:
+def compact_valid_rows(session_size, item_clicked, capacity: int,
+                       groups: int = 1) -> RowCompaction:
     """Partition the flat [B*T] grid valid-rows-first, stably and without a
     sort (each row's destination from two cumsums, the permutation by
     scattering the row numbers there), and keep the first ``capacity``
-    rows (M = min(capacity, B*T))."""
+    rows (M = min(capacity, B*T)).
+
+    With ``groups`` = G > 1 (the JAX package's ``train_compaction_groups``)
+    the grid is cut into G contiguous blocks of B / G sessions and each
+    block is partitioned on its own, keeping its first ``capacity / G``
+    rows; ``rows_sel`` lists group 0's rows, then group 1's, and so on, and
+    a group's valid rows past its share are dropped (and counted) even where
+    another group has room.  G must divide B*T, ``capacity`` and B."""
     b, t = item_clicked.shape
-    mask = valid_click_mask(session_size, t).reshape(-1)
+    if groups > 1 and ((b * t) % groups or capacity % groups or b % groups):
+        raise ValueError(
+            "train_compaction_groups must divide batch_size and "
+            "train_valid_row_capacity"
+        )
+    r = (b * t) // groups
+    mask = valid_click_mask(session_size, t).reshape(groups, r)
     mi = mask.to(torch.int64)
-    n_valid = mi.sum()
+    n_group = mi.sum(1, keepdim=True)
     dest = torch.where(
-        mask, torch.cumsum(mi, 0) - 1, n_valid + torch.cumsum(1 - mi, 0) - 1
+        mask, torch.cumsum(mi, 1) - 1, n_group + torch.cumsum(1 - mi, 1) - 1
     )
-    rows = torch.arange(b * t, device=mask.device)
-    perm = torch.empty_like(rows).scatter_(0, dest, rows)
-    rows_sel = perm[:capacity]
-    row_mask = mask[rows_sel].to(torch.float32)
+    rows = torch.arange(r, device=mask.device).expand(groups, r)
+    perm = torch.empty_like(dest).scatter_(1, dest, rows)
+    rows_local = perm[:, : capacity // groups]
+    row_mask = mask.gather(1, rows_local).reshape(-1).to(torch.float32)
+    offsets = torch.arange(groups, device=mask.device)[:, None] * r
+    n_valid = mi.sum()
     return RowCompaction(
-        rows_sel=rows_sel,
+        rows_sel=(rows_local + offsets).reshape(-1),
         row_mask=row_mask,
-        row_click=item_clicked.reshape(-1)[rows_sel],
+        row_click=item_clicked.reshape(groups, r).gather(1, rows_local).reshape(-1),
         n_valid=n_valid,
         dropped=(n_valid - row_mask.sum()).to(torch.float32),
     )
@@ -164,10 +184,6 @@ def _train_inputs(model, stream, batch, ace_matrix, metadata, generator,
     negatives for them (for the grid without one, the final label column
     dropped)."""
     cfg = model.cfg
-    if cfg.train_compaction_groups > 1:
-        raise NotImplementedError(
-            "train_compaction_groups > 1 (the mesh layout) is not ported"
-        )
     aux = _aux(stream, ace_matrix, metadata)
     all_clicked, all_ts = _batch_all_clicks(batch)
     sampler = dict(
@@ -182,8 +198,9 @@ def _train_inputs(model, stream, batch, ace_matrix, metadata, generator,
         )
         return _TrainInputs(aux, pool, neg_idx[:, :-1], neg_ids[:, :-1], None,
                             None, all_clicked, all_ts)
+    groups = max(cfg.train_compaction_groups, 1)
     rows = compact_valid_rows(batch["session_size"], batch["item_clicked"],
-                              cfg.train_valid_row_capacity)
+                              cfg.train_valid_row_capacity, groups)
     t = batch["item_clicked"].shape[1]
     pool, neg_idx, neg_ids = sample_negatives_pooled_rows(
         all_clicked, stream.buffer_ids, rows.rows_sel // t, rows.row_click,

@@ -18,10 +18,16 @@ pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
 (``cli.nar_hypertuning_gcom``) and G1 ACR with the ACE baselines
 (``cli.acr_preprocess_gcom`` -> ``acr_trainer_gcom``, ``ace_baselines_cli``),
 the neural baselines through their CLIs (``cli.run_gru4rec``,
-``cli.run_sr_gnn``), and every hand-written kernel of those paths:
+``cli.run_sr_gnn``), the native host code (the C++ session loader under
+``--use_native_loader`` and the session-kNN's C++ predictor), the train
+step with grouped compaction, ACR in bf16, and every hand-written kernel of
+those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
-   per source, started together) and reports the build time and what ptxas
+   per source, started together; beside them, in a thread, the native
+   libraries from ``chameleon_recsys_tpu_torch/native`` with ``g++``, with
+   their build seconds and whether zlib's header is there) and reports the
+   build time and what ptxas
    says of each (registers, spills; the forward's and the backward's entries
    one by one, with the dynamic shared memory of the forward and of the
    backward's row kernel at the G1 widths),
@@ -71,7 +77,9 @@ the neural baselines through their CLIs (``cli.run_gru4rec``,
    launched (the CLI's default path is the plain one); prints the
    bundle's and the preprocessing's seconds, the sessions of each hour,
    every train and eval hour's wall, the eval hours' phases and each
-   baseline's wall and CPU seconds in the benchmark tier;
+   baseline's wall and CPU seconds in the benchmark tier; the session-kNN
+   takes its C++ predictor, as the JAX CLI's does (its counters: native
+   calls only);
 7. the Adressa chain through its CLIs, on the card: a pseudo-Adressa bundle
    at the published shape (13,000 articles, 80 categories, a 20,000-word
    100-dim word2vec file, 2,600 sessions an hour on average, seed 11; 11
@@ -119,7 +127,8 @@ the neural baselines through their CLIs (``cli.run_gru4rec``,
    profiled after 15); then a few steps of each at that width on the CPU
    and on the card from the same weights and draws, the losses and the
    parameters held against each other;
-12. holds each kernel against its plain PyTorch twin on the card: the UGRNN
+12. the kernels, after phases 13-15 below: (a) holds each kernel against
+   its plain PyTorch twin on the card: the UGRNN
    forward at batch 1, 32 and 256 and the backward at the train shape (from
    the forward's f32 stash, against the twin that recomputes the gates; the
    stash against that recompute), the UGRNN streaming instantiations at
@@ -130,10 +139,10 @@ the neural baselines through their CLIs (``cli.run_gru4rec``,
    (``train_scorer_operands``; the recompute backward also bit for bit
    against the stash backward on the stash forward's nc), and all of them on
    random operands at the G1 shapes, a float32 shape and an odd shape;
-13. checks the served scores, one eval step and one train step against the
-   same code on the CPU, where the kernel wrappers run their plain twins, on
-   a small float32 input;
-14. times each kernel, its plain twin, ``recommend``, the eval step and the
+   (b) checks the served scores, one eval step and one train step against
+   the same code on the CPU, where the kernel wrappers run their plain
+   twins, on a small float32 input;
+   (c) times each kernel, its plain twin, ``recommend``, the eval step and the
    train step (with the stash and without) with CUDA events or a
    synchronised host clock, and breaks one request, one eval step and one
    train step with the stash and one without down by device kernel (torch
@@ -153,12 +162,36 @@ the neural baselines through their CLIs (``cli.run_gru4rec``,
    its chain launch at T 1, 4 and 19 (torch profiler, every record kept:
    a session that is not ``calls`` repeats of one launch sequence is
    profiled again, eight times at most);
-15. holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
+   (d) holds the scorer backward's GEMM core (``csrc/sm90_gemm.cuh``) alone
    against ``torch.matmul`` at dpre's shape (134,400 x 1024 by 1024^T, bf16)
    and times both (its own line: it is no TPU kernel), splits one backward
    (K1b) at the train path's operands by device launch (torch profiler),
    and fails unless two backward launches on those operands give the same
-   bits.
+   bits;
+13. the native host code, on the card's host, after phase 11: phase 6's
+   ``nar_trainer_gcom`` run again on its files 0-10 with
+   ``--use_native_loader``; checks the run, every baseline column bit-equal
+   to phase 6's, that the session-kNN predicted on its C++ path only, each
+   file's C++ batches array for array against the Python reader and
+   collation, and the session-kNN's predictions on eval hour 10's first
+   batch natively and on the numpy row loop bit-equal; prints the loader's
+   and the Python reader's seconds per file, both predictors' walls, and
+   the benchmark tier's seconds and share of eval hour 10;
+14. grouped compaction, counted: the G1 train step at phase 4's capacity
+   with ``train_compaction_groups`` 4 (per step the stash forward and the
+   backward of the fused scorer once, the UGRNN forward and backward twice
+   each), each step's ``dropped_clicks`` against the groups' overflow
+   counted on the host, the loss over 20 steps on one batch finite and
+   falling, and the ms a step by CUDA events beside the one-group step's;
+15. ACR in bf16: phase 7's CNN classifier (ACE 250, batch 8) and phase 10's
+   GRU autoencoder (GRU 512, 30 tokens, batch 32) at their published
+   widths, 20 steps each in bf16 and in f32 from the same weights and
+   batches, on the card and on the CPU; checks the losses (finite,
+   falling), the bf16 ACE within ``ACR_BF16_TOL`` of the f32 ACE at the
+   initial weights, and the card's bf16 run against the CPU's (the ACE
+   before and after the steps, the losses), and prints the bf16
+   ACE's distance from f32 after the steps, the ms a step and (profiled
+   last) the busy share of each.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 numbers before the last line, and as the last line
@@ -1279,7 +1312,8 @@ def g1_cli_phase(workdir):
     the host suite's), the synced copy against ``model_dir`` and that the
     steps ran on the card; prints the walls, the eval hours' phases and each
     baseline's share of the benchmark tier.  Returns the kernel launches of
-    the run (the CLI's default path takes the plain branch: none)."""
+    the run (the CLI's default path takes the plain branch: none), the
+    trainer's flags and the eval CSV's rows."""
     from chameleon_recsys_tpu_torch.cli import (
         make_pseudo_g1,
         nar_preprocess_gcom,
@@ -1311,7 +1345,14 @@ def g1_cli_phase(workdir):
             *g1_script_flags(), "--save_scalars", "--save_histograms",
             "--artifact_store_root", str(store), "--sync_artifacts_to", "run"]
     print(f"g1 cli: nar_trainer_gcom {' '.join(argv[8:])}")
+    zero_sknn_counts()
     counts, rows = run_trainer_cli(nar_trainer_gcom, argv, "g1 cli")
+    # the session-kNN takes its C++ predictor by default, as the JAX CLI's does
+    native_calls, numpy_calls = sknn_counts()
+    print(f"g1 cli: session-kNN predict calls on the C++ predictor (the default) "
+          f"{native_calls}, on the numpy row loop {numpy_calls}")
+    check(native_calls > 0 and numpy_calls == 0,
+          f"g1 cli: the session-kNN ran {numpy_calls} predicts on numpy")
     expected_rows = (G1_CLI_FILES - 1) // 5
     check(len(rows) == expected_rows, f"g1 cli: {len(rows)} eval rows, expected "
           f"{expected_rows}")
@@ -1332,7 +1373,7 @@ def g1_cli_phase(workdir):
     check(synced and all(local.get(p) == v for p, v in synced.items())
           and unsynced == ["checkpoint.pkl"],
           "g1 cli: the synced copy differs from model_dir")
-    return counts
+    return counts, argv, rows
 
 
 def acr_cpu_vs_card(articles, word_embeddings, encoders, class_weights):
@@ -2302,6 +2343,410 @@ def eval_cpu_vs_card(port, corpus_fn):
               f"small eval: stream field {name} differs")
 
 
+# ---------------------------------------------------------------------------
+# 13-15: the native host code, grouped compaction and ACR in bf16
+# ---------------------------------------------------------------------------
+
+
+def native_build():
+    """Builds both native libraries from the port's sources (``g++``, into
+    the package's ``_build/``) and whether zlib's header is there; run in a
+    thread beside the kernels' ``nvcc`` builds.  Returns (seconds by
+    library, zlib header found, libraries loaded)."""
+    from chameleon_recsys_tpu_torch.native import build as native_build_module
+    from chameleon_recsys_tpu_torch.native import loader, sknn
+
+    zlib_header = subprocess.run(["g++", "-E", "-x", "c++", "-"], input="#include <zlib.h>\n",
+                                 capture_output=True, text=True, timeout=60).returncode == 0
+    loaded = (sknn.native_available(), loader.native_available())
+    errors = [e for e in (sknn.build_error(), loader.build_error()) if e]
+    return dict(native_build_module.build_seconds), zlib_header, loaded, errors
+
+
+def sknn_counts():
+    from chameleon_recsys_tpu_torch.baselines import session_knn
+
+    return session_knn.native_calls, session_knn.numpy_calls
+
+
+def zero_sknn_counts():
+    from chameleon_recsys_tpu_torch.baselines import session_knn
+
+    session_knn.native_calls = session_knn.numpy_calls = 0
+
+
+def native_phase(workdir, phase6_argv, phase6_rows):
+    """(13) The native host code on the card's host, on phase 6's files:
+    ``nar_trainer_gcom`` again over files 0-10 with ``--use_native_loader``,
+    the launch and session-kNN counters zeroed just before and read just
+    after.  Checks the run (``run_trainer_cli``: finite columns, the device
+    HR equal to the host suite's), every baseline column bit-equal to phase
+    6's (host-only and deterministic), the C++ predictor taken for every
+    session-kNN predict (``native_calls`` > 0, ``numpy_calls`` 0), then each
+    file's native batches array for array (dtypes too) against the Python
+    reader and collation, and the session-kNN ``predict`` of eval hour 10's
+    first batch, from its state then, natively and on the numpy row loop,
+    bit-equal.  Prints the loader's and the Python reader's seconds per
+    file, both predictors' walls, the benchmark tier's seconds and its share
+    of eval hour 10.  Returns the kernel launches of the run (none)."""
+    import copy
+    import types
+
+    import chameleon_recsys_tpu_torch.native as native
+    from chameleon_recsys_tpu_torch.baselines.session_knn import SessionBasedKNNRecommender
+    from chameleon_recsys_tpu_torch.cli import nar_trainer_gcom
+    from chameleon_recsys_tpu_torch.data.collate import batches_from_sessions
+    from chameleon_recsys_tpu_torch.data.sessions import read_sessions_tfrecord
+
+    loaded = []  # (path, schema, epoch_ms, parse seconds, (batch size, max length))
+    hours = {"index": 0, "pending": False, "snapshot": None,
+             "predict_s": collections.defaultdict(float), "wall": {}, "phases": {}}
+    loader_class, predict = native.NativeSessionLoader, SessionBasedKNNRecommender.predict
+    harness_class = nar_trainer_gcom.TemporalHarness
+
+    class RecordingLoader(loader_class):
+        def __init__(self, path, schema, epoch_ms=0):
+            t0 = time.perf_counter()
+            super().__init__(path, schema, epoch_ms)
+            loaded.append([path, schema, epoch_ms, time.perf_counter() - t0, None])
+
+        def batches(self, batch_size, max_session_length):
+            loaded[-1][4] = (batch_size, max_session_length)
+            return super().batches(batch_size, max_session_length)
+
+    def recording_predict(self, users_ids, sessions_items, topk=5, valid_items=None):
+        if hours["pending"]:  # the first predict of an eval hour: its state
+            hours["pending"] = False
+            hours["snapshot"] = (self, copy.deepcopy(self._state()),
+                                 np.array(sessions_items), np.array(valid_items), topk)
+        t0 = time.perf_counter()
+        try:
+            return predict(self, users_ids, sessions_items, topk=topk, valid_items=valid_items)
+        finally:
+            hours["predict_s"][hours["index"]] += time.perf_counter() - t0
+
+    class MarkingHarness(harness_class):
+        def evaluate_hour(self, sessions):
+            hours["index"] += 1
+            hours["pending"] = True
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            row = super().evaluate_hour(sessions)
+            torch.cuda.synchronize()
+            hours["wall"][hours["index"]] = time.perf_counter() - t0
+            hours["phases"][hours["index"]] = dict(self.last_eval_phase_seconds)
+            return row
+
+    model_dir = workdir / "model_native"
+    argv = list(phase6_argv)
+    argv[argv.index("--model_dir") + 1] = str(model_dir)
+    argv[argv.index("--sync_artifacts_to") + 1] = "run_native"
+    argv.append("--use_native_loader")
+    native.NativeSessionLoader = RecordingLoader
+    SessionBasedKNNRecommender.predict = recording_predict
+    nar_trainer_gcom.TemporalHarness = MarkingHarness
+    zero_sknn_counts()
+    try:
+        counts, rows = run_trainer_cli(nar_trainer_gcom, argv, "g1 cli native")
+    finally:
+        native.NativeSessionLoader = loader_class
+        SessionBasedKNNRecommender.predict = predict
+        nar_trainer_gcom.TemporalHarness = harness_class
+    native_calls, numpy_calls = sknn_counts()
+    print(f"g1 cli native: session-kNN predict calls native {native_calls}, numpy "
+          f"{numpy_calls}; {len(loaded)} hour files through the C++ loader")
+    check(native_calls > 0 and numpy_calls == 0,
+          f"g1 cli native: the session-kNN ran {numpy_calls} predicts on numpy")
+    check(len(rows) == len(phase6_rows), "g1 cli native: eval rows")
+    baseline_columns = [c for c in phase6_rows[0] if c.endswith(G1_BASELINES)]
+    check(len(baseline_columns) == 8 * len(G1_BASELINES), "g1 cli native: baseline columns")
+    differ = [(i, c) for i, (a, b) in enumerate(zip(rows, phase6_rows))
+              for c in baseline_columns if a[c] != b[c]]
+    print(f"g1 cli native: {len(baseline_columns)} baseline columns x {len(rows)} rows "
+          f"bit-equal to phase 6's: {not differ}")
+    check(not differ, f"g1 cli native: baseline columns differ from phase 6's: {differ[:5]}")
+
+    # each file's batches: the C++ loader against the Python reader
+    native_s, python_s, checked = [], [], set()
+    for path, schema, epoch_ms, _, shape in loaded:
+        if path in checked:
+            continue
+        checked.add(path)
+        check(shape is not None, f"native loader: {path} was never batched")
+        t0 = time.perf_counter()
+        source = loader_class(path, schema, epoch_ms)
+        got = list(source.batches(*shape))
+        source.close()
+        native_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sessions = read_sessions_tfrecord(path, schema, epoch_ms)
+        want = list(batches_from_sessions(sessions, schema, *shape))
+        python_s.append(time.perf_counter() - t0)
+        check(len(got) == len(want), f"native loader: {path}: {len(got)} batches, "
+              f"expected {len(want)}")
+        for g, w in zip(got, want):
+            check(sorted(g) == sorted(w), f"native loader: {path}: keys")
+            for key in w:
+                check(g[key].dtype == w[key].dtype and np.array_equal(g[key], w[key]),
+                      f"native loader: {path}: {key} differs from the Python collation")
+    print(f"native loader: {len(checked)} files at batch {shape[0]}, max length {shape[1]}: "
+          "every batch array-equal to the Python reader's; seconds per file (read + "
+          "collate) C++ " + ", ".join(f"{s:.4f}" for s in native_s) + "; Python "
+          + ", ".join(f"{s:.4f}" for s in python_s) + f"; mean {np.mean(native_s):.4f} "
+          f"against {np.mean(python_s):.4f} s ({np.mean(python_s) / np.mean(native_s):.1f}x)")
+
+    # the session-kNN on eval hour 10's first batch, from its state then
+    last = max(hours["wall"])
+    clf, state, items, valid, topk = hours["snapshot"]
+    clf.state_view = types.SimpleNamespace(benchmarks_states={clf.get_clf_suffix(): state})
+    walls, preds = {}, {}
+    for use_native in (True, False, True, False):
+        clf.params["use_native"] = use_native
+        t0 = time.perf_counter()
+        preds[use_native] = clf.predict(None, items, topk=topk, valid_items=valid)
+        walls.setdefault(use_native, []).append(time.perf_counter() - t0)
+    clf.params["use_native"] = True
+    same = np.array_equal(preds[True], preds[False])
+    tier = hours["phases"][last]["benchmarks"]
+    print(f"session-kNN predict on eval hour 10's first batch {list(items.shape)} (host "
+          f"clock, two calls each): C++ {walls[True][0]:.4f}, {walls[True][1]:.4f} s; numpy "
+          f"row loop {walls[False][0]:.4f}, {walls[False][1]:.4f} s "
+          f"({min(walls[False]) / min(walls[True]):.1f}x); predictions bit-equal {same}")
+    print(f"g1 cli native eval hour 10: {hours['wall'][last]:.3f} s wall, benchmark tier "
+          f"{tier:.3f} s ({tier / hours['wall'][last]:.1%} of the hour), session-kNN "
+          f"predict {hours['predict_s'][last]:.3f} s over the hour")
+    check(same, "session-kNN: the C++ and numpy predictions differ")
+    return counts
+
+
+GROUPS = 4  # phase 14's train_compaction_groups: the data width of a 4-card mesh
+GROUPED_TIMED_STEPS = 10
+
+
+def grouped_phase(port, server, cfg, session_schema, article_schema, corpus, batches,
+                  capacity):
+    """(14) The G1 train step at phase 4's capacity with
+    ``train_compaction_groups`` = ``GROUPS``, counted: two steps over phase
+    4's batches (per step the stash forward and the backward of the fused
+    scorer once, the UGRNN forward and backward twice each, as with one
+    group), each step's ``dropped_clicks`` against the per-group overflow
+    counted on the host, then ``LOSS_STEPS`` steps on one batch (the loss
+    finite and falling); then the ms a step by CUDA events of the grouped
+    step beside the one-group step from the same weights, in turns.
+    Returns the launch counts of the counted run."""
+    from chameleon_recsys_tpu_torch.state.stream_state import init_stream_state
+    from chameleon_recsys_tpu_torch.train.steps import init_train_state, train_step
+
+    b, t = cfg.batch_size, cfg.max_inputs_length
+    warm = warm_stream(
+        init_stream_state(cfg, corpus.num_items, device="cuda"),
+        hour_batches(corpus, session_schema, cfg, 0, 2 * b)
+        + hour_batches(corpus, session_schema, cfg, 1, 2 * b), cfg, "cuda")
+    states = {}
+    for groups in (1, GROUPS):
+        gcfg = dataclasses.replace(cfg, train_valid_row_capacity=capacity,
+                                   train_compaction_groups=groups)
+        model = port.NARModel(gcfg, session_schema, article_schema,
+                              corpus.ace_matrix.shape[1]).to("cuda")
+        model.load_state_dict(server.model.state_dict())
+        states[groups] = init_train_state(model, warm,
+                                          torch.Generator(device="cuda").manual_seed(41))
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    state, per_step = states[GROUPS], []
+    for i in range(TRAIN_STEPS):
+        before = launch_counts()
+        state, metrics = train_step(state, batches[i % len(batches)], server.ace_matrix,
+                                    server.metadata)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        values = {k: float(v) for k, v in metrics.items()}
+        sizes = batches[i % len(batches)]["session_size"].cpu().numpy()
+        valid = (np.arange(t)[None] < (sizes - 1)[:, None]).reshape(GROUPS, -1).sum(1)
+        overflow = int(np.maximum(valid - capacity // GROUPS, 0).sum())
+        print(f"grouped train step {i} ({GROUPS} groups of {capacity // GROUPS} rows; valid "
+              f"clicks by group {valid.tolist()}): "
+              + ", ".join(f"{k} {v:.6g}" for k, v in values.items()))
+        check(all(np.isfinite(v) for v in values.values()),
+              f"grouped train step {i}: a metric is not finite")
+        check(values["dropped_clicks"] == overflow,
+              f"grouped train step {i}: dropped {values['dropped_clicks']}, the groups' "
+              f"overflow is {overflow}")
+    counts = launch_counts()
+    expected = {"cand_score_fwd": 0, "cand_score_fwd_stash": 1, "cand_score_bwd": 1,
+                "cand_score_bwd_recompute": 0, **ugrnn_expected(cfg.rnn_num_layers,
+                                                                cfg.rnn_num_layers)}
+    print(f"grouped train path ({GROUPS} groups, capacity {capacity}): launches {counts}, "
+          f"per step {per_step}")
+    check(per_step == [expected] * TRAIN_STEPS,
+          f"kernel launches per grouped train step {per_step}")
+    losses = []
+    for _ in range(LOSS_STEPS):
+        state, metrics = train_step(state, batches[0], server.ace_matrix, server.metadata)
+        losses.append(float(metrics["loss"]))
+    print(f"grouped: loss over {LOSS_STEPS} steps on one batch: {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f} (min {min(losses):.6f})")
+    check(all(np.isfinite(losses)), "grouped: a loss is not finite")
+    check(losses[-1] < losses[0], "grouped: the loss does not fall on one batch")
+    states[GROUPS] = state
+
+    def step(groups):
+        states[groups], _ = train_step(states[groups], batches[0], server.ace_matrix,
+                                       server.metadata)
+
+    times = {1: [], GROUPS: []}
+    for groups in (1, GROUPS, GROUPS, 1):
+        times[groups].append(cuda_ms(lambda: step(groups), iters=GROUPED_TIMED_STEPS,
+                                     warmup=2))
+    print(f"train_step b{b} capacity {capacity} (CUDA events over {GROUPED_TIMED_STEPS} "
+          f"steps, in turns): {GROUPS} groups " + ", ".join(f"{ms:.3f}" for ms in
+                                                           times[GROUPS])
+          + " ms, one group " + ", ".join(f"{ms:.3f}" for ms in times[1]) + " ms")
+    del states
+    return counts
+
+
+ACR_BF16_STEPS = 20  # on the same batches in each dtype: 2 batches x 10 epochs
+# the bf16 ACE's distance from the f32 ACE, normwise: tests/test_torch_acr_bf16.py's
+# bound for activations (ACT_TOL), about ten bf16 roundings
+ACR_BF16_TOL = 2e-2
+# the bf16 task losses on the card against the CPU's, relative, over the
+# first ACR_BF16_LOSS_STEPS steps: that file's LOSS_TOL for its three steps
+# (f32 sums over the batch, in which the roundings average out).  Past them
+# the two runs' parameters have parted, and each loss is held at the
+# activations' bound ACR_BF16_TOL, as the ACE after the steps is.
+ACR_BF16_LOSS_TOL = 1e-3
+ACR_BF16_LOSS_STEPS = 3
+
+
+def acr_bf16_phase():
+    """(15) ACR in bf16 at the published widths on the card: phase 7's CNN
+    classifier (ACE 250, batch 8, 300 tokens, 100-dim words) and phase 10's
+    GRU autoencoder (GRU 512, 30 tokens, batch 32, 300-dim words, noise
+    0.05), ``ACR_BF16_STEPS`` steps each in bf16 and in f32 from the same
+    weights, batches and draws (random words and labels from a seed), and
+    the same steps in both dtypes on the CPU.  Checks that the losses are
+    finite and fall, that the bf16 ACE lies within ``ACR_BF16_TOL`` of the
+    f32 ACE at the initial weights (the CPU tests' bound, set for a forward
+    and three steps), and that the card's bf16 run lies within the CPU
+    tests' bounds of the CPU's bf16 run: the ACE at the initial weights and
+    after the steps within ``ACR_BF16_TOL``, the first
+    ``ACR_BF16_LOSS_STEPS`` task losses within ``ACR_BF16_LOSS_TOL`` and
+    every later one within ``ACR_BF16_TOL``.  Prints the bf16 ACE's distance from the f32 ACE
+    after the steps on the card and on the CPU, and the ms a step by CUDA
+    events.  Returns the launch
+    counts (none) and a function that profiles one step of each (the busy
+    share), run by ``main`` after its other profiles."""
+    from chameleon_recsys_tpu_torch.acr.trainer import ACRTrainer
+    from chameleon_recsys_tpu_torch.config import ACRConfig
+    from chameleon_recsys_tpu_torch.models.acr import ACRLabelSpec
+
+    class RecordingTrainer(ACRTrainer):
+        def train_step(self, batch, weights):
+            loss, task_loss = super().train_step(batch, weights)
+            self.task_losses.append(task_loss)
+            return loss, task_loss
+
+    def corpus(n, length, vocab, dim, seed):
+        rng = np.random.RandomState(seed)
+        words = (rng.randn(vocab, dim) * 0.3).astype(np.float32)
+        lengths = rng.randint(length // 2, length + 1, n)
+        text = np.where(np.arange(length)[None] < lengths[:, None],
+                        rng.randint(2, vocab, (n, length)), 0).astype(np.int32)
+        articles = {"article_id": np.arange(1, n + 1), "text": text,
+                    "text_length": lengths.astype(np.int32),
+                    "category0": rng.randint(1, 80, n),
+                    "keywords": rng.randint(0, 500, (n, 4))}
+        return words, articles, {"category0": (rng.rand(80) + 0.5).astype(np.float32)}
+
+    cases = {
+        "cnn classifier": (dict(text_feature_extractor="CNN", batch_size=8,
+                                truncate_tokens_length=300, learning_rate=3e-4,
+                                l2_reg_lambda=1e-5, word_embedding_size=100),
+                           (ACRLabelSpec("category0", 80, "multiclass"),
+                            ACRLabelSpec("keywords", 500, "multilabel")), 16, 300, 100),
+        "gru autoencoder": (dict(training_task="autoencoder", text_feature_extractor="GRU",
+                                 autoencoder_noise=0.05, batch_size=32,
+                                 truncate_tokens_length=30, learning_rate=1e-4,
+                                 l2_reg_lambda=7e-4, rnn_units=512, word_embedding_size=300),
+                            (), 64, 30, 300),
+    }
+    zero_launch_counts()
+    profiles = []
+    for name, (fields, specs, n, length, dim) in cases.items():
+        words, articles, class_weights = corpus(n, length, 20000, dim, seed=15)
+        if not specs:
+            articles = {k: articles[k] for k in ("article_id", "text", "text_length")}
+            class_weights = None
+        runs = {}
+        for dtype, device in (("float32", "cuda"), ("bfloat16", "cuda"),
+                              ("bfloat16", "cpu"), ("float32", "cpu")):
+            cfg = ACRConfig(acr_embeddings_size=250, vocab_size=20000, compute_dtype=dtype,
+                            training_epochs=ACR_BF16_STEPS * fields["batch_size"] // n,
+                            **fields)
+            trainer = RecordingTrainer(cfg, words, specs, class_weights, device=device)
+            trainer.task_losses = []
+            ace0 = trainer.predict_all_ace(articles)
+            trainer.fit(articles)
+            losses = torch.stack(trainer.task_losses).cpu().numpy()
+            ace = trainer.predict_all_ace(articles)
+            runs[dtype, device] = (ace0, losses, ace)
+            check(len(losses) == ACR_BF16_STEPS and np.isfinite(losses).all(),
+                  f"acr {dtype} {name} on {device}: step losses")
+            check(ace.dtype == np.float32 and np.isfinite(ace).all(),
+                  f"acr {dtype} {name} on {device}: ACE")
+            if device == "cpu":
+                continue
+            batch = {k: torch.as_tensor(v[: cfg.batch_size], device="cuda")
+                     for k, v in articles.items()}
+            weights = torch.ones(cfg.batch_size, device="cuda")
+            ms = cuda_ms(lambda: trainer.train_step(batch, weights), iters=20, warmup=3)
+            runs[dtype, "ms"] = ms
+            profiles.append((f"acr {dtype} {name} train step (batch {cfg.batch_size})",
+                             lambda t=trainer, b=batch, w=weights: t.train_step(b, w), ms))
+            print(f"acr {dtype} {name}: {len(losses)} steps, task loss first / last 5 "
+                  f"{losses[:5].mean():.5f} / {losses[-5:].mean():.5f}; {ms:.3f} ms a step "
+                  f"(CUDA events over 20 steps)")
+            check(losses[-5:].mean() < losses[:5].mean(), f"acr {dtype} {name}: the loss "
+                  "does not fall")
+
+        def ace_gap(a, b, i):
+            return float(np.linalg.norm(runs[a][i] - runs[b][i]) / np.linalg.norm(runs[b][i]))
+
+        card16, card32 = ("bfloat16", "cuda"), ("float32", "cuda")
+        cpu16, cpu32 = ("bfloat16", "cpu"), ("float32", "cpu")
+        gaps = [ace_gap(card16, card32, i) for i in (0, 2)]
+        cpu_gap = ace_gap(cpu16, cpu32, 2)
+        card_cpu = [ace_gap(card16, cpu16, i) for i in (0, 2)]
+        loss_err = np.abs(runs[card16][1] - runs[cpu16][1]) / np.abs(runs[cpu16][1])
+        print(f"acr bf16 {name}: ACE distance from f32 (normwise) at the initial weights "
+              f"{gaps[0]:.3e}, after {ACR_BF16_STEPS} steps {gaps[1]:.3e} on the card and "
+              f"{cpu_gap:.3e} on the CPU (bound {ACR_BF16_TOL} at the initial weights); "
+              f"ms a step bf16 {runs['bfloat16', 'ms']:.3f} against f32 "
+              f"{runs['float32', 'ms']:.3f}")
+        print(f"acr bf16 {name} card vs cpu: ACE distance at the initial weights "
+              f"{card_cpu[0]:.3e}, after {ACR_BF16_STEPS} steps {card_cpu[1]:.3e} (bound "
+              f"{ACR_BF16_TOL}); task losses' relative difference, max over the first "
+              f"{ACR_BF16_LOSS_STEPS} steps {loss_err[:ACR_BF16_LOSS_STEPS].max():.3e} (bound "
+              f"{ACR_BF16_LOSS_TOL}), over all {loss_err.max():.3e} (bound {ACR_BF16_TOL}), "
+              "per step " + " ".join(f"{e:.1e}" for e in loss_err))
+        check(gaps[0] <= ACR_BF16_TOL, f"acr bf16 {name}: the ACE lies {gaps[0]} from f32")
+        check(max(card_cpu) <= ACR_BF16_TOL,
+              f"acr bf16 {name}: the card's ACE lies {card_cpu} from the CPU's")
+        check(loss_err[:ACR_BF16_LOSS_STEPS].max() <= ACR_BF16_LOSS_TOL
+              and loss_err.max() <= ACR_BF16_TOL,
+              f"acr bf16 {name}: the card's losses lie {loss_err} from the CPU's")
+    counts = launch_counts()
+    check(not any(counts.values()), f"acr bf16: a kernel launched: {counts}")
+
+    def profile_acr_bf16():
+        for label, fn, ms in profiles:
+            print_profile(label, fn, ACR_PROFILE_STEPS, ms)
+
+    return counts, profile_acr_bf16
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2324,10 +2769,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 1. build every kernel of the paths ----
+    # ---- 1. build every kernel of the paths, and the native host code ----
+    native_result = []
+    native_thread = threading.Thread(target=lambda: native_result.append(native_build()))
+    native_thread.start()
     t0 = time.perf_counter()
     build.build(KERNELS)
     print(f"build: {time.perf_counter() - t0:.3f} s for {', '.join(KERNELS)}")
+    native_thread.join(timeout=300)
+    check(native_result, "native build: did not finish")
+    seconds, zlib_header, loaded, native_errors = native_result[0]
+    print(f"native build (g++ -O3 -march=native, beside nvcc): "
+          + ", ".join(f"{k}.cc {v:.3f} s" for k, v in seconds.items())
+          + f"; zlib.h {'found' if zlib_header else 'missing'}; sknn, chio loaded {loaded}")
+    check(all(loaded), f"native build failed: {native_errors}")
     for name in KERNELS:
         log = build.build_log.get(name, "")
         registers = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
@@ -2434,7 +2889,7 @@ def main() -> int:
         del harness, make
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as g1_workdir:
         # ---- 6. the G1 pipeline through its CLIs, on the card ----
-        cli_counts = g1_cli_phase(Path(g1_workdir))
+        cli_counts, g1_argv, g1_rows = g1_cli_phase(Path(g1_workdir))
         # ---- 7. the Adressa chain through its CLIs, on the card ----
         with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
             adressa_counts, profile_acr_step = adressa_cli_phase(Path(workdir))
@@ -2448,16 +2903,23 @@ def main() -> int:
             g1_acr_counts, profile_autoencoder_step = g1_acr_phase(Path(workdir))
         # ---- 11. the neural baselines through their CLIs, on phase 6's files ----
         neural_counts, profile_neural_steps = neural_cli_phase(Path(g1_workdir))
+        # ---- 13. the native host code: phase 6's CLI on the C++ loader ----
+        native_counts = native_phase(Path(g1_workdir), g1_argv, g1_rows)
+    # ---- 14. grouped compaction at phase 4's capacity, counted ----
+    grouped_counts = grouped_phase(port, server, cfg, session_schema, article_schema,
+                                   corpus, train_batches, capacity)
+    # ---- 15. ACR in bf16 against f32 at the published widths ----
+    acr_bf16_counts, profile_acr_bf16 = acr_bf16_phase()
     paths = (serve_counts, eval_counts, train_counts, recompute_counts, harness_counts,
              cli_counts, adressa_counts, dropout_counts, sweep_counts, g1_acr_counts,
-             neural_counts)
+             neural_counts, native_counts, grouped_counts, acr_bf16_counts)
     main_launches = {k: sum(path.get(k, 0) for path in paths)
                      for k in KERNEL_NAMES + UGRNN_INSTANTIATIONS}
     print(f"launches over the counted paths: {main_launches}")
     check(main_launches["ugrnn_fwd_stream"] == main_launches["ugrnn_bwd_stream"] == 0,
           "a G1 path ran a streaming UGRNN kernel")
 
-    # ---- 8. each kernel against its plain twin ----
+    # ---- 12a. each kernel against its plain twin ----
     serve_mask = captured[max(SERVE_BATCHES)]
     g = torch.Generator().manual_seed(1)
     lengths = torch.randint(1, serve_mask.shape[1] + 1, (256,), generator=g)
@@ -2593,7 +3055,7 @@ def main() -> int:
                 name, operands, g_case, tol)
     del train_cases
 
-    # ---- 9. served scores, an eval and a train step against the CPU ----
+    # ---- 12b. served scores, an eval and a train step against the CPU ----
     tcfg, tsess, tart = tiny_setup(port)
     tcorpus = make_synthetic_corpus(tart, ace_dim=8)
     tsessions = synthetic_hour_sessions(tcorpus, tsess, 0, 24, tcfg.max_session_length)
@@ -2621,7 +3083,7 @@ def main() -> int:
     eval_cpu_vs_card(port, make_synthetic_corpus)
     train_cpu_vs_card(port, make_synthetic_corpus)
 
-    # ---- 10. times ----
+    # ---- 12c. times ----
     # K2f at serving batches 1 and 32 and the train batch 256, with the
     # training outputs (states and stash) and without, beside the chain
     # floor and the launch's clusters; then at T 1, 4 and 19 (the slope is a
@@ -2891,6 +3353,7 @@ def main() -> int:
     profile_autoencoder_step()
     profile_dropout_step()
     profile_neural_steps()
+    profile_acr_bf16()
 
     print(json.dumps({"kernels": [
         {

@@ -90,9 +90,12 @@ def warm_file(root: Path) -> str:
     return str(root / "sessions" / "sessions_hour_000.tfrecord.gz")
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    root = tmp_path_factory.mktemp("cli_g1")
+def run_chains(root: Path, jax_extra=(), port_runs=(("port", ()),)):
+    """The JAX chain in ``root / "jax"`` and the port's in ``root / "port"``
+    (bundle and session files), the JAX trainer with ``jax_extra`` flags and
+    one port trainer run per ``port_runs`` entry (name, flags) into
+    ``root / name / "model"`` and its store, each from the JAX run's params,
+    stream and draws."""
     captured = {}
 
     class WarmJaxHarness(jax_trainer.TemporalHarness):
@@ -129,11 +132,20 @@ def runs(tmp_path_factory):
         patch.setenv("CHAMELEON_JAX_CACHE", "")  # no compile cache outside the run
         patch.setattr(jax_trainer, "TemporalHarness", WarmJaxHarness)
         patch.setattr(nar_trainer_gcom, "TemporalHarness", InjectedPortHarness)
-        jax_trainer.main(pipeline(root / "jax", jax_make_pseudo_g1, jax_preprocess))
+        jax_trainer.main(pipeline(root / "jax", jax_make_pseudo_g1, jax_preprocess)
+                         + list(jax_extra))
         port_argv = pipeline(root / "port", make_pseudo_g1, nar_preprocess_gcom)
-        with jax_draws(types.SimpleNamespace(cfg=captured["cfg"]), captured["rng"]):
-            nar_trainer_gcom.main(port_argv)
+        for name, extra in port_runs:
+            argv = port_argv + ["--model_dir", str(root / name / "model"),
+                                "--artifact_store_root", str(root / name / "store")]
+            with jax_draws(types.SimpleNamespace(cfg=captured["cfg"]), captured["rng"]):
+                nar_trainer_gcom.main(argv + list(extra))
     return root
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return run_chains(tmp_path_factory.mktemp("cli_g1"))
 
 
 def model_dir(runs, name):
@@ -175,15 +187,21 @@ def test_same_artifact_files(runs):
 
 
 def test_eval_csv_matches_jax(runs):
-    port_columns, port_rows = read_csv(model_dir(runs, "port") / "eval_stats_benchmarks.csv")
-    jax_columns, jax_rows = read_csv(model_dir(runs, "jax") / "eval_stats_benchmarks.csv")
+    assert_eval_csv_matches(model_dir(runs, "port"), model_dir(runs, "jax"))
+
+
+def assert_eval_csv_matches(port_dir: Path, jax_dir: Path):
+    """The eval CSV of ``port_dir`` against ``jax_dir``'s: the same columns
+    and rows, the baselines bit-equal, CHAMELEON within the tolerances."""
+    port_columns, port_rows = read_csv(port_dir / "eval_stats_benchmarks.csv")
+    jax_columns, jax_rows = read_csv(jax_dir / "eval_stats_benchmarks.csv")
     assert port_columns == jax_columns
     assert len(port_rows) == len(jax_rows) == 2
     baseline = [c for c in jax_columns if c.endswith(BASELINES)]
     assert len(baseline) == 8 * len(BASELINES)
     swaps = _near_tie_swaps(
-        read_json_lines(model_dir(runs, "port") / "eval_chameleon_recommendations_log.json"),
-        read_json_lines(model_dir(runs, "jax") / "eval_chameleon_recommendations_log.json"))
+        read_json_lines(port_dir / "eval_chameleon_recommendations_log.json"),
+        read_json_lines(jax_dir / "eval_chameleon_recommendations_log.json"))
     if swaps:
         print("near ties ranked the other way:", swaps)
     for port_row, jax_row in zip(port_rows, jax_rows):
@@ -210,7 +228,6 @@ def test_negative_samples_equal_jax(runs):
 NOT_PORTED = {
     "--data_parallelism": (["--data_parallelism", "2"], "multi-GPU"),
     "--model_parallelism": (["--model_parallelism", "2"], "multi-GPU"),
-    "--use_native_loader": (["--use_native_loader"], "native loader"),
 }
 MISSING = ["--train_set_path_regex", "/nonexistent/sessions_*.tfrecord.gz",
            "--acr_module_articles_metadata_csv_path", "/nonexistent/meta.csv",

@@ -722,6 +722,22 @@ def test_steps_at_a_bf16_c_past_1280_launch_the_kernels_on_card(card):
     _assert_steps_match(cpu, gpu, torch.bfloat16)
 
 
+@pytest.mark.parametrize("groups", [2, 4])
+def test_grouped_train_step_on_card_matches_cpu(card, groups):
+    """``train_compaction_groups`` 2 and 4 at capacity 48 (12 or 24 rows a
+    group): the train step takes the fused branch through the grouped
+    gathers, launching K1fs and K1b once and K2f and K2b twice (two UGRNN
+    layers), and matches the CPU (``_assert_steps_match``), its
+    ``dropped_clicks`` exactly."""
+    before = (ugrnn.launches, ugrnn.bwd_launches)
+    cfg, cpu, gpu = _steps_on_card_and_cpu(card, torch.float32,
+                                           train_compaction_groups=groups)
+    assert gpu[4] == [1, 1, 1, 0]  # eval K1f; train K1fs and K1b
+    assert (ugrnn.launches - before[0], ugrnn.bwd_launches - before[1]) == (4, 2)
+    assert float(gpu[2]["dropped_clicks"]) == float(cpu[2]["dropped_clicks"])
+    _assert_steps_match(cpu, gpu, torch.float32)
+
+
 def test_steps_past_the_ugrnn_kernels_width_run_on_card(card):
     """1,040 RNN units with ``use_pallas_rnn`` on, past the UGRNN kernels'
     1,024 (``ugrnn.kernel_takes``): the layers run the plain scan, so an
@@ -1036,6 +1052,72 @@ def test_acr_autoencoder_steps_on_card_match_cpu(card, direction, monkeypatch):
     assert len(cpu_losses) == 20 and np.isfinite(cpu_losses).all()
     np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=ACR_CARD_TOL["loss"], atol=0)
     np.testing.assert_allclose(gpu_ace, cpu_ace, rtol=0, atol=ACR_CARD_TOL["ace"])
+
+
+# ACR in bfloat16 on the card against the CPU: the tolerances of
+# tests/test_torch_acr_bf16.py (the port's bf16 against JAX's), since the
+# card's cuBLAS and cuDNN convolutions round the bf16 products at other
+# places than the CPU's, as XLA does: activations (the ACE, the matrix)
+# within 2e-2 normwise, the f32 losses within 1e-3 relative, all
+# parameters together within 5e-3 of their norm after three Adam steps.
+ACR_BF16_TOL = {"act": 2e-2, "loss": 1e-3, "params": 5e-3}
+
+
+def _rel(a, b):
+    a, b = (np.asarray(x, np.float64) for x in (a, b))
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+@pytest.mark.parametrize("task", ["CNN", "GRU", "LSTM", "autoencoder"])
+def test_acr_bf16_steps_on_card_match_cpu(card, task):
+    """Three bf16 steps (24 articles at batch 8) of a classifier or the GRU
+    autoencoder from the same weights on the CPU and on the card: the ACE of
+    the initial weights, the task losses, the parameters (f32) and the ACE
+    matrix after the steps."""
+    from chameleon_recsys_tpu_torch.acr.trainer import ACRTrainer
+    from chameleon_recsys_tpu_torch.config import ACRConfig
+    from chameleon_recsys_tpu_torch.models.acr import ACRLabelSpec
+
+    class RecordingTrainer(ACRTrainer):
+        def train_step(self, batch, weights):
+            loss, task_loss = super().train_step(batch, weights)
+            self.task_losses.append(task_loss)
+            return loss, task_loss
+
+    word_emb, articles, class_weights = _acr_corpus(n=24)
+    autoencoder = task == "autoencoder"
+    cfg = ACRConfig(training_task="autoencoder" if autoencoder else "metadata_classification",
+                    text_feature_extractor="GRU" if autoencoder else task,
+                    rnn_direction="bidirectional" if task == "GRU" else "unidirectional",
+                    word_embedding_size=32, vocab_size=300, truncate_tokens_length=40,
+                    acr_embeddings_size=24, rnn_units=16, rnn_layers=2, batch_size=8,
+                    training_epochs=1, learning_rate=1e-3, l2_reg_lambda=1e-5,
+                    compute_dtype="bfloat16")
+    specs = () if autoencoder else (ACRLabelSpec("category0", 12, "multiclass"),
+                                    ACRLabelSpec("keywords", 20, "multilabel"))
+    if autoencoder:
+        articles = {k: articles[k] for k in ("article_id", "text", "text_length")}
+        class_weights = None
+    runs = {}
+    for device in ("cpu", card):
+        trainer = RecordingTrainer(cfg, word_emb, specs, class_weights, device=device)
+        trainer.task_losses = []
+        initial_ace = trainer.predict_all_ace(articles)
+        trainer.fit(articles)
+        params = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
+        runs[str(device)] = (initial_ace, torch.stack(trainer.task_losses).cpu().numpy(),
+                             params, trainer.build_ace_matrix(articles))
+    (cpu_ace0, cpu_losses, cpu_params, cpu_ace), (gpu_ace0, gpu_losses, gpu_params, gpu_ace) = (
+        runs["cpu"], runs[str(card)])
+    assert gpu_ace0.dtype == np.float32 and np.isfinite(gpu_losses).all()
+    assert all(p.dtype == torch.float32 for p in gpu_params.values())
+    assert _rel(gpu_ace0, cpu_ace0) <= ACR_BF16_TOL["act"]
+    assert len(cpu_losses) == len(gpu_losses) == 3
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=ACR_BF16_TOL["loss"], atol=0)
+    flat = [torch.cat([p.flatten() for _, p in sorted(d.items())]) for d in (gpu_params,
+                                                                              cpu_params)]
+    assert _rel(flat[0].numpy(), flat[1].numpy()) <= ACR_BF16_TOL["params"]
+    assert _rel(gpu_ace, cpu_ace) <= ACR_BF16_TOL["act"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor the JAX package,
-and no source of the port names either."""
+and no source of the port names either.  Its native libraries are its own
+builds: loading them maps no file of the JAX package."""
 import re
 import subprocess
 import sys
@@ -64,12 +65,26 @@ import chameleon_recsys_tpu_torch.baselines.sr_gnn
 import chameleon_recsys_tpu_torch.baselines.neural_runner
 import chameleon_recsys_tpu_torch.cli.run_gru4rec
 import chameleon_recsys_tpu_torch.cli.run_sr_gnn
+import chameleon_recsys_tpu_torch.native
+import chameleon_recsys_tpu_torch.native.build
+import chameleon_recsys_tpu_torch.native.loader
+import chameleon_recsys_tpu_torch.native.sknn
+# the native libraries: built from the port's own sources and loaded
+assert chameleon_recsys_tpu_torch.native.sknn.native_available()
+assert chameleon_recsys_tpu_torch.native.loader.native_available()
 loaded = [m for m in sys.modules
           if m == "chameleon_recsys_tpu" or m.startswith("chameleon_recsys_tpu.")]
 jax = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
+files = [m.__file__ for m in list(sys.modules.values()) if getattr(m, "__file__", None)]
+maps = open("/proc/self/maps").read()
 print(loaded, jax)
 assert not loaded, loaded
 assert "jax" not in sys.modules and not jax, jax
+# no file of the JAX package: no module, and no library (its .so files)
+assert not [f for f in files if "chameleon_recsys_tpu/" in f]
+assert "chameleon_recsys_tpu/" not in maps
+assert "chameleon_recsys_tpu_torch/_build/libsknn-" in maps
+assert "chameleon_recsys_tpu_torch/_build/libchio-" in maps
 """
 
 

@@ -306,13 +306,17 @@ def test_hypertuning_cli_refuses_as_the_trainer(sweep_inputs, capsys, monkeypatc
             "--acr_module_articles_content_embeddings_pickle_path", "/nonexistent/a.pkl",
             "--model_dir", str(root / "refused")]
     with pytest.raises(SystemExit) as exit_info:
-        nar_hypertuning_gcom.main(base + ["--use_native_loader", "--platform", "cpu"])
+        nar_hypertuning_gcom.main(base + ["--data_parallelism", "2", "--platform", "cpu"])
     assert exit_info.value.code == 2 and "not ported" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--platform cpu"):
         nar_hypertuning_gcom.main(base)
     assert not (root / "refused").exists()
-    args = nar_hypertuning_gcom.create_sweep_parser().parse_args(
-        base + ["--max_trials", "4", "--max_parallel", "2", "--dropout_keep_prob", "0.8"])
+    # as in the JAX CLI, --use_native_loader is accepted (and ignored)
+    args = nar_hypertuning_gcom.refuse_not_ported(
+        nar_hypertuning_gcom.create_sweep_parser(), nar_hypertuning_gcom._NOT_PORTED,
+        base + ["--max_trials", "4", "--max_parallel", "2", "--dropout_keep_prob", "0.8",
+                "--use_native_loader"])
     assert (args.max_trials, args.max_parallel, args.dropout_keep_prob) == (4, 2, 0.8)
+    assert args.use_native_loader
     assert nar_hypertuning_gcom.DEFAULT_GRID == jax_hyper.DEFAULT_GRID

@@ -58,6 +58,7 @@ from chameleon_recsys_tpu.data.collate import collate_sessions as jax_collate
 from chameleon_recsys_tpu.ops.pallas import cand_scorer as jax_cand_scorer
 
 from chameleon_recsys_tpu_torch.convert import flax_from_tensors
+from chameleon_recsys_tpu_torch.models import nar
 from chameleon_recsys_tpu_torch.ops import sampling
 from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer, ugrnn
 from chameleon_recsys_tpu_torch.ops.sampling import SamplerUniforms
@@ -165,23 +166,31 @@ def jax_compaction(batch, cap):
     return rows_sel, row_mask, row_click, dropped
 
 
-def jax_loss_and_grads(cfg, world, params, stream, batch):
+def jax_loss_and_grads(cfg, world, params, stream, batch, raw_rng=None):
     """``train_step_fn``'s loss and gradients (its ``loss_fn`` under
-    ``jax.value_and_grad``), for the compacted path and ``state.rng``."""
+    ``jax.value_and_grad``), for the compacted path (grouped where
+    ``cfg.train_compaction_groups`` > 1) and ``raw_rng`` (default
+    ``state.rng``)."""
     model = build_nar_train(cfg, world["sess"], world["art"]).model
-    key = jax.random.wrap_key_data(world["state"].rng, impl=cfg.rng_impl)
+    raw_rng = world["state"].rng if raw_rng is None else raw_rng
+    key = jax.random.wrap_key_data(raw_rng, impl=cfg.rng_impl)
     _, step_rng = jax.random.split(key)
     rng_neg, rng_drop = jax.random.split(step_rng)
     all_clicked, _ = jax_batch_all_clicks(batch)
-    rows_sel, row_mask, row_click, _ = jax_compaction(
-        batch, cfg.train_valid_row_capacity
-    )
+    groups = max(cfg.train_compaction_groups, 1)
+    if groups > 1:
+        rows_sel, row_mask, row_click, _ = jax_grouped_compaction(
+            batch, cfg.train_valid_row_capacity, groups)
+    else:
+        rows_sel, row_mask, row_click, _ = jax_compaction(
+            batch, cfg.train_valid_row_capacity
+        )
     t = batch["item_clicked"].shape[1]
     pool, idx, ids = jax_sample_negatives_pooled_rows(
         rng_neg, all_clicked, stream.buffer_ids, rows_sel // t, row_click,
         num_negatives=cfg.negative_samples,
         buffer_sample_size=cfg.negative_sample_from_buffer,
-        mult=cfg.neg_sampling_multiplying_factor,
+        mult=cfg.neg_sampling_multiplying_factor, groups=groups,
     )
     aux = JaxNARAux(world["ace"], world["metadata"], stream.recent_pop_norm,
                     stream.buffer_ids)
@@ -190,7 +199,7 @@ def jax_loss_and_grads(cfg, world, params, stream, batch):
         out = model.apply(
             {"params": p}, batch, aux, ids, train=True, rank=False,
             neg_pool=pool, neg_pool_idx=idx, scoring_rows=(rows_sel, row_mask),
-            rngs={"dropout": rng_drop},
+            scoring_groups=groups, rngs={"dropout": rng_drop},
         )
         reg = jax_l2_regularization(p, cfg.reg_weight_decay)
         return out.ce_loss + reg - out.nov_reg_loss, (out.ce_loss, reg)
@@ -445,10 +454,218 @@ def test_grid_train_step_without_capacity_matches_jax(world):
 
 
 def test_train_step_raises_on_what_is_not_ported(world):
-    state, ace, metadata = port_setup(world, config(
-        train_valid_row_capacity=16, train_compaction_groups=2))
-    with pytest.raises(NotImplementedError, match="groups"):
-        train_step(state, to_torch(world["batches"][0]), ace, metadata)
+    """Grouped compaction is ported: ``train_compaction_groups`` 2 trains
+    one step as the JAX step does (``test_grouped_train_steps_match_jax``
+    holds three), and only widths the groups do not divide raise, with the
+    JAX step's ``ValueError``."""
+    cfg = config(train_valid_row_capacity=16, train_compaction_groups=2,
+                 learning_rate=G1_LEARNING_RATE, **CASES["kernels_on"])
+    losses, jax_losses, _, _ = _grouped_steps(world, cfg, 1)
+    np.testing.assert_allclose(losses, jax_losses, rtol=1e-5)
+    for groups, capacity in ((3, 18), (4, 18), (16, 16)):  # 56 rows, B 8
+        state, ace, metadata = port_setup(world, config(
+            train_valid_row_capacity=capacity, train_compaction_groups=groups))
+        with pytest.raises(ValueError, match="train_compaction_groups must divide"):
+            train_step(state, to_torch(world["batches"][0]), ace, metadata)
+        jax_cfg = config(train_valid_row_capacity=capacity,
+                         train_compaction_groups=groups)
+        programs = build_nar_train(jax_cfg, world["sess"], world["art"])
+        params = jax.tree_util.tree_map(jnp.asarray, world["params"])
+        jax_state = world["state"]._replace(
+            params=params, opt_state=programs.optimizer.init(params),
+            stream=warm_stream(world, jax_cfg, 2))
+        with pytest.raises(ValueError, match="train_compaction_groups must divide"):
+            programs.train_step_fn(jax_state, world["batches"][0], world["ace"],
+                                   world["metadata"])
+
+
+# ---------------------------------------------------------------------------
+# grouped compaction (train_compaction_groups > 1)
+# ---------------------------------------------------------------------------
+
+
+def jax_grouped_compaction(batch, cap, groups):
+    """The ``groups > 1`` compaction of ``build_nar_train``
+    (chameleon_recsys_tpu/train/steps.py:140-180, 218), jnp as there."""
+    item_clicked = batch["item_clicked"]
+    b, t = item_clicked.shape
+    mask = jax_valid_click_mask(batch["session_size"], t).reshape(-1)
+    n_valid = jnp.sum(mask.astype(jnp.int32))
+    r = (b * t) // groups
+    mask2 = mask.reshape(groups, r)
+    mi = mask2.astype(jnp.int32)
+    nv = jnp.sum(mi, axis=1, keepdims=True)
+    dest = jnp.where(mask2, jnp.cumsum(mi, axis=1) - 1,
+                     nv + jnp.cumsum(1 - mi, axis=1) - 1)
+    perm = jnp.zeros((groups, r), jnp.int32).at[
+        jnp.arange(groups)[:, None], dest
+    ].set(jnp.broadcast_to(jnp.arange(r, dtype=jnp.int32)[None, :], (groups, r)),
+          unique_indices=True)
+    rows_local = perm[:, : cap // groups]
+    row_mask = jnp.take_along_axis(mask2, rows_local, axis=1).reshape(-1).astype(
+        jnp.float32)
+    row_click = jnp.take_along_axis(item_clicked.reshape(groups, r), rows_local,
+                                    axis=1).reshape(-1)
+    rows_sel = (rows_local + jnp.arange(groups, dtype=jnp.int32)[:, None] * r).reshape(-1)
+    dropped = (n_valid - jnp.sum(row_mask)).astype(jnp.float32)
+    return rows_sel, row_mask, row_click, dropped
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+@pytest.mark.parametrize("cap", ["fit", 16, 48])
+def test_grouped_compaction_matches_jax(world, groups, cap):
+    """Exactly, with the drops counted per group: a group's valid rows past
+    ``capacity / groups`` are dropped even where another group has room."""
+    for batch in world["batches"]:
+        capacity = world["capacity"] if cap == "fit" else cap
+        expected = jax_grouped_compaction(batch, capacity, groups)
+        got = compact_valid_rows(torch.from_numpy(np.array(batch["session_size"])),
+                                 torch.from_numpy(np.array(batch["item_clicked"])),
+                                 capacity, groups)
+        for name, a, e in zip(("rows_sel", "row_mask", "row_click", "dropped"),
+                              (got.rows_sel, got.row_mask, got.row_click, got.dropped),
+                              expected):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(e), err_msg=name)
+        mask = jax_valid_click_mask(np.array(batch["session_size"]),
+                                    batch["item_clicked"].shape[1], xp=np)
+        per_group = mask.reshape(groups, -1).sum(1)
+        share = min(capacity // groups, mask.size // groups)
+        assert float(got.dropped) == np.maximum(per_group - share, 0).sum()
+        # every kept row of group g lies in its block of sessions
+        block = got.rows_sel.reshape(groups, -1) // (mask.size // groups)
+        assert (block == torch.arange(groups)[:, None]).all()
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_grouped_rows_sampler_matches_jax(world, groups):
+    """On grouped compaction's rows, JAX's grouped sampler (its lookup local
+    to each group's block) equals the port's flat one
+    (``valid_sorted[row_session]``) for the same uniforms."""
+    cfg = config()
+    stream = warm_stream(world, cfg, 1)
+    batch = world["batches"][2]
+    all_clicked, _ = jax_batch_all_clicks(batch)
+    b, l = all_clicked.shape
+    rows = compact_valid_rows(torch.from_numpy(np.array(batch["session_size"])),
+                              torch.from_numpy(np.array(batch["item_clicked"])), 24, groups)
+    t = batch["item_clicked"].shape[1]
+    row_session = (rows.rows_sel // t).to(torch.int32)
+    key = jax.random.PRNGKey(groups)
+    expected = jax_sample_negatives_pooled_rows(
+        key, all_clicked, stream.buffer_ids, jnp.asarray(row_session.numpy()),
+        jnp.asarray(rows.row_click.numpy()), num_negatives=cfg.negative_samples,
+        buffer_sample_size=cfg.negative_sample_from_buffer, groups=groups,
+    )
+    rng_buf, rng_pool, rng_u = jax.random.split(key, 3)
+    m = cfg.negative_sample_from_buffer
+    nc = min(cfg.negative_samples * cfg.neg_sampling_multiplying_factor, b * l + m)
+    uniforms = SamplerUniforms(*(
+        torch.tensor(np.asarray(jax.random.uniform(r, shape))) for r, shape in (
+            (rng_buf, stream.buffer_ids.shape), (rng_pool, (b * l + m,)),
+            (rng_u, (24, nc)),
+        )
+    ))
+    args = (torch.tensor(np.asarray(all_clicked)),
+            torch.tensor(np.asarray(stream.buffer_ids)), row_session, rows.row_click)
+    kwargs = dict(num_negatives=cfg.negative_samples,
+                  buffer_sample_size=cfg.negative_sample_from_buffer, uniforms=uniforms)
+    got = sampling.sample_negatives_pooled_rows(*args, **kwargs)
+    for name, g, e in zip(("pool", "neg_idx", "neg_ids"), got, expected):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e), err_msg=name)
+    assert (got[2] != 0).any()
+
+
+def _grouped_steps(world, cfg, steps):
+    """``steps`` train steps of both packages from the same params and
+    stream, JAX's draws injected: (port losses, JAX losses, the port's state
+    and metrics per step, JAX's state and metrics per step)."""
+    params = jax.tree_util.tree_map(jnp.asarray, world["params"])
+    programs = build_nar_train(cfg, world["sess"], world["art"])
+    jax_state = world["state"]._replace(
+        params=params, opt_state=programs.optimizer.init(params),
+        stream=warm_stream(world, cfg, 2))
+    step_fn = jax.jit(programs.train_step_fn)
+    state, ace, metadata = port_setup(world, cfg)
+    rows = min(cfg.train_valid_row_capacity, cfg.batch_size * cfg.max_inputs_length)
+    port_trace, jax_trace = [], []
+    for i in range(steps):
+        batch = world["batches"][i % len(world["batches"])]
+        uniforms, _ = jax_train_uniforms(cfg, jax_state.rng, rows, cfg.batch_size,
+                                         cfg.max_session_length,
+                                         cfg.recent_clicks_buffer_max_size)
+        _, grads = jax_loss_and_grads(cfg, world, jax_state.params, jax_state.stream,
+                                      batch, jax_state.rng)
+        jax_state, jax_metrics = step_fn(jax_state, batch, world["ace"], world["metadata"])
+        state, metrics = train_step(state, to_torch(batch), ace, metadata,
+                                    uniforms=uniforms)
+        port_trace.append((metrics, leaves(flax_from_tensors(
+            {n: p.grad.clone() for n, p in state.model.named_parameters()}))))
+        jax_trace.append((jax_metrics, leaves(grads)))
+    losses = [float(m["loss"]) for m, _ in port_trace]
+    jax_losses = [float(m["loss"]) for m, _ in jax_trace]
+    return losses, jax_losses, (state, port_trace), (jax_state, jax_trace)
+
+
+GROUPED = {
+    "g2_fused": dict(train_compaction_groups=2, use_pallas_scorer=True,
+                     use_pallas_rnn=True),
+    "g4_fused": dict(train_compaction_groups=4, use_pallas_scorer=True,
+                     use_pallas_rnn=True),
+    "g2_plain": dict(train_compaction_groups=2, use_pallas_scorer=False,
+                     use_pallas_rnn=False),
+    "g4_plain": dict(train_compaction_groups=4, use_pallas_scorer=False,
+                     use_pallas_rnn=False),
+}
+
+
+@pytest.mark.parametrize("name", list(GROUPED))
+def test_grouped_train_steps_match_jax(world, name, monkeypatch):
+    """Three grouped steps at a capacity that drops rows in some groups:
+    every loss at rel 1e-5, ``dropped_clicks`` exact, the stream exact, and
+    the parameters after three Adam steps at the one-step test's rtol 1e-4 /
+    atol 1e-5, leaving out, as there, the elements whose gradient was under
+    5e-6 but not 0 at any of the steps, in either package (JAX's from
+    ``jax_loss_and_grads``, grouped): where one package's is exactly 0 and
+    the other's f32 noise, Adam moves the one element by ~lr and not the
+    other.  With the fused scorer on, the fused branch is the one
+    taken (``cand_score`` called once a step; its plain twin on the CPU)."""
+    cfg = config(train_valid_row_capacity=24, novelty_reg_factor=0.1,
+                 learning_rate=G1_LEARNING_RATE, **GROUPED[name])
+    fused_calls = []
+    fused = nar.cand_score
+    monkeypatch.setattr(nar, "cand_score",
+                        lambda *a, **k: fused_calls.append(1) or fused(*a, **k))
+    losses, jax_losses, (state, port_trace), (jax_state, jax_trace) = _grouped_steps(
+        world, cfg, 3)
+    assert len(fused_calls) == (3 if cfg.use_pallas_scorer else 0)
+    np.testing.assert_allclose(losses, jax_losses, rtol=1e-5)
+    drops = []
+    for (metrics, _), (jax_metrics, _) in zip(port_trace, jax_trace):
+        assert set(metrics) == set(jax_metrics)
+        for key in ("ce_loss", "reg_loss"):
+            assert float(metrics[key]) == pytest.approx(float(jax_metrics[key]),
+                                                        rel=1e-5), key
+        for key in ("sessions", "clicks", "dropped_clicks"):
+            assert float(metrics[key]) == float(jax_metrics[key]), key
+        drops.append(float(metrics["dropped_clicks"]))
+    assert max(drops) > 0  # some group overflowed its share
+    noisy = {path: np.zeros(g.shape, bool) for path, g in jax_trace[0][1].items()}
+    for _, grads in jax_trace + port_trace:
+        for path, g in grads.items():
+            noisy[path] |= (np.abs(g) < 5e-6) & (g != 0)
+    jax_params = leaves(jax_state.params)
+    port_params = leaves(flax_from_tensors(dict(state.model.named_parameters())))
+    compared = 0
+    for path, expected in jax_params.items():
+        keep = ~noisy[path]
+        np.testing.assert_allclose(port_params[path][keep], expected[keep],
+                                   rtol=1e-4, atol=1e-5, err_msg=path)
+        compared += int(keep.sum())
+    assert compared > 0.85 * sum(v.size for v in jax_params.values())
+    for field in jax_state.stream._fields:
+        np.testing.assert_array_equal(getattr(state.stream, field).numpy(),
+                                      np.asarray(getattr(jax_state.stream, field)),
+                                      err_msg=field)
 
 
 def test_train_scorer_operands_are_the_train_steps(world):
