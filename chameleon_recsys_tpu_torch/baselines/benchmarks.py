@@ -13,8 +13,9 @@ Re-creation of the reference benchmark layer
 Baselines are host-side numpy by nature (dict/sparse structures); they read
 the device streaming state through a ``StreamStateView`` snapshot.
 
-The port's copy of ``chameleon_recsys_tpu/baselines/benchmarks.py``,
-unchanged but for this note: the port imports nothing of the JAX package.
+The port's copy of ``chameleon_recsys_tpu/baselines/benchmarks.py``: the
+port imports nothing of the JAX package.  Added here: ``evaluate`` in its
+two halves, ``eval_predictions`` and ``record_eval``.
 """
 from __future__ import annotations
 
@@ -153,12 +154,29 @@ class BenchmarkRecommender:
         self, users_ids, sessions_items, sessions_next_items, topk=5,
         eval_negative_items=None,
     ) -> Dict[str, float]:
+        preds = self.eval_predictions(
+            users_ids, sessions_items, sessions_next_items, topk, eval_negative_items
+        )
+        return self.record_eval(preds, sessions_items, sessions_next_items, topk)
+
+    def eval_predictions(
+        self, users_ids, sessions_items, sessions_next_items, topk=5,
+        eval_negative_items=None,
+    ) -> np.ndarray:
+        """The ranked lists ``evaluate`` scores, row by row: a data-parallel
+        eval ranks each rank's rows apart (``train/temporal.py``)."""
         valid_items = self.get_valid_candidate_items(
             sessions_next_items, eval_negative_items
         )
-        preds = self.predict(
+        return self.predict(
             users_ids, sessions_items, topk=topk, valid_items=valid_items
         )
+
+    def record_eval(
+        self, preds, sessions_items, sessions_next_items, topk=5
+    ) -> Dict[str, float]:
+        """The second half of ``evaluate``: the batch's ranked lists
+        ``preds`` into the streaming metrics."""
         # stash for the cold-start pass: it re-ranks the SAME batch with the
         # SAME valid items and state (reference nar_model.py:1496-1501 calls
         # predict twice; for a deterministic classifier the second call is

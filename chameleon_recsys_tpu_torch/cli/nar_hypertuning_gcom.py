@@ -6,12 +6,13 @@ replaces the reference's ML Engine hypertuning job
 30 trials over discrete grids of batch size, negatives, CAR width, RNN
 units, learning rate, dropout and L2) with a local sweep over the same
 grids (``train/sweep.py``).  It takes the flags of the port's
-``nar_trainer_gcom`` (and refuses the same ones at parse time: the
-multi-GPU flags) plus ``--max_trials``, ``--param_grid``, ``--sweep_spec``,
-``--objective`` and ``--max_parallel``; each trial runs the temporal
-harness on the session files without the classical baselines, in
-``model_dir/trial_NNN``.  As in the JAX CLI, ``--use_native_loader`` is
-accepted and ignored: the trials read through the Python reader.
+``nar_trainer_gcom`` plus ``--max_trials``, ``--param_grid``,
+``--sweep_spec``, ``--objective`` and ``--max_parallel``; each trial runs
+the temporal harness on one device on the session files without the
+classical baselines, in ``model_dir/trial_NNN``.  As in the JAX CLI,
+``--use_native_loader``, ``--data_parallelism`` and ``--model_parallelism``
+are accepted and ignored: the trials read through the Python reader, on no
+mesh.
 ``--train_valid_row_capacity`` reaches the trials' config (the JAX CLI
 drops it).
 
@@ -43,11 +44,9 @@ from ..data.sessions import read_sessions_tfrecord
 from ..train.sweep import load_sweep_spec, run_sweep
 from ..train.temporal import TemporalHarness
 from .nar_trainer_gcom import (
-    _NOT_PORTED,
     create_args_parser,
     load_acr_module_resources,
     parse_internal_features,
-    refuse_not_ported,
     select_device,
 )
 
@@ -81,7 +80,7 @@ def create_sweep_parser():
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
-    args = refuse_not_ported(create_sweep_parser(), _NOT_PORTED, argv)
+    args = create_sweep_parser().parse_args(argv)
     device = select_device(args.platform)
 
     goal = "MAXIMIZE"

@@ -9,9 +9,8 @@ cardinalities taken from the preprocessing and ACR encoder pickles, and the
 Adressa defaults (batch 64, lr 3e-4, L2 1e-4, temp 0.2, rnn 10x1, 7
 negatives, top-5: scripts/run_nar_train_adressa_local.sh:9-40).
 
-``--platform`` picks the device as ``nar_trainer_gcom``'s does.  The flags
-of features not ported yet (``--data_parallelism``,
-``--model_parallelism`` > 1) exit at parse time, before any file is read;
+``--platform`` picks the device, and ``--data_parallelism`` /
+``--model_parallelism`` the mesh, as ``nar_trainer_gcom``'s do;
 ``--dropout_keep_prob`` < 1 trains on the dense path with dropout.  Where
 the JAX model would read an id past its table (a NaN row from Flax's
 ``Embed``), this CLI stops on the host with the feature, the id and the
@@ -47,8 +46,8 @@ from ..train.temporal import TemporalHarness
 from .nar_preprocess_adressa import adressa_article_schema, adressa_session_schema
 from .nar_trainer_gcom import (
     default_benchmarks,
+    mesh_from_args,
     parse_internal_features,
-    refuse_not_ported,
     select_device,
 )
 
@@ -107,24 +106,15 @@ def create_args_parser():
                    "clicks; 0 = off). See NARConfig.train_valid_row_capacity.")
     p.add_argument("--platform", default="", choices=("", "cuda", "gpu", "cpu"),
                    help="the device: empty, cuda or gpu = the card, cpu = the CPU")
-    # multi-device (data x model) mesh: not ported yet, the multi-GPU slice;
-    # 0 and 1 = one device
+    # multi-device: a (data x model) mesh of one process per device, as
+    # nar_trainer_gcom's; 0 = one device
     p.add_argument("--data_parallelism", type=int, default=0)
     p.add_argument("--model_parallelism", type=int, default=1)
     return p
 
 
-# flag -> (is it set to a feature not ported yet, the slice it waits for)
-_NOT_PORTED = {
-    "--data_parallelism": (lambda a: a.data_parallelism != 0, "multi-GPU"),
-    "--model_parallelism": (lambda a: a.model_parallelism > 1, "multi-GPU"),
-}
-
-
 def parse_args(argv=None):
-    """The parsed flags; exits (status 2) on a flag set to a feature that is
-    not ported yet, before anything is read."""
-    return refuse_not_ported(create_args_parser(), _NOT_PORTED, argv)
+    return create_args_parser().parse_args(argv)
 
 
 def _check_fits(name, values, cardinality, where):
@@ -162,7 +152,12 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
     device = select_device(args.platform)
+    with mesh_from_args(args.data_parallelism, args.model_parallelism,
+                        device) as mesh_plan:
+        run(args, device, mesh_plan)
 
+
+def run(args, device, mesh_plan):
     with open(args.acr_module_resources_path, "rb") as f:
         acr_label_encoders, metadata_raw, ace = pickle.load(f)
     norms = np.linalg.norm(ace, axis=1, keepdims=True)
@@ -238,6 +233,8 @@ def main(argv=None):
             args.train_valid_row_capacity
             if args.train_valid_row_capacity > 0 else None
         ),
+        # one compaction group per data rank, as the JAX CLI sets it
+        train_compaction_groups=max(args.data_parallelism, 1),
     )
     run_cfg = RunConfig(
         model_dir=args.model_dir,
@@ -257,6 +254,7 @@ def main(argv=None):
         eval_cold_start=args.eval_cold_start,
         save_scalars=args.save_scalars,
         save_histograms=args.save_histograms,
+        mesh_plan=mesh_plan,
         device=device,
     )
     if args.resume_checkpoint:

@@ -7,10 +7,15 @@ session TFRecords, with the ACR handoff pickle providing frozen ACEs.  The
 flags, their names and defaults are the JAX CLI's.
 
 ``--platform`` picks the device: empty, ``cuda`` or ``gpu`` the card,
-``cpu`` the CPU.  Without a card and without ``--platform cpu`` the CLI
-exits with an error; it never carries on on the CPU.  The flags of features
-not ported yet (``--data_parallelism``, ``--model_parallelism`` > 1) exit
-at parse time, before any file is read, naming the slice they wait for.
+``cpu`` the CPU; on the card, ``cuda:LOCAL_RANK``.  Without a card and
+without ``--platform cpu`` the CLI exits with an error; it never carries on
+on the CPU.  ``--data_parallelism`` / ``--model_parallelism`` > 1 train
+over a (data x model) mesh of one process per device (``parallel/``), as
+the JAX CLI's flags do over its devices: under ``torchrun`` over the
+process group it describes (NCCL on cards, gloo on the CPU), else over a
+world of this one process; a layout that is not the world's size exits
+with the JAX CLI's message before any file is read, and
+``train_compaction_groups`` is the data parallelism.
 ``--dropout_keep_prob`` < 1 trains on the dense path with dropout, as the
 JAX model does.  ``--use_native_loader`` reads and collates each hour's
 file with the C++ loader (``native/chio.cc``, built with ``g++`` at first
@@ -22,18 +27,25 @@ Usage (mirrors run_nar_train_gcom_local.sh):
     --acr_module_articles_metadata_csv_path articles_metadata.csv \
     --acr_module_articles_content_embeddings_pickle_path articles_embeddings.pickle \
     --model_dir /tmp/nar_model --train_total_negative_samples 50 ...
+On N cards of one host:
+  torchrun --nproc_per_node N -m chameleon_recsys_tpu_torch.cli.nar_trainer_gcom \
+    --data_parallelism N ...
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import glob
 import logging
+import os
 import pickle
+import socket
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..baselines import (
     ContentBasedRecommender,
@@ -118,8 +130,9 @@ def create_args_parser():
                    help="write per-hour parameter histograms to "
                         "train_histograms.jsonl (makes the job slower)")
     p.add_argument("--resume_checkpoint", default="")
-    # multi-device (data x model) mesh: not ported yet, the multi-GPU slice;
-    # 0 and 1 = one device
+    # multi-device: train over a (data x model) mesh of one process per
+    # device (parallel/); 0 = one device.  data_parallelism must divide
+    # batch_size; data x model must equal the world's size.
     p.add_argument("--data_parallelism", type=int, default=0)
     p.add_argument("--model_parallelism", type=int, default=1)
     # thread pool for the per-batch classical-baseline tier (-1 = auto: one
@@ -144,39 +157,58 @@ def create_args_parser():
     return p
 
 
-# flag -> (is it set to a feature not ported yet, the slice it waits for)
-_NOT_PORTED = {
-    "--data_parallelism": (lambda a: a.data_parallelism != 0, "multi-GPU"),
-    "--model_parallelism": (lambda a: a.model_parallelism > 1, "multi-GPU"),
-}
-
-
-def refuse_not_ported(parser, not_ported, argv=None):
-    """``parser``'s flags; exits (status 2) on a flag set to a feature that
-    is not ported yet (``not_ported``: flag -> (test, the slice it waits
-    for)), before anything is read."""
-    args = parser.parse_args(argv)
-    for flag, (is_set, slice_name) in not_ported.items():
-        if is_set(args):
-            parser.error(f"{flag} is not ported yet: it comes with the "
-                         f"{slice_name} slice")
-    return args
-
-
 def parse_args(argv=None):
-    """The parsed flags; exits (status 2) on a flag set to a feature that is
-    not ported yet, before anything is read."""
-    return refuse_not_ported(create_args_parser(), _NOT_PORTED, argv)
+    return create_args_parser().parse_args(argv)
 
 
 def select_device(platform: str) -> torch.device:
-    """``--platform`` -> the device; exits when the card is asked for (the
-    default) and there is none."""
+    """``--platform`` -> the device (on the card ``cuda:LOCAL_RANK``, made
+    the current one); exits when the card is asked for (the default) and
+    there is none."""
     if platform == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --platform cpu to run on the CPU")
-    return torch.device("cuda")
+    device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.set_device(device)
+    return device
+
+
+@contextlib.contextmanager
+def mesh_from_args(data_parallelism: int, model_parallelism: int, device):
+    """The run's ``MeshPlan``, as the JAX CLI makes its mesh: None without
+    ``--data_parallelism`` and with ``--model_parallelism`` <= 1.  Joins the
+    process group ``torchrun`` describes (``WORLD_SIZE`` set), else makes a
+    world of this one process (left again on exit); NCCL on the card,
+    gloo on the CPU.  Exits with ``make_mesh``'s message when the layout is
+    not the world's size."""
+    if not data_parallelism and model_parallelism <= 1:
+        yield None
+        return
+    from ..parallel.distributed import initialize_multihost
+    from ..parallel.mesh import make_mesh
+
+    created = not dist.is_initialized()
+    if created:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        if "WORLD_SIZE" in os.environ:
+            initialize_multihost(backend=backend)
+        else:
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            initialize_multihost(f"localhost:{port}", 1, 0, backend=backend)
+    try:
+        try:
+            plan = make_mesh(data_parallelism or None, model_parallelism, device=device)
+        except ValueError as err:
+            raise SystemExit(str(err)) from None
+        logging.info("mesh: %d data x %d model, rank %d", plan.data_parallelism,
+                     plan.model_parallelism, plan.rank)
+        yield plan
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 def parse_internal_features(flag_value: str) -> InternalFeaturesConfig:
@@ -248,7 +280,12 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
     device = select_device(args.platform)
+    with mesh_from_args(args.data_parallelism, args.model_parallelism,
+                        device) as mesh_plan:
+        run(args, device, mesh_plan)
 
+
+def run(args, device, mesh_plan):
     ace, metadata = load_acr_module_resources(
         args.acr_module_articles_metadata_csv_path,
         args.acr_module_articles_content_embeddings_pickle_path,
@@ -290,6 +327,8 @@ def main(argv=None):
             args.train_valid_row_capacity
             if args.train_valid_row_capacity > 0 else None
         ),
+        # one compaction group per data rank, as the JAX CLI sets it
+        train_compaction_groups=max(args.data_parallelism, 1),
     )
     run_cfg = RunConfig(
         model_dir=args.model_dir,
@@ -333,13 +372,20 @@ def main(argv=None):
         ),
         save_scalars=args.save_scalars,
         save_histograms=args.save_histograms,
+        mesh_plan=mesh_plan,
         device=device,
     )
     resume_ckpt = args.resume_checkpoint
     if store is not None and args.warmup_model_dir and not resume_ckpt:
         from ..utils.artifact_store import warm_start_model_dir
 
-        fetched = warm_start_model_dir(store, args.warmup_model_dir, args.model_dir)
+        # rank 0 downloads; the others wait for it and read its files
+        fetched = (mesh_plan is not None and mesh_plan.rank != 0
+                   or warm_start_model_dir(store, args.warmup_model_dir, args.model_dir))
+        if mesh_plan is not None:
+            from ..parallel.distributed import barrier
+
+            barrier(mesh_plan)
         ckpt = Path(args.model_dir) / "checkpoint.pkl"
         if fetched and ckpt.exists():
             resume_ckpt = str(ckpt)

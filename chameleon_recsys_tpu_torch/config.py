@@ -101,7 +101,7 @@ class NARConfig:
 
     Fields the ported paths do not read (``approx_negative_topk``,
     ``rng_impl``) are kept so that every JAX configuration converts without
-    loss; ``train_compaction_groups > 1`` raises in the train step.
+    loss.
     """
 
     # architecture
@@ -166,6 +166,17 @@ class NARConfig:
     def max_inputs_length(self) -> int:
         """T = session length minus the final click (label-only)."""
         return self.max_session_length - 1
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout: data-parallel over sessions, model-parallel
+    (row-sharded) over embedding tables (``parallel/mesh.py``)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallelism: int = 1
+    model_parallelism: int = 1
 
 
 @dataclass(frozen=True)
@@ -239,6 +250,16 @@ ADRESSA_ARTICLE_FEATURE_GROUPS = {
     "category": ["category0", "category1"],
     "author": ["author"],
 }
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    nar: NARConfig = NARConfig()
+    acr: ACRConfig = ACRConfig()
+    run: RunConfig = RunConfig()
+    mesh: MeshConfig = MeshConfig()
+    session_schema: SessionFeaturesSchema = SessionFeaturesSchema()
+    article_schema: ArticleFeaturesSchema = ArticleFeaturesSchema()
 
 
 def _parse_groups(enabled) -> Optional[set]:

@@ -37,7 +37,7 @@ through ``stream_from_numpy``, the host fields as they are.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +83,12 @@ def _flax_path(key: str) -> Tuple[str, bool]:
         if match:
             return match.expand(template), transpose
     raise KeyError(f"no rule maps the parameter {key!r} to a Flax path")
+
+
+def jax_row_dim(key: str) -> int:
+    """The axis of this package's parameter ``key`` that is the Flax array's
+    first (row) axis: 1 where the two layouts are transposed, else 0."""
+    return 1 if _flax_path(key)[1] else 0
 
 
 def flax_from_tensors(tensors: Mapping[str, torch.Tensor]) -> Dict:
@@ -276,6 +282,28 @@ def adam_state_from_optax(count, mu: Mapping, nu: Mapping, model: nn.Module) -> 
                 "exp_avg_sq": exp_avg_sq[name].numpy()}
         for index, (name, _) in enumerate(model.named_parameters())
     }
+
+
+def shard_from_jax(tree: Mapping, model: nn.Module, programs,
+                   adam: Optional[Mapping] = None):
+    """JAX's NAR parameters (a Flax tree of numpy arrays; a JAX mesh state
+    gathered to numpy is the unsharded state) and, when given, its Adam
+    state (``{"count", "mu", "nu"}``, optax's ``ScaleByAdamState``) -> this
+    rank's part under ``programs`` (``parallel/sharded.py``): (its
+    ``state_dict``, its Adam ``state`` by parameter index, or None).  Each
+    row-sharded parameter and its moments keep the rank's rows; ``model``
+    is a whole ``NARModel`` of the run's configuration, for the layouts."""
+    params = programs.local_tensors(params_from_flax(tree, model))
+    if adam is None:
+        return params, None
+    names = [name for name, _ in model.named_parameters()]
+    state = {}
+    for index, fields in adam_state_from_optax(adam["count"], adam["mu"], adam["nu"],
+                                               model).items():
+        moments = {k: programs.local_tensors({names[index]: torch.from_numpy(fields[k])})
+                   [names[index]].numpy() for k in ("exp_avg", "exp_avg_sq")}
+        state[index] = dict(fields, **moments)
+    return params, state
 
 
 def checkpoint_from_jax(jax_checkpoint: Mapping[str, Any],

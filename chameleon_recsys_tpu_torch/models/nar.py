@@ -19,7 +19,11 @@ go through the hand-written fused scorer kernels
 training at the JAX package's sites: the stacked input/positive features,
 each UGRNN layer's output, the FC1 output and the dense negatives'
 features; its masks are drawn from the ``generator`` passed to ``forward``,
-in that order.  One forward pass:
+in that order.  Under a mesh (``parallel/sharded.py``) ``NARAux.shard``
+carries the rank's view of the global batch: the row-sharded tables'
+lookups, the global batch's latest click and valid-click count, the
+buffer-empty fallback's statistics over the global batch, and dropout masks
+drawn at the global shape, of which the rank keeps its rows.  One forward pass:
 
   user-context towers | item features (metadata towers + frozen ACE + item
   embedding + recency/novelty against the click buffer's stats)
@@ -37,7 +41,7 @@ compute dtype at each use; activations kept in it between ops), not
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +81,7 @@ class NARAux(NamedTuple):
     metadata: Dict[str, torch.Tensor]  # per-article metadata columns
     recent_pop_norm: torch.Tensor  # [num_items] f32
     buffer_ids: torch.Tensor  # [buffer_size] int32 newest-first
+    shard: Optional[Any] = None  # parallel.sharded.StepShard under a mesh
 
 
 class NAROutputs(NamedTuple):
@@ -241,22 +246,25 @@ class NARModel(nn.Module):
         )
 
     # -- item features -------------------------------------------------------
+    @staticmethod
+    def _lookup(aux: NARAux):
+        return gather_rows if aux.shard is None else aux.shard.gather_rows
+
     def _shared_item_feats(self, item_ids, aux: NARAux):
         """Parameter-bearing per-item features: metadata towers, ACE, the
         trainable id embedding."""
         feats = []
+        lookup = self._lookup(aux)
         if self.article_metadata_towers is not None:
             feats.append(self.article_metadata_towers({
                 spec.name: gather_rows(aux.metadata[spec.name], item_ids)
                 for spec in self.metadata_specs
-            }))
+            }, lookup))
         if self.cfg.internal_features.article_content_embeddings:
-            feats.append(gather_rows(aux.ace_matrix, item_ids).to(self.dtype))
+            feats.append(lookup(aux.ace_matrix, item_ids).to(self.dtype))
         if self.item_clicked_embedding is not None:
             feats.append(
-                gather_rows(self.item_clicked_embedding.weight, item_ids).to(
-                    self.dtype
-                )
+                lookup(self.item_clicked_embedding.weight, item_ids).to(self.dtype)
             )
         return feats
 
@@ -293,19 +301,39 @@ class NARModel(nn.Module):
             x @ self.matching_out_kernel.to(dt) + self.matching_out_bias.to(dt)
         )[..., 0]
 
-    def _item_features(self, item_ids, ref_ts, aux: NARAux):
-        return torch.cat(
-            self._shared_item_feats(item_ids, aux)
-            + self._dynamic_item_feats(item_ids, ref_ts, aux),
-            dim=-1,
-        )
+    def _item_features(self, item_ids, ref_ts, aux: NARAux, batch_rows=False):
+        """Per-item features of ``item_ids``; ``batch_rows``: the ids are the
+        rank's rows of a batch-wide tensor (under a mesh the dynamic
+        features' fallback statistics then come from every rank's rows)."""
+        dynamic = (self._batch_dynamic_feats(item_ids, ref_ts, aux) if batch_rows
+                   else self._dynamic_item_feats(item_ids, ref_ts, aux))
+        return torch.cat(self._shared_item_feats(item_ids, aux) + dynamic, dim=-1)
 
-    def _dropper(self, train: bool, generator: Optional[torch.Generator]):
+    def _batch_dynamic_feats(self, item_ids, ref_ts, aux: NARAux, global_ids=None,
+                             global_ts=None):
+        """``_dynamic_item_feats`` of the rank's rows of a batch-wide id
+        tensor: under a mesh computed over the global tensor (``global_ids``,
+        gathered when not given; ``global_ts`` the global per-row times, when
+        ``ref_ts`` is per row), of which the rank keeps its rows, so that an
+        empty buffer's fallback normalises over the whole batch, as on one
+        device."""
+        shard = aux.shard
+        if shard is None:
+            return self._dynamic_item_feats(item_ids, ref_ts, aux)
+        if global_ids is None:
+            global_ids = shard.gather_data(item_ids)
+        feats = self._dynamic_item_feats(
+            global_ids, ref_ts if global_ts is None else global_ts, aux)
+        return [shard.local_rows(f) for f in feats]
+
+    def _dropper(self, train: bool, generator: Optional[torch.Generator],
+                 shard=None):
         """The dropout of the model's sites: the identity outside training
-        or at ``keep_prob`` 1, else masks drawn from ``generator``."""
+        or at ``keep_prob`` 1, else masks drawn from ``generator`` (under a
+        mesh at the global shape, along the batch ``axis``)."""
         if not train or self.cfg.keep_prob >= 1.0:
-            return lambda x: x
-        return lambda x: dropout(x, self.cfg.keep_prob, generator)
+            return lambda x, axis=0: x
+        return lambda x, axis=0: dropout(x, self.cfg.keep_prob, generator, shard, axis)
 
     # -- forward -----------------------------------------------------------------
     def forward(
@@ -360,7 +388,8 @@ class NARModel(nn.Module):
         """User context, the positive CAR rows and the session encoder's
         predicted embedding, all [B, T, ...], with the valid-step mask."""
         dt = self.dtype
-        drop = self._dropper(train, generator)
+        shard = aux.shard
+        drop = self._dropper(train, generator, shard)
         item_clicked = batch["item_clicked"]  # [B, T]
         next_item_label = batch["label_next_item"]  # [B, T]
         b, t = item_clicked.shape
@@ -369,11 +398,14 @@ class NARModel(nn.Module):
         seq_lengths = batch["session_size"].long() - 1
         mask = torch.arange(t, device=device)[None, :] < seq_lengths[:, None]
         event_ts = batch["event_timestamp"]
-        max_event_ts = event_ts.max()
+        # the reference time of the labels and negatives: the whole batch's
+        # latest click (under a mesh, the global batch's)
+        everywhere = batch if shard is None else shard.batch
+        max_event_ts = everywhere["event_timestamp"].max()
 
         if self.user_context_towers is not None:
             user_ctx = self.user_context_towers(
-                {s.name: batch[s.name] for s in self.ctx_specs}
+                {s.name: batch[s.name] for s in self.ctx_specs}, self._lookup(aux)
             )
         else:
             user_ctx = torch.zeros((b, t, 1), dtype=dt, device=device)
@@ -391,22 +423,25 @@ class NARModel(nn.Module):
 
         input_item_feats = torch.cat(
             shared_slice(0, bt)
-            + self._dynamic_item_feats(item_clicked, event_ts, aux),
+            + self._batch_dynamic_feats(item_clicked, event_ts, aux,
+                                        everywhere["item_clicked"],
+                                        everywhere["event_timestamp"]),
             dim=-1,
         )
         pos_item_feats = torch.cat(
             shared_slice(bt, 2 * bt)
-            + self._dynamic_item_feats(next_item_label, max_event_ts, aux),
+            + self._batch_dynamic_feats(next_item_label, max_event_ts, aux,
+                                        everywhere["label_next_item"]),
             dim=-1,
         )
         stacked = drop(self._scale_center(torch.stack([
             torch.cat([user_ctx, input_item_feats], -1),
             torch.cat([user_ctx, pos_item_feats], -1),
-        ])))
+        ])), axis=1)
         stacked_car = self._car_tower(stacked)  # [2, B, T, C]
         input_car, pos_car = stacked_car[0], stacked_car[1]
 
-        rnn_out = self.rnn(input_car, mask, train=train, generator=generator)
+        rnn_out = self.rnn(input_car, mask, train=train, generator=generator, shard=shard)
         h = drop(_leaky(self._dense(self.session_FC1, rnn_out)))
         predicted_emb = torch.tanh(self._dense(self.session_FC2, h))  # [B, T, C]
         return user_ctx, pos_car, predicted_emb, mask, max_event_ts
@@ -416,7 +451,7 @@ class NARModel(nn.Module):
         """The dense candidate path: each candidate id's item features beside
         its row's user context ``ctx_for_neg`` [..., F_u], scale/center,
         ``drop`` and the CAR tower, [..., K, C] for ``neg_items`` [..., K]."""
-        neg_item_feats = self._item_features(neg_items, max_event_ts, aux)
+        neg_item_feats = self._item_features(neg_items, max_event_ts, aux, batch_rows=True)
         ctx = ctx_for_neg[..., None, :].expand(
             tuple(neg_items.shape) + (ctx_for_neg.shape[-1],))
         return self._car_tower(drop(self._scale_center(
@@ -544,7 +579,7 @@ class NARModel(nn.Module):
             )
         if neg_pool is None:
             neg_car = self._dense_neg_car(user_ctx, neg_items, max_event_ts, aux,
-                                          self._dropper(train, generator))
+                                          self._dropper(train, generator, aux.shard))
             pos_score, neg_score = self._score_candidates(pos_car, neg_car, pred)
         else:
             pos_score, neg_score = self._pooled_scores(
@@ -554,9 +589,10 @@ class NARModel(nn.Module):
         items_prob = torch.softmax(scores / cfg.softmax_temperature, dim=-1)
 
         # masked XE over the scored rows; the denominator is the whole
-        # batch's valid-click count, so with every valid row selected the
-        # compacted loss is the grid's
-        denom = torch.clamp_min(loss_mask.sum(), 1.0)
+        # batch's valid-click count (under a mesh, the global batch's), so
+        # with every valid row selected the compacted loss is the grid's
+        denom = torch.clamp_min(
+            loss_mask.sum() if aux.shard is None else aux.shard.valid_clicks, 1.0)
         ce_loss = -(torch.log(items_prob[..., 0] + 1e-24) * ce_mask).sum() / denom
 
         if cfg.novelty_reg_factor > 0.0:

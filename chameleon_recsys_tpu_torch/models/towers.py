@@ -7,7 +7,7 @@ channel axis.  All channels concatenate on the last axis.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 import torch
 from torch import nn
@@ -47,8 +47,11 @@ class FeatureTowers(nn.Module):
                 )
                 self.output_dim += dim
 
-    def forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """inputs[name] has shape [...]; returns [..., F] concatenated channels."""
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                lookup: Callable = gather_rows) -> torch.Tensor:
+        """inputs[name] has shape [...]; returns [..., F] concatenated channels.
+        ``lookup(table, ids)`` gathers an embedding's rows (a row-sharded
+        table's lookup under a mesh, ``parallel/sharded.py``)."""
         channels = []
         for spec in self.features:
             x = inputs[spec.name]
@@ -60,5 +63,5 @@ class FeatureTowers(nn.Module):
                 channels.append((x[..., None] == classes).to(self.dtype))
             else:
                 table = self.embeddings[f"{spec.name}_embedding"].weight
-                channels.append(gather_rows(table, x).to(self.dtype))
+                channels.append(lookup(table, x).to(self.dtype))
         return torch.cat(channels, dim=-1)

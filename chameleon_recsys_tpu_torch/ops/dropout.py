@@ -25,12 +25,21 @@ def _draw_mask(shape, keep: float, generator: Optional[torch.Generator],
 
 
 def dropout(x: torch.Tensor, keep_prob: float,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, shard=None,
+            axis: int = 0) -> torch.Tensor:
     """``x`` with each element zeroed with probability ``1 - keep_prob`` and
-    the rest divided by ``keep_prob``; the identity at ``keep_prob >= 1``."""
+    the rest divided by ``keep_prob``; the identity at ``keep_prob >= 1``.
+    Under a mesh (``shard``, ``parallel/sharded.py``) ``x`` holds the rank's
+    block of the global batch along ``axis``: the mask is drawn at the
+    global shape, as one device draws it, and the rank keeps its block."""
     if keep_prob >= 1.0:
         return x
     keep = 1.0 - (1.0 - keep_prob)  # Flax's keep_prob from its rate
-    mask = _draw_mask(x.shape, keep, generator, x.device)
+    if shard is None:
+        mask = _draw_mask(x.shape, keep, generator, x.device)
+    else:
+        shape = list(x.shape)
+        shape[axis] *= shard.plan.data_parallelism
+        mask = shard.local_rows(_draw_mask(tuple(shape), keep, generator, x.device), axis)
     scale = torch.tensor(keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -132,12 +132,15 @@ class StackedUGRNN(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard=None) -> torch.Tensor:
+        """``shard``: under a mesh, the masks are drawn at the global batch's
+        shape and the rank keeps its rows (``ops/dropout.py``)."""
         h = x
         for layer in self.layers:
             h = layer(h, mask)
             if train:
-                h = dropout(h, self.keep_prob, generator)
+                h = dropout(h, self.keep_prob, generator, shard)
         return h * mask[..., None].to(h.dtype)
 
 

@@ -150,12 +150,16 @@ def sample_negatives_pooled(
     mult: int = 20,
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[SamplerUniforms] = None,
+    sessions: Optional[slice] = None,
 ):
     """Negatives per (session, click) from a shared candidate pool.
 
     Every negative is one of at most ``mult * K`` pool items, so per-item
     work can run once per pool row and be gathered per (session, click, k).
-    Draws come from ``generator``, or are ``uniforms`` when given.
+    Draws come from ``generator``, or are ``uniforms`` when given.  With
+    ``sessions`` (a rank's block under a mesh) the pool is the whole
+    batch's and the draws are at the whole batch's shape, but the negatives
+    are those of the ``sessions`` rows only.
 
     Returns:
       pool_ext: int32 [NC+1] value-sorted; row NC is the sentinel (id 0).
@@ -180,9 +184,13 @@ def sample_negatives_pooled(
             f"click uniforms must be [{b}, {l}, {nc}], got "
             f"{tuple(uniforms.click.shape)}"
         )
-    idx = _per_click_idx(uniforms.click, new_seg, seg_end,
-                         valid_sorted[:, None, :], num_negatives)
-    neg_idx = torch.where((all_clicked_items != 0)[..., None], idx, nc)
+    click, clicked = uniforms.click, all_clicked_items
+    if sessions is not None:
+        click, clicked, valid_sorted = (
+            x[sessions] for x in (click, clicked, valid_sorted))
+    idx = _per_click_idx(click, new_seg, seg_end, valid_sorted[:, None, :],
+                         num_negatives)
+    neg_idx = torch.where((clicked != 0)[..., None], idx, nc)
     return pool_ext, neg_idx, pool_ext[neg_idx]
 
 

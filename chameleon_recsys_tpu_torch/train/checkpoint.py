@@ -20,7 +20,10 @@ installed).  Its keys:
     harness names them).
 
 ``convert.checkpoint_from_jax`` writes the same format from a JAX harness
-checkpoint.
+checkpoint.  Under a mesh (``parallel/sharded.py``) the row shards of the
+parameters and their Adam moments are gathered into the whole tensors on
+save, and each rank keeps its rows on load: a checkpoint written at one
+(data x model) layout loads at any other.
 """
 from __future__ import annotations
 
@@ -47,12 +50,19 @@ def to_plain(value: Any) -> Any:
     return value
 
 
-def pack_train_state(state: TrainState) -> Dict[str, Any]:
-    """The train state's part of a checkpoint payload."""
+def pack_train_state(state: TrainState, programs=None) -> Dict[str, Any]:
+    """The train state's part of a checkpoint payload; under a mesh
+    (``programs``, every rank calls it) with the row shards gathered."""
+    params = state.model.state_dict()
+    optimizer = state.optimizer.state_dict()
+    if programs is not None:
+        params = programs.full_tensors(params)
+        optimizer = dict(optimizer, state=_map_moments(
+            state.model, optimizer["state"], programs.full_tensors))
     return {
         "format": FORMAT,
-        "model": to_plain(state.model.state_dict()),
-        "optimizer": to_plain(state.optimizer.state_dict()),
+        "model": to_plain(params),
+        "optimizer": to_plain(optimizer),
         "stream": to_plain(state.stream._asdict()),
         "generator": {
             "device": state.generator.device.type,
@@ -68,24 +78,39 @@ def model_params(payload: Mapping) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.asarray(v)) for k, v in payload["model"].items()}
 
 
-def unpack_train_state(payload: Mapping, state: TrainState) -> TrainState:
+def _map_moments(model, optimizer_state: Mapping, fn) -> Dict:
+    """Adam's per-parameter state with ``fn`` ({name: tensor} -> {name:
+    tensor}) applied to each parameter's moments."""
+    names = [name for name, _ in model.named_parameters()]
+    return {
+        index: dict(fields, **{k: fn({names[index]: fields[k]})[names[index]]
+                               for k in ("exp_avg", "exp_avg_sq")})
+        for index, fields in optimizer_state.items()
+    }
+
+
+def unpack_train_state(payload: Mapping, state: TrainState, programs=None) -> TrainState:
     """Load a payload into ``state``'s model and optimizer (in place, on
     their device) and return the train state with the payload's stream,
-    generator state and step.  torch's CPU and CUDA generators are
-    different algorithms, so a generator state saved on the other device
-    type is not loaded; the generator is then re-seeded with its initial
-    seed, as it is where the payload carries no generator state."""
+    generator state and step; under a mesh (``programs``) each rank keeps
+    its rows of the row-sharded tensors.  torch's CPU and CUDA generators
+    are different algorithms, so a generator state saved on the other
+    device type is not loaded; the generator is then re-seeded with its
+    initial seed, as it is where the payload carries no generator state."""
     _check_format(payload)
-    state.model.load_state_dict(model_params(payload), strict=True)
-    optimizer = payload["optimizer"]
+    params = model_params(payload)
     # copies: torch's Adam counts its step in place, so no two parameters
     # may share one step tensor
+    moments = {
+        index: {k: torch.tensor(np.asarray(v)) for k, v in fields.items()}
+        for index, fields in payload["optimizer"]["state"].items()
+    }
+    if programs is not None:
+        params = programs.local_tensors(params)
+        moments = _map_moments(state.model, moments, programs.local_tensors)
+    state.model.load_state_dict(params, strict=True)
     state.optimizer.load_state_dict({
-        "state": {
-            index: {k: torch.tensor(np.asarray(v)) for k, v in fields.items()}
-            for index, fields in optimizer["state"].items()
-        },
-        "param_groups": optimizer["param_groups"],
+        "state": moments, "param_groups": payload["optimizer"]["param_groups"],
     })
     device = next(state.model.parameters()).device
     saved = payload["generator"]

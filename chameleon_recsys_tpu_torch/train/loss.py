@@ -11,6 +11,8 @@ name under ``rnn.``.
 """
 from __future__ import annotations
 
+from typing import Container, Optional
+
 import torch
 from torch import nn
 
@@ -24,12 +26,14 @@ def is_regularized(name: str) -> bool:
     return not any(part == "bias" or part.endswith("_bias") for part in parts)
 
 
-def l2_regularization(model: nn.Module, weight_decay: float) -> torch.Tensor:
-    """weight_decay * sum over the regularised parameters of ||w||^2 / 2, f32."""
+def l2_regularization(model: nn.Module, weight_decay: float,
+                      names: Optional[Container[str]] = None) -> torch.Tensor:
+    """weight_decay * sum over the regularised parameters (among ``names``,
+    where given) of ||w||^2 / 2, f32."""
     terms = [
         p.float().square().sum() / 2.0
         for name, p in model.named_parameters()
-        if is_regularized(name)
+        if is_regularized(name) and (names is None or name in names)
     ]
     if not terms:
         return torch.zeros(())

@@ -26,6 +26,14 @@ hour).
 
 A ``torch.Generator`` stands in for the JAX state's ``rng``; both steps take
 injected ``SamplerUniforms`` instead, for parity with the JAX draws.
+
+Under a mesh both steps take ``shard`` (``parallel/sharded.py``, which
+builds it): the batch is then the rank's block of the global batch; the pool
+and the stream update take the global batch's clicks; every draw is made at
+the global shape and the rank keeps its block (the rank's compaction is
+group ``data_index`` of the single-device grouped step); the losses divide
+by the global valid-click count; the gradients are summed over the data
+group before Adam; the metrics are the global batch's.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 from ..models.nar import NARAux, NARModel
 from ..ops.sampling import (
     SamplerUniforms,
+    draw_uniforms,
     sample_negatives_pooled,
     sample_negatives_pooled_rows,
 )
@@ -133,12 +142,13 @@ def compact_valid_rows(session_size, item_clicked, capacity: int,
     )
 
 
-def _aux(stream: StreamState, ace_matrix, metadata) -> NARAux:
+def _aux(stream: StreamState, ace_matrix, metadata, shard=None) -> NARAux:
     return NARAux(
         ace_matrix=ace_matrix,
         metadata=dict(metadata),
         recent_pop_norm=stream.recent_pop_norm,
         buffer_ids=stream.buffer_ids,
+        shard=shard,
     )
 
 
@@ -178,14 +188,14 @@ class _TrainInputs(NamedTuple):
 
 
 def _train_inputs(model, stream, batch, ace_matrix, metadata, generator,
-                  uniforms) -> _TrainInputs:
+                  uniforms, shard=None) -> _TrainInputs:
     """What the model call of a train step takes besides the batch: the aux
     inputs, the compacted rows (with a capacity) and the sampler's pool and
     negatives for them (for the grid without one, the final label column
     dropped)."""
     cfg = model.cfg
-    aux = _aux(stream, ace_matrix, metadata)
-    all_clicked, all_ts = _batch_all_clicks(batch)
+    aux = _aux(stream, ace_matrix, metadata, shard)
+    all_clicked, all_ts = _batch_all_clicks(batch if shard is None else shard.batch)
     sampler = dict(
         num_negatives=cfg.negative_samples,
         buffer_sample_size=cfg.negative_sample_from_buffer,
@@ -194,17 +204,34 @@ def _train_inputs(model, stream, batch, ace_matrix, metadata, generator,
     )
     if cfg.train_valid_row_capacity is None:
         pool, neg_idx, neg_ids = sample_negatives_pooled(
-            all_clicked, stream.buffer_ids, **sampler
+            all_clicked, stream.buffer_ids, **sampler,
+            sessions=None if shard is None else shard.sessions,
         )
         return _TrainInputs(aux, pool, neg_idx[:, :-1], neg_ids[:, :-1], None,
                             None, all_clicked, all_ts)
     groups = max(cfg.train_compaction_groups, 1)
+    capacity = cfg.train_valid_row_capacity
+    if shard is not None:
+        # the rank's sessions are groups [d * G / dp, (d + 1) * G / dp) of
+        # the single-device grouped step
+        capacity //= shard.plan.data_parallelism
+        groups //= shard.plan.data_parallelism
     rows = compact_valid_rows(batch["session_size"], batch["item_clicked"],
-                              cfg.train_valid_row_capacity, groups)
+                              capacity, groups)
     t = batch["item_clicked"].shape[1]
+    row_session = rows.rows_sel // t
+    if shard is not None:
+        row_session = row_session + shard.sessions.start
+        if uniforms is None:
+            uniforms = draw_uniforms(
+                generator, *all_clicked.shape, stream.buffer_ids.shape[0],
+                num_negatives=cfg.negative_samples,
+                buffer_sample_size=cfg.negative_sample_from_buffer,
+                mult=cfg.neg_sampling_multiplying_factor,
+                rows=cfg.train_valid_row_capacity)
+        sampler["uniforms"] = shard.click_block(uniforms)
     pool, neg_idx, neg_ids = sample_negatives_pooled_rows(
-        all_clicked, stream.buffer_ids, rows.rows_sel // t, rows.row_click,
-        **sampler
+        all_clicked, stream.buffer_ids, row_session, rows.row_click, **sampler
     )
     return _TrainInputs(aux, pool, neg_idx, neg_ids,
                         (rows.rows_sel, rows.row_mask), rows.dropped,
@@ -218,14 +245,16 @@ def train_step(
     metadata: Mapping[str, torch.Tensor],
     *,
     uniforms: Optional[SamplerUniforms] = None,
+    shard=None,
 ):
     """One train batch -> (state', metrics).
 
     ``batch`` is a collated batch on the model's device.  The sampler draws
     from ``state.generator``, or takes ``uniforms`` (click keys [M, NC] with
-    compaction, [B, L, NC] without); the dropout masks always come from
-    ``state.generator``.  After the step every parameter's
-    ``.grad`` holds this batch's gradient.  Metrics: ``loss``, ``ce_loss``,
+    compaction, [B, L, NC] without; under a mesh at the global batch's
+    shape); the dropout masks always come from ``state.generator``.  After
+    the step every parameter's ``.grad`` holds this batch's gradient (under
+    a mesh, the global batch's).  Metrics: ``loss``, ``ce_loss``,
     ``reg_loss``, ``sessions``, ``clicks`` and, with a capacity,
     ``dropped_clicks``.
     """
@@ -233,40 +262,61 @@ def train_step(
     stream = state.stream
     with torch.enable_grad():
         inputs = _train_inputs(model, stream, batch, ace_matrix, metadata,
-                               state.generator, uniforms)
-        out = model(batch, inputs.aux, inputs.neg_ids, train=True,
-                    neg_pool=inputs.pool, neg_pool_idx=inputs.neg_idx,
-                    scoring_rows=inputs.scoring_rows, generator=state.generator)
-        reg = l2_regularization(model, cfg.reg_weight_decay)
-        loss = out.ce_loss + reg - out.nov_reg_loss
+                               state.generator, uniforms, shard)
+        forward = model if shard is None else shard.model_call(model)
+        out = forward(batch, inputs.aux, inputs.neg_ids, train=True,
+                      neg_pool=inputs.pool, neg_pool_idx=inputs.neg_idx,
+                      scoring_rows=inputs.scoring_rows, generator=state.generator)
+        if shard is None:
+            reg = l2_regularization(model, cfg.reg_weight_decay)
+            loss = out.ce_loss + reg - out.nov_reg_loss
+            local_loss = loss
+        else:
+            # the L2 term's gradient counts once in the data group's sum
+            own_reg, reg = shard.l2(model, cfg.reg_weight_decay)
+            local_loss = (out.ce_loss + own_reg - out.nov_reg_loss if shard.counts_l2
+                          else out.ce_loss - out.nov_reg_loss)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        local_loss.backward()
     # optax updates every leaf; torch's Adam skips a parameter whose grad is
     # None, so give such a parameter a zero gradient
     for param in model.parameters():
         if param.grad is None:
             param.grad = torch.zeros_like(param)
+    if shard is not None:
+        shard.sync_grads(model)
     state.optimizer.step()
+    ce_loss, dropped = out.ce_loss.detach(), inputs.dropped
+    if shard is None:
+        sessions, clicks = (batch["session_size"] > 0).sum(), out.loss_mask.sum()
+    else:
+        sums = [ce_loss, out.nov_reg_loss.detach()] + ([] if dropped is None else [dropped])
+        ce_loss, nov, *dropped = shard.data_sum(sums)
+        loss = ce_loss + reg - nov
+        dropped = dropped[0] if dropped else None
+        sessions, clicks = shard.sessions_count, shard.valid_clicks
     metrics = {
         "loss": loss.detach(),
-        "ce_loss": out.ce_loss.detach(),
+        "ce_loss": ce_loss,
         "reg_loss": reg.detach(),
-        "sessions": (batch["session_size"] > 0).sum(),
-        "clicks": out.loss_mask.sum(),
+        "sessions": sessions,
+        "clicks": clicks,
     }
-    if inputs.dropped is not None:
-        metrics["dropped_clicks"] = inputs.dropped
+    if dropped is not None:
+        metrics["dropped_clicks"] = dropped
     new_stream = update_stream_state(stream, inputs.all_clicked, inputs.all_ts, cfg)
     return state._replace(stream=new_stream, step=state.step + 1), metrics
 
 
-def _eval_inputs(model, stream, batch, ace_matrix, metadata, generator, uniforms):
+def _eval_inputs(model, stream, batch, ace_matrix, metadata, generator, uniforms,
+                 shard=None):
     """What the model call of an eval step takes besides the batch: the aux
     inputs and the grid sampler's pool and per-click negatives (the final
-    label column dropped), with the batch's clicks and their timestamps."""
+    label column dropped), with the batch's clicks and their timestamps
+    (under a mesh, the global batch's)."""
     cfg = model.cfg
-    aux = _aux(stream, ace_matrix, metadata)
-    all_clicked, all_ts = _batch_all_clicks(batch)
+    aux = _aux(stream, ace_matrix, metadata, shard)
+    all_clicked, all_ts = _batch_all_clicks(batch if shard is None else shard.batch)
     # cfg.approx_negative_topk is a TPU-only approximation: the sampler here
     # always takes the exact top-k (see ops/sampling.py)
     pool, neg_idx, neg_ids = sample_negatives_pooled(
@@ -277,6 +327,7 @@ def _eval_inputs(model, stream, batch, ace_matrix, metadata, generator, uniforms
         mult=cfg.neg_sampling_multiplying_factor,
         generator=generator,
         uniforms=uniforms,
+        sessions=None if shard is None else shard.sessions,
     )
     # the final label column has no next click to score
     neg_idx, neg_ids = neg_idx[:, :-1], neg_ids[:, :-1]
@@ -294,6 +345,7 @@ def eval_step(
     generator: torch.Generator,
     fetch_full_ranking: bool = True,
     uniforms: Optional[SamplerUniforms] = None,
+    shard=None,
 ):
     """One eval batch -> (stream', metrics, fetches).
 
@@ -301,21 +353,29 @@ def eval_step(
     The sampler draws from ``generator``, or takes ``uniforms`` when given
     (for parity with another implementation's draws).  Under
     ``fetch_full_ranking=False`` the fetches hold only the top
-    ``metrics_top_n`` predicted ids and no probabilities.
+    ``metrics_top_n`` predicted ids and no probabilities.  Under a mesh
+    (``shard``) the metrics are the global batch's and the fetches the
+    rank's rows.
     """
     cfg = model.cfg
     aux, pool, neg_idx, neg_ids, all_clicked, all_ts = _eval_inputs(
-        model, stream, batch, ace_matrix, metadata, generator, uniforms
+        model, stream, batch, ace_matrix, metadata, generator, uniforms, shard
     )
-    out = model(batch, aux, neg_ids, rank=True, neg_pool=pool, neg_pool_idx=neg_idx)
+    forward = model if shard is None else shard.model_call(model)
+    out = forward(batch, aux, neg_ids, rank=True, neg_pool=pool, neg_pool_idx=neg_idx)
 
     metrics = device_ranking_metrics(
         out.predicted_ids, batch["label_next_item"], out.loss_mask,
         cfg.metrics_top_n,
     )
     metrics["ce_loss"] = out.ce_loss
-    metrics["clicks"] = out.loss_mask.sum()
-    metrics["sessions"] = (batch["session_size"] > 0).sum()
+    if shard is None:
+        metrics["clicks"] = out.loss_mask.sum()
+        metrics["sessions"] = (batch["session_size"] > 0).sum()
+    else:
+        metrics = dict(zip(metrics, shard.data_sum(list(metrics.values()))))
+        metrics["clicks"] = shard.valid_clicks
+        metrics["sessions"] = shard.sessions_count
     fetches = {
         "labels": batch["label_next_item"],
         "neg_items": out.candidate_ids[..., 1:],

@@ -14,10 +14,24 @@ as this module's names at call time.  It runs on ``cuda`` unless given
 ``device="cpu"``.  Beside CHAMELEON it runs any of this package's classical
 baselines (``baselines/``), uploads ``model_dir`` to an artifact store on
 every export (``utils/artifact_store.py``) and writes the per-step scalars
-and per-hour parameter histograms (``utils/summary.py``).  Not ported here:
-``mesh_plan`` (multi-GPU) raises ``NotImplementedError``.  The JAX harness's
-orbax checkpoints have no counterpart: this package's pickle is its one
-format.
+and per-hour parameter histograms (``utils/summary.py``).  The JAX
+harness's orbax checkpoints have no counterpart: this package's pickle is
+its one format.
+
+Multi-GPU (``mesh_plan``, ``parallel/``): one harness per rank.  Every rank
+collates the same global batches of ``batch_size`` sessions and steps on
+its block of them (``parallel/sharded.py``), so a run equals the one-device
+run with ``train_compaction_groups`` = data parallelism on the same batches.
+The row-sharded tables and their Adam moments stay on their ranks; the
+stream is replicated.  The host tier runs on model index 0 of each data
+index: the co-occurrences and the baselines learn from the global batch
+(the same on each); in an eval hour each ranks its own block of every batch
+with every baseline, the tier's costly half, and sends those ranked lists
+with its eval fetches' rows to rank 0 (``_rank_blocks``), which scores the
+whole batch as one device does: the metric suite, the cold-start tracking
+and the eval logs.  So the eval row is the one-device row (a stochastic
+baseline draws per rank).  Rank 0 alone writes ``model_dir``, the store and
+the checkpoint (gathered from every rank's rows).
 """
 from __future__ import annotations
 
@@ -43,6 +57,8 @@ from ..metrics.evaluation import (
     update_metrics,
 )
 from ..models.nar import NARModel
+from ..parallel.distributed import barrier, gather_object
+from ..parallel.mesh import batch_sharding
 from ..state.host_state import HostState
 from ..state.stream_state import init_stream_state
 from ..utils.io import (
@@ -78,8 +94,8 @@ class TemporalHarness:
 
     ``hour_source(hour) -> List[Session]`` abstracts the per-hour data files
     (one gzipped TFRecord per hour in the reference, datasets.py:166-178).
-    The arguments are the JAX harness's, less ``mesh_min_rows`` (multi-GPU),
-    plus ``device``.
+    The arguments are the JAX harness's plus ``device`` (under a
+    ``mesh_plan``, the plan's device).
     """
 
     def __init__(
@@ -98,15 +114,28 @@ class TemporalHarness:
         artifact_store=None,
         artifact_remote_path: str = "",
         mesh_plan=None,
+        mesh_min_rows: int = 4096,
         benchmark_workers: Optional[int] = None,
         save_scalars: bool = False,
         save_histograms: bool = False,
         histograms_every_n_hours: int = 1,
         device="cuda",
     ):
+        # Multi-GPU: with a MeshPlan each rank steps on its block of the
+        # global batches through the sharded programs (parallel/sharded.py)
+        self.mesh_plan = mesh_plan
+        self.mesh_min_rows = mesh_min_rows
+        self._sharded = None
+        if mesh_plan is not None and cfg.batch_size % mesh_plan.data_parallelism:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} not divisible by "
+                f"data_parallelism {mesh_plan.data_parallelism}"
+            )
         if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan (multi-device training) is not "
-                                      "ported yet: it comes with the multi-GPU slice")
+            device = mesh_plan.device
+        # the ranks that run the host tier, and the one that writes model_dir
+        self._host_tier = mesh_plan is None or mesh_plan.model_index == 0
+        self._primary = mesh_plan is None or mesh_plan.rank == 0
         for spec in benchmarks:
             if not (isinstance(spec.recommender, type)
                     and issubclass(spec.recommender, BenchmarkRecommender)):
@@ -205,9 +234,12 @@ class TemporalHarness:
         # Per-step observability channel (the reference's TensorBoard
         # scalars and --save_histograms, nar_trainer_gcom.py:54): JSON-lines
         # sinks under model_dir, written once an hour.
-        self.scalar_writer = ScalarWriter(run_cfg.model_dir) if save_scalars else None
+        self.scalar_writer = (ScalarWriter(run_cfg.model_dir)
+                              if save_scalars and self._primary else None)
+        self.save_histograms = save_histograms
         self.histogram_writer = (
-            HistogramWriter(run_cfg.model_dir) if save_histograms else None
+            HistogramWriter(run_cfg.model_dir) if save_histograms and self._primary
+            else None
         )
         self.histograms_every_n_hours = max(1, histograms_every_n_hours)
         self.hours_trained = 0
@@ -254,13 +286,41 @@ class TemporalHarness:
                          self.ace_matrix_np.shape[1])
         model.reset_parameters(torch.Generator().manual_seed(seed))
         model.to(self.device)
+        if self.mesh_plan is not None:
+            from ..parallel.sharded import shard_nar_programs
+
+            # every rank initialises the same whole model, then keeps its rows
+            self._sharded = shard_nar_programs(self.mesh_plan, model, self.ace_matrix_np,
+                                               self.mesh_min_rows)
+            self.ace_matrix = self._sharded.local_ace(
+                torch.from_numpy(self.ace_matrix_np).to(self.device))
         stream = init_stream_state(self.cfg, self.article_schema.num_items,
                                    device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self.state = init_train_state(model, stream, generator)
 
     def _put_batch(self, np_batch):
+        if self._sharded is not None:
+            from ..parallel.sharded import put_batch
+
+            return put_batch(self._sharded, np_batch)
         return {k: torch.from_numpy(v).to(self.device) for k, v in np_batch.items()}
+
+    def _train_step(self, batch):
+        if self._sharded is not None:
+            return self._sharded.train_step(self.state, batch, self.ace_matrix,
+                                            self.metadata)
+        return train_step(self.state, batch, self.ace_matrix, self.metadata)
+
+    def _eval_step(self, batch):
+        kwargs = dict(generator=self.state.generator,
+                      fetch_full_ranking=self.fetch_full_ranking)
+        if self._sharded is not None:
+            return self._sharded.eval_step(
+                self.state.model, self.state.stream, batch, self.ace_matrix,
+                self.metadata, **kwargs)
+        return eval_step(self.state.model, self.state.stream, batch, self.ace_matrix,
+                         self.metadata, **kwargs)
 
     def _batches(self, source):
         """Batch iterator over an hour's data: a Session sequence, or any
@@ -285,9 +345,7 @@ class TemporalHarness:
         self.train_meter.start()
         for np_batch in self._batches(sessions):
             batch = self._put_batch(np_batch)
-            self.state, metrics = train_step(
-                self.state, batch, self.ace_matrix, self.metadata
-            )
+            self.state, metrics = self._train_step(batch)
             # keep the device scalars: converting here would sync every step
             step_metrics.append(metrics)
             n_steps += 1
@@ -299,7 +357,8 @@ class TemporalHarness:
             # First-click tracking is unconditional like the reference hook
             # (nar_model.py:1481-1494).
             self._register_batch_clicks(np_batch)
-            self._train_host_side(np_batch)
+            if self._host_tier:
+                self._train_host_side(np_batch)
             self.train_meter.start()
         # one fetch of the hour's scalars, inside the meter: it waits for the
         # device, so the train throughput counts the device's work.  float64
@@ -320,13 +379,16 @@ class TemporalHarness:
                 self.scalar_writer.write(first_step + i, dict(zip(names, values)))
             self.scalar_writer.flush()
         if (
-            self.histogram_writer is not None
+            self.save_histograms
             and self.hours_trained % self.histograms_every_n_hours == 0
         ):
-            self.histogram_writer.write_tree(
-                int(self.host_state.current_step), self.state.model,
-                prefix="params/",
-            )
+            # every rank takes part in gathering the row shards
+            params = (self.state.model if self._sharded is None else
+                      self._sharded.full_tensors(dict(self.state.model.named_parameters())))
+            if self.histogram_writer is not None:
+                self.histogram_writer.write_tree(
+                    int(self.host_state.current_step), params, prefix="params/",
+                )
         losses = [values[names.index("ce_loss")] for values in fetched]
         avg_loss = float(np.mean(losses)) if losses else 0.0
         return {"steps": n_steps, "avg_ce_loss": avg_loss}
@@ -419,19 +481,14 @@ class TemporalHarness:
         # when it is called and the loop is serial.
         def _dispatch(np_batch):
             batch = self._put_batch(np_batch)
-            stream, dev_metrics, fetches = eval_step(
-                self.state.model, self.state.stream, batch, self.ace_matrix,
-                self.metadata, generator=self.state.generator,
-                fetch_full_ranking=self.fetch_full_ranking,
-            )
+            stream, dev_metrics, fetches = self._eval_step(batch)
             self.state = self.state._replace(stream=stream)
-            host, event = self._fetch_async({
-                **{f"m_{k}": v for k, v in dev_metrics.items()},
-                **fetches,
-                "view_buffer_ids": stream.buffer_ids,
-                "view_recent_pop_norm": stream.recent_pop_norm,
-                "view_global_pop": stream.global_pop,
-            })
+            wanted = {f"m_{k}": v for k, v in dev_metrics.items()}
+            if self._host_tier:
+                wanted.update(fetches, view_buffer_ids=stream.buffer_ids,
+                              view_recent_pop_norm=stream.recent_pop_norm,
+                              view_global_pop=stream.global_pop)
+            host, event = self._fetch_async(wanted)
             return np_batch, host, event
 
         batch_iter = iter(self._batches(sessions))
@@ -459,48 +516,65 @@ class TemporalHarness:
             label_count += float(host["m_label_count"])
             clicks_count += int(host["m_clicks"])
             sessions_count += int(host["m_sessions"])
-            preds = host["predicted_ids"].numpy()
-            probs = (
-                host["predicted_probs"].numpy()
-                if "predicted_probs" in host
-                else None
+            if not self._host_tier:
+                pending = current
+                if pending is None:
+                    break
+                continue
+            fetched = (
+                host["predicted_ids"].numpy(),
+                host["predicted_probs"].numpy() if "predicted_probs" in host else None,
+                host["labels"].numpy(),
+                host["neg_items"].numpy(),
+                host["clicked_items"].numpy(),
             )
-            labels = host["labels"].numpy()
-            neg_items = host["neg_items"].numpy()
-            clicked = host["clicked_items"].numpy()
             view_arrays = (host["view_buffer_ids"], host["view_recent_pop_norm"],
                            host["view_global_pop"])
             pop_norm = self._state_view.get_articles_recent_pop_norm()
             phases["device"] += time.perf_counter() - t0
 
-            t0 = time.perf_counter()
-            update_metrics(
-                preds,
-                labels,
-                pop_norm[labels],
-                pop_norm[preds],
-                clicked,
-                streaming,
-                recommender="chameleon",
-            )
-            self._log_eval_batch(np_batch, labels, neg_items, preds, probs, pop_norm)
-            phases["chameleon_metrics"] += time.perf_counter() - t0
-
-            t0 = time.perf_counter()
-            self._each_benchmark(
-                lambda clf: clf.evaluate(
-                    np_batch["user_id"],
-                    clicked,
+            ranked = None
+            if self._sharded is not None:
+                t0 = time.perf_counter()
+                ranked, fetched = self._rank_blocks(np_batch, fetched)
+                phases["benchmarks"] += time.perf_counter() - t0
+            preds, probs, labels, neg_items, clicked = fetched
+            if self._primary:
+                t0 = time.perf_counter()
+                update_metrics(
+                    preds,
                     labels,
-                    topk=self.cfg.metrics_top_n,
-                    eval_negative_items=neg_items,
+                    pop_norm[labels],
+                    pop_norm[preds],
+                    clicked,
+                    streaming,
+                    recommender="chameleon",
                 )
-            )
-            phases["benchmarks"] += time.perf_counter() - t0
+                self._log_eval_batch(np_batch, labels, neg_items, preds, probs, pop_norm)
+                phases["chameleon_metrics"] += time.perf_counter() - t0
+
+                t0 = time.perf_counter()
+                if ranked is None:
+                    self._each_benchmark(
+                        lambda clf: clf.evaluate(
+                            np_batch["user_id"],
+                            clicked,
+                            labels,
+                            topk=self.cfg.metrics_top_n,
+                            eval_negative_items=neg_items,
+                        )
+                    )
+                else:
+                    self._each_benchmark(
+                        lambda clf: clf.record_eval(
+                            ranked[id(clf)], clicked, labels, topk=self.cfg.metrics_top_n
+                        )
+                    )
+                phases["benchmarks"] += time.perf_counter() - t0
             # Cold-start bookkeeping runs after this batch's first-click
             # registration (reference order, nar_model.py:1481-1494).
             self._register_batch_clicks(np_batch)
-            if self.eval_cold_start:
+            if self.eval_cold_start and self._primary:
                 t0 = time.perf_counter()
                 self._update_cold_start(np_batch, labels, neg_items, preds)
                 phases["cold_start"] += time.perf_counter() - t0
@@ -521,13 +595,15 @@ class TemporalHarness:
             "hitrate_at_n": hit_sum / max(label_count, 1.0),
             "mrr_at_n": rr_sum / max(label_count, 1.0),
         }
-        row.update(compute_metrics_results(streaming, recommender="chameleon"))
-        for clf in self.bench_classifiers:
-            row.update(compute_metrics_results(clf.streaming_metrics, clf.get_clf_suffix()))
+        if self._primary:
+            row.update(compute_metrics_results(streaming, recommender="chameleon"))
+            for clf in self.bench_classifiers:
+                row.update(compute_metrics_results(clf.streaming_metrics,
+                                                   clf.get_clf_suffix()))
         row["clicks_count"] = clicks_count
         row["sessions_count"] = sessions_count
         row.update(self.train_meter.result())  # sessions/s since start
-        if self.eval_cold_start:
+        if self.eval_cold_start and self._primary:
             row["coldstart_chameleon"] = self.cold_start_state.get_statistics()
             for clf in self.bench_classifiers:
                 row[f"coldstart_{clf.get_clf_suffix()}"] = (
@@ -548,6 +624,35 @@ class TemporalHarness:
         self.host_state.restore_state_checkpoint()
         self.evals_done += 1
         return row
+
+    def _rank_blocks(self, np_batch, fetched):
+        """Under a mesh, the benchmark tier's costly half, data-parallel:
+        this host-tier rank ranks its block of the eval batch with every
+        baseline (each ranks a row alone), then the blocks and the eval
+        fetches' rows (``fetched``: ids, probabilities or None, labels,
+        negatives, clicks) go to rank 0 in data-index order.  Returns, on
+        rank 0, {id(baseline): its ranked lists} and the fetches of the
+        whole batch, as one device has them; elsewhere the rank's own."""
+        blocks = batch_sharding(self.mesh_plan, np_batch)["user_id"]
+        users = np_batch["user_id"][blocks]
+        _, _, labels, neg_items, clicked = fetched
+        ranked = {}
+
+        def one(clf):
+            ranked[id(clf)] = clf.eval_predictions(
+                users, clicked, labels, topk=self.cfg.metrics_top_n,
+                eval_negative_items=neg_items,
+            )
+
+        self._each_benchmark(one)
+        mine = [ranked[id(clf)] for clf in self.bench_classifiers]
+        parts = gather_object((fetched, mine), 0, self.mesh_plan.data_group)
+        if parts is None:
+            return ranked, fetched
+        whole = tuple(None if arrays[0] is None else np.concatenate(arrays)
+                      for arrays in zip(*(f for f, _ in parts)))
+        lists = [np.concatenate(arrays) for arrays in zip(*(r for _, r in parts))]
+        return {id(clf): x for clf, x in zip(self.bench_classifiers, lists)}, whole
 
     def _log_eval_batch(self, np_batch, labels, neg_items, preds, probs, pop_norm):
         neg_log = self.artifacts.sessions_negative_items_log
@@ -656,6 +761,8 @@ class TemporalHarness:
             self.export_artifacts()
 
     def export_artifacts(self):
+        if not self._primary:
+            return
         out = Path(self.run_cfg.model_dir)
         save_eval_benchmark_metrics_csv(
             self.artifacts.eval_sessions_metrics_log,
@@ -682,7 +789,10 @@ class TemporalHarness:
     def save_checkpoint(self, path=None):
         self._ensure_initialized()
         path = Path(path or Path(self.run_cfg.model_dir) / "checkpoint.pkl")
-        payload = pack_train_state(self.state)
+        payload = pack_train_state(self.state, self._sharded)
+        if not self._primary:
+            barrier(self.mesh_plan)  # the file is written when this returns
+            return path
         payload.update({
             "hours_trained": self.hours_trained,
             "evals_done": self.evals_done,
@@ -693,13 +803,17 @@ class TemporalHarness:
             "host_benchmarks_states": self.host_state.benchmarks_states,
         })
         serialize(path, payload)
+        if self.mesh_plan is not None:
+            barrier(self.mesh_plan)
         return path
 
     def load_checkpoint(self, path=None):
+        """Every rank reads the file; under a mesh each keeps its rows (a
+        checkpoint written at any layout loads at any other)."""
         path = Path(path or Path(self.run_cfg.model_dir) / "checkpoint.pkl")
         payload = deserialize(path)
         self._ensure_initialized()
-        self.state = unpack_train_state(payload, self.state)
+        self.state = unpack_train_state(payload, self.state, self._sharded)
         self.hours_trained = payload["hours_trained"]
         self.evals_done = payload["evals_done"]
         self.artifacts.eval_sessions_metrics_log = payload["metrics_log"]

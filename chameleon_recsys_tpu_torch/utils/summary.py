@@ -81,10 +81,13 @@ class HistogramWriter:
         with open(self.path, "a") as f:
             f.write(json.dumps(row) + "\n")
 
-    def write_tree(self, step: int, model: torch.nn.Module, prefix: str = ""):
-        """Histogram every parameter of ``model``, named ``prefix`` + its
-        name in ``named_parameters``."""
-        for name, value in model.named_parameters():
+    def write_tree(self, step: int, model, prefix: str = ""):
+        """Histogram every parameter of ``model`` (a module, or a mapping of
+        parameter names to tensors), named ``prefix`` + its name in
+        ``named_parameters``."""
+        params = (model.named_parameters() if isinstance(model, torch.nn.Module)
+                  else model.items())
+        for name, value in params:
             self.write(step, prefix + name,
                        value.detach().to("cpu", torch.float32).numpy())
 

@@ -20,8 +20,8 @@ pipeline through its CLIs (``cli.make_pseudo_g1`` -> ``nar_preprocess_gcom``
 the neural baselines through their CLIs (``cli.run_gru4rec``,
 ``cli.run_sr_gnn``), the native host code (the C++ session loader under
 ``--use_native_loader`` and the session-kNN's C++ predictor), the train
-step with grouped compaction, ACR in bf16, and every hand-written kernel of
-those paths:
+step with grouped compaction, ACR in bf16, multi-GPU training through the
+sharded steps, and every hand-written kernel of those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
    per source, started together; beside them, in a thread, the native
@@ -191,7 +191,29 @@ those paths:
    initial weights, and the card's bf16 run against the CPU's (the ACE
    before and after the steps, the losses), and prints the bf16
    ACE's distance from f32 after the steps, the ms a step and (profiled
-   last) the busy share of each.
+   last) the busy share of each;
+16. multi-GPU on the one card, counted: three worlds of spawned ranks through
+   the sharded programs (``parallel/sharded.py``) at the G1 width of
+   ``scripts/g1_mesh_parity.py`` (46,034 items, capacity 2,688 in one group
+   a data rank): 1 x 1 over NCCL, 2 x 1 and 1 x 2 (the item embedding and
+   the ACE matrix row-sharded, 23,017 rows a rank) over gloo with both ranks
+   on the card (NCCL refuses two ranks on one device); in each, per rank, the
+   sharded eval step (the fused scorer once, the UGRNN forward twice) and
+   two train steps (as phase 4's), held on rank 0 against the one-device
+   steps with ``train_compaction_groups`` = the data parallelism on the same
+   global batches, weights and draws (``MESH_TOL``; the integer stream
+   exactly; for the two-rank worlds the first train step in float32 too,
+   Adam's moments within 1e-4 every element and 1e-3 normwise a
+   parameter), the replicated parameters bit-equal across the ranks; prints
+   each world's collectives per step by kind and its ms a train step by
+   CUDA events.  Then the multi-GPU entry point, ``parallel/dryrun.py``,
+   over a 2 x 2 world of four ranks on the card (gloo): the harness with a
+   ``MeshPlan`` through two train hours, the eval hour with the host tier
+   on each data index, a checkpoint gathered, restored and replayed, its
+   kernel launches counted on every rank.  Run beside phase 13, on phase
+   6's files: phase 6's CLI with ``--data_parallelism 1``, a world of one
+   over NCCL through ``mesh_from_args``, its baseline columns bit-equal to
+   phase 6's.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 numbers before the last line, and as the last line
@@ -206,6 +228,7 @@ import csv
 import ctypes
 import dataclasses
 import json
+import math
 import re
 import shlex
 import statistics
@@ -325,11 +348,10 @@ def check(condition, message):
         raise RuntimeError(f"chip_smoke: {message}")
 
 
-def g1_setup(port):
+def g1_setup(port, num_items=46033):
     """The G1 reproduction schemas and NARConfig (bench.py::_g1_setup), with
     the session RNN on the hand-written kernel."""
     FeatureSpec = port.FeatureSpec
-    num_items = 46033
     article_schema = port.ArticleFeaturesSchema(features=(
         FeatureSpec("article_id", "categorical", num_items),
         FeatureSpec("created_at_ts", "numerical", dtype="int"),
@@ -823,20 +845,9 @@ def hour_batches(corpus, session_schema, cfg, hour, n):
 
 
 def launch_counts():
-    from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer, ugrnn
+    from chameleon_recsys_tpu_torch.ops.kernels import launch_counts as counts
 
-    return {
-        "cand_score_fwd": cand_scorer.launches,
-        "cand_score_fwd_stash": cand_scorer.stash_launches,
-        "cand_score_bwd": cand_scorer.bwd_launches,
-        "cand_score_bwd_recompute": cand_scorer.bwd_recompute_launches,
-        "ugrnn_fwd": ugrnn.launches,
-        "ugrnn_bwd": ugrnn.bwd_launches,
-        "ugrnn_fwd_resident": ugrnn.resident_launches,
-        "ugrnn_fwd_stream": ugrnn.stream_launches,
-        "ugrnn_bwd_resident": ugrnn.bwd_resident_launches,
-        "ugrnn_bwd_stream": ugrnn.bwd_stream_launches,
-    }
+    return counts()
 
 
 def zero_launch_counts():
@@ -2747,6 +2758,480 @@ def acr_bf16_phase():
     return counts, profile_acr_bf16
 
 
+# ---------------------------------------------------------------------------
+# 16: multi-GPU on one card
+# ---------------------------------------------------------------------------
+
+# scripts/g1_mesh_parity.py's G1 width: an even catalog, so that at model
+# parallelism 2 the item embedding and the ACE matrix shard into 23,017 rows a
+# rank (bench.py's 46,033 is odd: the rule would replicate them), its grouped
+# capacity, batch 256, bf16, both kernels on, phase 4's weights (seed 0)
+MESH_ITEMS = 46_034
+MESH_CAPACITY = 2688
+MESH_TRAIN_STEPS = 2
+MESH_TIMED_STEPS = 5
+# (name, data parallelism, model parallelism, backend): NCCL refuses two ranks
+# on one device, so the two-rank worlds run over gloo
+MESH_WORLDS = (("1x1", 1, 1, "nccl"), ("2x1", 2, 1, "gloo"), ("1x2", 1, 2, "gloo"))
+# each world against the one-device steps (train_compaction_groups = its data
+# parallelism) on the same global batches, weights and draws.  At 1 x 1 they
+# are the same computation: the eval exactly, the losses within phase 5's
+# RESUME_TOL (the embeddings' backward adds with float atomics).  With two
+# ranks the bf16 products at B / 2 rows round otherwise than at B rows
+# (cuBLAS picks its algorithm by row count): the losses within 1e-3
+# relative; the eval's probabilities within 2e-2 (tests/test_torch_cuda.py's
+# bf16 bound; at random weights the candidates' scores lie within bf16's
+# resolution of each other, so near ties reorder and HR moves by a few
+# clicks: printed).  Adam's moments are held in float32 after the first step,
+# as the CPU tests hold them (tests/test_torch_parallel_step.py): the
+# two-rank world's first train step, and the one-device grouped step, run
+# again from the same weights in float32, the loss within 1e-5 relative,
+# every element of the moments within the CPU tests' 1e-4, and each
+# parameter's moments within 1e-3 of its own normwise.  That relative bound
+# is set from the first reading of this run (1.2e-4 to 3.2e-4 in every
+# parameter below the output layer, the output kernel 7e-6, the loss
+# bit-equal): at random weights a row's candidates look alike, so the
+# gradients below the output layer are sums over candidates whose (p - y)
+# factors sum to 0, and the ranks' partial sums over half the rows round
+# them apart by ~1e-4; a gradient a few percent off would lie 10x past it.
+# (After a second step every parameter differs by ~2e-3: Adam's first
+# update is ~lr * sign(g), so an element whose gradient is 0 up to rounding
+# moves by +-lr on one side and not the other.)  Left out of the relative
+# bound, and printed: a parameter whose gradient is 0 but for rounding, its
+# first moment under MESH_NOISE_LEAF of the median parameter's (the output
+# bias: each row's candidate gradients sum to 0).  In bf16 each rank rounds
+# its own partial sums, so the bf16 moments' distances are printed only.
+# The integer stream state exactly, in every world.
+MESH_TOL = {"loss": 1e-3, "probs": 2e-2, "moments_f32": 1e-4, "moments_f32_rel": 1e-3,
+            "loss_f32": 1e-5}
+MESH_NOISE_LEAF = 1e-3
+MESH_TIMEOUT = 300  # seconds a world may take, its processes' start included
+
+
+def mesh_rank(rank, dp, mp, backend, port_number, queue):
+    """(16) One rank of a phase-16 world; puts (rank, its results) on
+    ``queue``, or (rank, the traceback)."""
+    try:
+        queue.put((rank, _mesh_rank(rank, dp, mp, backend, port_number)))
+    except BaseException:
+        import traceback
+
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _mesh_rank(rank, dp, mp, backend, port_number):
+    """The sharded eval step from the initial weights, then
+    ``MESH_TRAIN_STEPS`` sharded train steps, counted (kernels and
+    collectives per step); the stream, the gathered Adam moments and a
+    digest of each of the rank's parameters; the ms a train step by CUDA
+    events; on rank 0 the one-device steps on the global batches and the
+    comparison with them."""
+    import copy
+    import hashlib
+
+    import chameleon_recsys_tpu_torch as port
+    from chameleon_recsys_tpu_torch.data.synthetic import make_synthetic_corpus
+    from chameleon_recsys_tpu_torch.parallel import distributed
+    from chameleon_recsys_tpu_torch.parallel.mesh import make_mesh
+    from chameleon_recsys_tpu_torch.parallel.sharded import put_batch, shard_nar_programs
+    from chameleon_recsys_tpu_torch.state.stream_state import init_stream_state
+    from chameleon_recsys_tpu_torch.train.steps import eval_step, init_train_state, train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize_multihost(f"localhost:{port_number}", dp * mp, rank,
+                                     backend=backend)
+    plan = make_mesh(dp, mp, device="cuda:0")
+    base, sess, art = g1_setup(port, MESH_ITEMS)
+    cfg = dataclasses.replace(base, train_valid_row_capacity=MESH_CAPACITY,
+                              train_compaction_groups=dp)
+    corpus = make_synthetic_corpus(art, ace_dim=250)
+    b = cfg.batch_size
+    warm = warm_stream(init_stream_state(cfg, MESH_ITEMS, device="cuda"),
+                       hour_batches(corpus, sess, cfg, 0, 2 * b)
+                       + hour_batches(corpus, sess, cfg, 1, 2 * b), cfg, "cuda")
+    batches = hour_batches(corpus, sess, cfg, 3, MESH_TRAIN_STEPS * b)
+    eval_batch = hour_batches(corpus, sess, cfg, 4, b)[0]
+    ace_full = torch.from_numpy(corpus.ace_matrix).cuda()
+    metadata = {k: torch.as_tensor(np.asarray(v, np.float32 if np.asarray(v).dtype.kind == "f"
+                                              else np.int64)).cuda()
+                for k, v in corpus.metadata.items()}
+    model = port.NARModel(cfg, sess, art, 250)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.cuda()
+
+    def float32_copy():
+        copy32 = port.NARModel(dataclasses.replace(cfg, compute_dtype="float32"), sess, art,
+                               250)
+        copy32.load_state_dict(model.state_dict())
+        return copy32.cuda()
+
+    # the same weights in float32 for the two-rank worlds' float32 steps;
+    # on rank 0 the one-device steps' models
+    model32 = float32_copy() if dp * mp > 1 else None
+    references = (copy.deepcopy(model), float32_copy()) if rank == 0 else None
+    programs = shard_nar_programs(plan, model, corpus.ace_matrix)
+    ace = programs.local_ace(ace_full)
+    state = init_train_state(model, warm, torch.Generator(device="cuda").manual_seed(41))
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    distributed.reset_counts()
+    out = {"launches": [], "collectives": [], "losses": [],
+           "sharded": sorted(n for n, s in programs.state_sharding.items() if s),
+           "ace_rows": None if programs.ace_sharding is None else list(programs.ace_sharding)}
+
+    def counted(fn):
+        before, sent = launch_counts(), distributed.snapshot_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        after, now = launch_counts(), distributed.snapshot_counts()
+        out["launches"].append({k: after[k] - before[k] for k in after})
+        out["collectives"].append({k: {f: now[k][f] - sent[k][f] for f in ("calls", "bytes")}
+                                   for k in now})
+        return result
+
+    _, eval_metrics, fetches = counted(lambda: programs.eval_step(
+        model, warm, put_batch(programs, eval_batch), ace, metadata,
+        generator=torch.Generator(device="cuda").manual_seed(42)))
+    out["eval"] = {k: float(v) for k, v in eval_metrics.items()}
+    for batch in batches:
+        state, metrics = counted(lambda: programs.train_step(
+            state, put_batch(programs, batch), ace, metadata))
+        out["losses"].append({k: float(v) for k, v in metrics.items()})
+    out["totals"] = launch_counts()
+    out["stream"] = {k: v.cpu().numpy() for k, v in state.stream._asdict().items()}
+    params = dict(state.model.named_parameters())
+    # copies: the timed steps below go on updating Adam's state in place
+    moments = {key: programs.full_tensors({n: state.optimizer.state[p][key].clone()
+                                           for n, p in params.items()})
+               for key in ("exp_avg", "exp_avg_sq")}
+    out["digests"] = {n: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
+                      for n, p in params.items()}
+    holder = [state]
+
+    def step():
+        holder[0], _ = programs.train_step(holder[0], put_batch(programs, batches[0]), ace,
+                                           metadata)
+
+    out["ms"] = cuda_ms(step, iters=MESH_TIMED_STEPS, warmup=1)
+    sharded32 = None
+    if model32 is not None:
+        # the first sharded train step in float32 (uncounted: a comparison)
+        programs32 = shard_nar_programs(plan, model32, corpus.ace_matrix)
+        state32 = init_train_state(model32, warm, torch.Generator(device="cuda").manual_seed(41))
+        state32, metrics = programs32.train_step(state32, put_batch(programs32, batches[0]),
+                                                 ace, metadata)
+        params32 = dict(state32.model.named_parameters())
+        sharded32 = float(metrics["loss"]), {
+            key: programs32.full_tensors({n: state32.optimizer.state[p][key]
+                                          for n, p in params32.items()})
+            for key in ("exp_avg", "exp_avg_sq")}
+    if rank == 0:
+        out["compared"] = _mesh_reference(*references, warm, batches, eval_batch, ace_full,
+                                          metadata, out, fetches, moments, sharded32, dp,
+                                          eval_step, init_train_state, train_step)
+    return out
+
+
+def _moment_distance(moments, state):
+    """Normwise distance of ``moments`` ({"exp_avg", "exp_avg_sq"}: {name:
+    tensor}) from ``state``'s Adam moments, over all the parameters at once
+    (a parameter whose gradient is 0 but for rounding noise, as the
+    matching output's bias, has no relative error of its own), the larger
+    of the two moments; and the parameter that differs most."""
+    worst, distance = ("", 0.0), 0.0
+    for key in ("exp_avg", "exp_avg_sq"):
+        diff = ref = 0.0
+        for n, p in state.model.named_parameters():
+            expected = state.optimizer.state[p][key].float()
+            d = float((moments[key][n].float() - expected).square().sum())
+            diff += d
+            ref += float(expected.square().sum())
+            if d > worst[1]:
+                worst = (f"{key} {n}", d)
+        distance = max(distance, (diff / ref) ** 0.5)
+    return distance, worst[0]
+
+
+def _adam_moments(state, clone=False):
+    """{"exp_avg", "exp_avg_sq"}: {parameter name: ``state``'s moment}."""
+    return {key: {n: state.optimizer.state[p][key].clone() if clone
+                  else state.optimizer.state[p][key]
+                  for n, p in state.model.named_parameters()}
+            for key in ("exp_avg", "exp_avg_sq")}
+
+
+def _leaf_distances(moments, reference):
+    """{parameter: (the normwise distance of ``moments`` from ``reference``
+    (both as ``_adam_moments`` gives them) relative to the latter's norm,
+    the larger of the two moments; the largest difference of any
+    element)}."""
+    out = {}
+    for n in reference["exp_avg"]:
+        rel = largest = 0.0
+        for key in ("exp_avg", "exp_avg_sq"):
+            expected = reference[key][n].float()
+            delta = moments[key][n].float() - expected
+            norm, ref = float(delta.norm()), float(expected.norm())
+            rel = max(rel, norm / ref if ref else (math.inf if norm else 0.0))
+            largest = max(largest, float(delta.abs().max()))
+        out[n] = (rel, largest)
+    return out
+
+
+def _mesh_reference(model, model32, warm, batches, eval_batch, ace, metadata, out, fetches,
+                    moments, sharded32, dp, eval_step, init_train_state, train_step):
+    """The one-device eval and train steps on the global batches from the
+    same weights, stream and generator seeds (``model``; ``model32`` the
+    same weights in float32, for the train steps), held against rank 0's
+    sharded ones: the losses' relative differences, the eval's sorted
+    probabilities on the rank's rows (largest difference), its HR and MRR
+    and the share of the rank's top-10 lists the same, Adam's moments
+    normwise from the one-device bf16 run's and the bf16 run's from the
+    f32 run's, the stream's integer fields; with ``sharded32`` (the sharded
+    float32 steps' losses and gathered moments) those against the
+    one-device float32 steps'."""
+    top = model.cfg.metrics_top_n
+    _, ref_eval, ref_fetches = eval_step(
+        model, warm, to_device(eval_batch, "cuda"), ace, metadata,
+        generator=torch.Generator(device="cuda").manual_seed(42))
+    ref_eval = {k: float(v) for k, v in ref_eval.items()}
+    rows = eval_batch["item_clicked"].shape[0] // dp
+    valid = fetches["labels"] != 0
+    mine, theirs = fetches["predicted_ids"][..., :top], ref_fetches["predicted_ids"][:rows, ..., :top]
+    lists = float((mine == theirs).all(-1)[valid].float().mean())
+    probs = float((fetches["predicted_probs"] - ref_fetches["predicted_probs"][:rows])
+                  .abs()[valid].max())
+    runs = {}
+    for name, m in (("bf16", model), ("f32", model32)):
+        state = init_train_state(m, warm, torch.Generator(device="cuda").manual_seed(41))
+        losses = []
+        for batch in batches:
+            state, metrics = train_step(state, to_device(batch, "cuda"), ace, metadata)
+            losses.append({k: float(v) for k, v in metrics.items()})
+            if name == "f32" and len(losses) == 1:
+                first32 = _adam_moments(state, clone=True)
+        runs[name] = state, losses
+    state, losses = runs["bf16"]
+    moment_err, worst = _moment_distance(moments, state)
+    bf16_moments = _adam_moments(state)
+    bf16_err, _ = _moment_distance(bf16_moments, runs["f32"][0])
+    mesh_err, _ = _moment_distance(moments, runs["f32"][0])
+    f32 = None
+    if sharded32 is not None:
+        loss32, moments32 = sharded32
+        reference = runs["f32"][1][0]["loss"]
+        f32 = {"leaves": _leaf_distances(moments32, first32),
+               "norms": {n: float(m.norm()) for n, m in first32["exp_avg"].items()},
+               "loss": abs(loss32 - reference) / abs(reference)}
+    ints = ("buffer_ids", "buffer_ts", "recent_pop", "global_pop", "current_step")
+    stream = {k: v.cpu().numpy() for k, v in state.stream._asdict().items()}
+    return {
+        "loss": max(abs(a[k] - r[k]) / abs(r[k]) for a, r in zip(out["losses"], losses)
+                    for k in ("loss", "ce_loss")),
+        "counts": all(a[k] == r[k] for a, r in zip(out["losses"], losses)
+                      for k in ("sessions", "clicks", "dropped_clicks")),
+        "hr": abs(out["eval"]["hit_sum"] - ref_eval["hit_sum"]) / ref_eval["label_count"],
+        "mrr": abs(out["eval"]["rr_sum"] - ref_eval["rr_sum"]) / ref_eval["label_count"],
+        "eval_counts": all(out["eval"][k] == ref_eval[k]
+                           for k in ("label_count", "clicks", "sessions")),
+        "eval_exact": out["eval"] == ref_eval,
+        "probs": probs,
+        "lists": lists,
+        "moments": moment_err,
+        "moments_worst": worst,
+        "bf16_moments": bf16_err,
+        "mesh_moments": mesh_err,
+        "stream": all(np.array_equal(out["stream"][k], stream[k]) for k in ints),
+        "ref_losses": [r["loss"] for r in losses],
+        "f32": f32,
+    }
+
+
+def mesh_phase():
+    """(16) Multi-GPU on the one card: three worlds of spawned ranks through
+    the sharded programs (``parallel/sharded.py``) at the G1 width of
+    ``scripts/g1_mesh_parity.py``: 1 x 1 over NCCL, 2 x 1 and 1 x 2 (the
+    tables row-sharded) over gloo, two ranks on the card.  In each the
+    sharded eval step and ``MESH_TRAIN_STEPS`` train steps, counted, held
+    against the one-device steps (``MESH_TOL``); replicated parameters
+    bit-equal across the ranks; the collectives and the ms a train step by
+    CUDA events printed.  Returns the kernels' launches summed over every
+    rank's counted steps."""
+    import gc
+    import socket
+
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"mesh: the parent's device memory before spawning: allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+    eval_expected = {"cand_score_fwd": 1, "cand_score_fwd_stash": 0, "cand_score_bwd": 0,
+                     "cand_score_bwd_recompute": 0, **ugrnn_expected(2, 0)}
+    train_expected = {"cand_score_fwd": 0, "cand_score_fwd_stash": 1, "cand_score_bwd": 1,
+                      "cand_score_bwd_recompute": 0, **ugrnn_expected(2, 2)}
+    totals = collections.Counter()
+    ctx = mp.get_context("spawn")
+    for name, dp, mpar, backend in MESH_WORLDS:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port_number = sock.getsockname()[1]
+        queue = ctx.Queue()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mesh_rank, args=(r, dp, mpar, backend, port_number, queue))
+                 for r in range(dp * mpar)]
+        for p in procs:
+            p.start()
+        try:
+            results = dict(queue.get(timeout=MESH_TIMEOUT) for _ in procs)
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+        wall = time.perf_counter() - t0
+        failed = {r: res for r, res in results.items() if isinstance(res, str)}
+        check(not failed, f"mesh {name}: a rank failed:\n" + "\n".join(failed.values()))
+        first = results[0]
+        for rank, res in sorted(results.items()):
+            check(res["launches"] == [eval_expected] + [train_expected] * MESH_TRAIN_STEPS,
+                  f"mesh {name} rank {rank}: kernel launches per step {res['launches']}")
+            totals.update(res["totals"])
+            check(res["losses"] == first["losses"] and res["eval"] == first["eval"],
+                  f"mesh {name} rank {rank}: the global metrics differ from rank 0's")
+            check(all(np.array_equal(res["stream"][k], v) for k, v in first["stream"].items()),
+                  f"mesh {name} rank {rank}: the stream differs from rank 0's")
+            same = [n for n, d in res["digests"].items() if n not in first["sharded"]
+                    and d == first["digests"][n]]
+            check(len(same) == len(first["digests"]) - len(first["sharded"]),
+                  f"mesh {name} rank {rank}: replicated parameters differ from rank 0's")
+        cmp = first["compared"]
+        train_collectives = first["collectives"][1]
+        print(f"mesh {name} over {backend} ({dp * mpar} ranks, {wall:.1f} s wall with the "
+              f"ranks' start): row-sharded {first['sharded'] or 'nothing'}, ACE rows "
+              f"{first['ace_rows'] or 'whole'}; per rank and step launches eval "
+              f"{ {k: v for k, v in first['launches'][0].items() if v} }, train "
+              f"{ {k: v for k, v in first['launches'][1].items() if v} }")
+        print(f"mesh {name} collectives per train step (rank 0): "
+              + ", ".join(f"{k} {v['calls']} calls {v['bytes']} bytes"
+                          for k, v in train_collectives.items())
+              + "; per eval step: " + ", ".join(f"{k} {v['calls']} calls {v['bytes']} bytes"
+                                                 for k, v in first["collectives"][0].items()))
+        print(f"mesh {name} against the one-device steps (groups {dp}): losses "
+              f"{[round(x['loss'], 6) for x in first['losses']]} vs "
+              f"{[round(x, 6) for x in cmp['ref_losses']]} (max relative difference "
+              f"{cmp['loss']:.2e}); eval bit-equal {cmp['eval_exact']}, probabilities max "
+              f"difference {cmp['probs']:.2e}, HR difference {cmp['hr']:.2e}, MRR "
+              f"{cmp['mrr']:.2e}, rank 0's top-10 lists the same {cmp['lists']:.4f}; Adam's "
+              f"moments normwise {cmp['moments']:.2e} from the one-device run's (most in "
+              f"{cmp['moments_worst']}); from the f32 steps' {cmp['mesh_moments']:.2e} "
+              f"against the one-device bf16 run's {cmp['bf16_moments']:.2e}; integer stream "
+              f"equal {cmp['stream']}; replicated parameters bit-equal on all {dp * mpar} "
+              "ranks True")
+        ms = ", ".join(f"{res['ms']:.3f}" for _, res in sorted(results.items()))
+        print(f"mesh {name}: train step {ms} ms by CUDA events over {MESH_TIMED_STEPS} "
+              "steps, rank by rank (the ranks share one card: no measure of scaling)")
+        check(cmp["stream"] and cmp["counts"] and cmp["eval_counts"],
+              f"mesh {name}: the stream or the counts differ from the one-device steps")
+        if dp * mpar == 1:
+            check(cmp["eval_exact"] and cmp["loss"] <= RESUME_TOL["loss"],
+                  f"mesh {name}: the sharded steps differ from the one-device steps {cmp}")
+        else:
+            f32 = cmp["f32"]
+            median = statistics.median(f32["norms"].values())
+            noise = sorted(n for n, norm in f32["norms"].items()
+                           if norm < MESH_NOISE_LEAF * median)
+            held = {n: v for n, v in f32["leaves"].items() if n not in noise}
+            worst32 = max(held, key=lambda n: held[n][0])
+            f32.update(moments=held[worst32][0], moments_worst=worst32,
+                       moments_max_abs=max(absd for _, absd in f32["leaves"].values()),
+                       held=len(held), noise={n: f32["leaves"][n] for n in noise})
+            noise = ", ".join(f"{n} {rel:.3e} ({absd:.3e})"
+                              for n, (rel, absd) in f32["noise"].items())
+            print(f"mesh {name} in float32, the first train step against the one-device "
+                  f"float32 step (groups {dp}): Adam's moments over {f32['held']} parameters "
+                  f"at most {f32['moments']:.3e} normwise relative (in "
+                  f"{f32['moments_worst']}), the largest element difference "
+                  f"{f32['moments_max_abs']:.3e}; the loss's relative difference "
+                  f"{f32['loss']:.3e}; left out as rounding noise (relative, largest "
+                  f"element): {noise or 'none'}")
+            check(cmp["loss"] <= MESH_TOL["loss"] and cmp["probs"] <= MESH_TOL["probs"],
+                  f"mesh {name}: the sharded steps lie off the one-device steps {cmp}")
+            check(f32["moments"] <= MESH_TOL["moments_f32_rel"]
+                  and f32["moments_max_abs"] <= MESH_TOL["moments_f32"]
+                  and f32["loss"] <= MESH_TOL["loss_f32"],
+                  f"mesh {name}: the float32 sharded steps lie off the one-device ones {f32}")
+        if mpar > 1:
+            check("item_clicked_embedding.weight" in first["sharded"]
+                  and first["ace_rows"] == [0, MESH_ITEMS // 2, MESH_ITEMS],
+                  f"mesh {name}: the tables are not row-sharded")
+    totals.update(mesh_dryrun())
+    return dict(totals)
+
+
+def mesh_cli_phase(workdir, phase6_argv, phase6_rows):
+    """(16) Phase 6's G1 trainer CLI again with ``--data_parallelism 1``:
+    ``mesh_from_args`` makes a world of this one process over NCCL on
+    ``cuda:LOCAL_RANK`` and the harness runs with a 1 x 1 ``MeshPlan`` (the
+    sharded steps, the host tier through the rank blocks, the histograms
+    and the checkpoint gathered).  The baselines' columns bit-equal to phase
+    6's (they rank the same sampled candidates); CHAMELEON's printed
+    against them (the embeddings' backward adds with float atomics)."""
+    from chameleon_recsys_tpu_torch.cli import nar_trainer_gcom
+
+    argv = list(phase6_argv)
+    argv[argv.index("--model_dir") + 1] = str(workdir / "model_dp1")
+    for flag in ("--artifact_store_root", "--sync_artifacts_to"):
+        i = argv.index(flag)
+        del argv[i: i + 2]
+    argv += ["--data_parallelism", "1"]
+    counts, rows = run_trainer_cli(nar_trainer_gcom, argv, "mesh cli dp1")
+    check(not torch.distributed.is_initialized(), "mesh cli dp1: the world was not left")
+    check(len(rows) == len(phase6_rows), f"mesh cli dp1: {len(rows)} eval rows")
+    baseline = [k for k in phase6_rows[0]
+                if any(k.endswith(f"_{b}") for b in G1_BASELINES)]
+    differ = [(i, k) for i, (a, b) in enumerate(zip(rows, phase6_rows)) for k in baseline
+              if a[k] != b[k]]
+    chameleon = max(abs(float(a[k]) - float(b[k])) for a, b in zip(rows, phase6_rows)
+                    for k in a if k.endswith("_chameleon"))
+    print(f"mesh cli dp1: {len(baseline)} baseline columns a row, bit-equal to phase 6's "
+          f"{not differ}; CHAMELEON's columns at most {chameleon:.3e} from phase 6's")
+    check(not differ, f"mesh cli dp1: baseline columns differ from phase 6's {differ[:5]}")
+    return counts
+
+
+def mesh_dryrun():
+    """(16) ``parallel/dryrun.py``'s harness over a 2 x 2 world on the
+    card: every phase checked by the dry run itself; here each rank's
+    kernel launches (every kernel of the train and eval steps at least
+    once).  Returns them summed over the ranks."""
+    from chameleon_recsys_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    try:
+        result = dryrun_multichip(4, "cuda", backend="gloo", timeout=MESH_TIMEOUT)
+    except Exception as err:  # a failed rank or check
+        check(False, f"mesh dryrun: {err}")
+    wall = time.perf_counter() - t0
+    totals = collections.Counter()
+    for rank, launches in enumerate(result["launches_by_rank"]):
+        check(all(launches[k] > 0 for k in ("cand_score_fwd", "cand_score_fwd_stash",
+                                             "cand_score_bwd", "ugrnn_fwd", "ugrnn_bwd")),
+              f"mesh dryrun rank {rank}: a kernel of the path was not launched {launches}")
+        totals.update(launches)
+    print(f"mesh dryrun 2x2 over gloo on the card ({wall:.1f} s wall with the ranks' "
+          f"start): kernel launches by rank {result['launches_by_rank']}; collectives on "
+          f"rank 0 {result['collectives']}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2905,14 +3390,19 @@ def main() -> int:
         neural_counts, profile_neural_steps = neural_cli_phase(Path(g1_workdir))
         # ---- 13. the native host code: phase 6's CLI on the C++ loader ----
         native_counts = native_phase(Path(g1_workdir), g1_argv, g1_rows)
+        # ---- 16 (its CLI part). phase 6's CLI as a world of one over NCCL ----
+        mesh_cli_counts = mesh_cli_phase(Path(g1_workdir), g1_argv, g1_rows)
     # ---- 14. grouped compaction at phase 4's capacity, counted ----
     grouped_counts = grouped_phase(port, server, cfg, session_schema, article_schema,
                                    corpus, train_batches, capacity)
     # ---- 15. ACR in bf16 against f32 at the published widths ----
     acr_bf16_counts, profile_acr_bf16 = acr_bf16_phase()
+    # ---- 16. multi-GPU on the one card: three worlds of spawned ranks ----
+    mesh_counts = mesh_phase()
     paths = (serve_counts, eval_counts, train_counts, recompute_counts, harness_counts,
              cli_counts, adressa_counts, dropout_counts, sweep_counts, g1_acr_counts,
-             neural_counts, native_counts, grouped_counts, acr_bf16_counts)
+             neural_counts, native_counts, grouped_counts, acr_bf16_counts, mesh_cli_counts,
+             mesh_counts)
     main_launches = {k: sum(path.get(k, 0) for path in paths)
                      for k in KERNEL_NAMES + UGRNN_INSTANTIATIONS}
     print(f"launches over the counted paths: {main_launches}")

@@ -27,17 +27,21 @@ negative-sample logs equal, the CHAMELEON columns within
 ``test_torch_temporal.py``'s tolerances (1e-6, widened by one label's share
 per near tie ranked the other way), each package's ACE pickle through the
 other's ``load_ace_for_nar``, the port's resume from its own checkpoint, an
-id past its table stopping on the host, and each flag of a feature not
-ported yet exiting before any file is read.
+id past its table stopping on the host, and each mesh flag: a layout that
+is not the world's size exiting with the JAX CLI's message before any file
+is read, the run going through on a 2-rank gloo world.
 """
 import csv
 import pickle
+import re
 import types
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from chameleon_recsys_tpu.acr.trainer import load_ace_for_nar as jax_load_ace_for_nar
 from chameleon_recsys_tpu.cli import acr_preprocess_adressa as jax_acr_preprocess
@@ -47,6 +51,7 @@ from chameleon_recsys_tpu.cli import nar_preprocess_adressa as jax_nar_preproces
 from chameleon_recsys_tpu.cli import nar_trainer_adressa as jax_nar_trainer
 from chameleon_recsys_tpu.data.collate import collate_sessions as jax_collate
 from chameleon_recsys_tpu.data.sessions import read_sessions_tfrecord as jax_read_sessions
+from chameleon_recsys_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from chameleon_recsys_tpu.state.stream_state import (
     update_stream_state as jax_update_stream_state,
 )
@@ -66,6 +71,7 @@ from chameleon_recsys_tpu_torch.convert import (
     stream_from_numpy,
 )
 
+from _torch_parallel_worker import cli_rank, run_world
 from test_adressa_cli import raw  # noqa: F401  (the tiny raw fixture)
 from test_torch_cli_g1 import read_csv, read_json_lines
 from test_torch_temporal import BASELINES, _near_tie_swaps, jax_draws, numpy_tree
@@ -314,12 +320,6 @@ def test_id_past_its_table_stops_on_the_host(runs, tmp_path):
         nar_trainer_adressa.check_sessions_fit([session], schema, "hour 7")
 
 
-NOT_PORTED = {
-    nar_trainer_adressa: {
-        "--data_parallelism": (["--data_parallelism", "2"], "multi-GPU"),
-        "--model_parallelism": (["--model_parallelism", "2"], "multi-GPU"),
-    },
-}
 MISSING = {
     nar_trainer_adressa: ["--train_set_path_regex", "/nonexistent/s_*.tfrecord.gz",
                           "--acr_module_resources_path", "/nonexistent/ace.pkl",
@@ -328,7 +328,9 @@ MISSING = {
                           "--input_word_vocab_embeddings_path", "/nonexistent/v.pkl",
                           "--input_label_encoders_path", "/nonexistent/l.pkl"],
 }
-CASES = [(cli, flag) for cli, flags in NOT_PORTED.items() for flag in sorted(flags)]
+# each mesh flag of the NAR trainer at 2, and the layout it asks for (data, model)
+MESH_FLAGS = {"--data_parallelism": (2, 1), "--model_parallelism": (None, 2)}
+CASES = [(nar_trainer_adressa, flag) for flag in sorted(MESH_FLAGS)]
 
 
 def _out_args(cli, tmp_path):
@@ -339,14 +341,23 @@ def _out_args(cli, tmp_path):
 
 @pytest.mark.parametrize("cli,flag", CASES,
                          ids=[f"{c.__name__.rsplit('.', 1)[1]}{f}" for c, f in CASES])
-def test_not_ported_flag_exits_before_reading(cli, flag, capsys, tmp_path):
-    extra, slice_name = NOT_PORTED[cli][flag]
-    with pytest.raises(SystemExit) as exit_info:
-        cli.main(MISSING[cli] + _out_args(cli, tmp_path) + ["--platform", "cpu"] + extra)
-    assert exit_info.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and slice_name in err and "not ported" in err
-    assert not (tmp_path / "m").exists()
+def test_not_ported_flag_exits_before_reading(cli, flag, runs, tmp_path):
+    """A mesh flag: over a world of one a layout of two devices exits with
+    the JAX CLI's ``make_mesh`` message before any file is read; under a
+    2-rank gloo world, as under ``torchrun``, the run goes through."""
+    dp, mp = MESH_FLAGS[flag]
+    with pytest.raises(ValueError) as jax_error:
+        jax_make_mesh(data_parallelism=dp, model_parallelism=mp, devices=jax.devices()[:1])
+    with pytest.raises(SystemExit, match=re.escape(str(jax_error.value))):
+        cli.main(MISSING[cli] + _out_args(cli, tmp_path) + ["--platform", "cpu", flag, "2"])
+    assert not (tmp_path / "m").exists() and not dist.is_initialized()
+    run_world(cli_rank, 2, cli.__name__,
+              nar_argv(runs / "port", runs / "jax", model=str(tmp_path / "two")) + [flag, "2"],
+              None)
+    rows = list(csv.DictReader(open(tmp_path / "two" / "eval_stats_benchmarks.csv")))
+    assert len(rows) == 2
+    for row in rows:
+        assert row["hitrate_at_n"] == row["hitrate_at_n_chameleon"]
 
 
 @pytest.mark.parametrize("cli", [nar_trainer_adressa, acr_trainer_adressa],

@@ -22,14 +22,24 @@ same CSV columns in the same order, the same rows and ``eval_hour`` /
 ``eval_day``, every baseline column bit-equal, the negative-sample logs
 equal, the CHAMELEON columns within ``test_torch_temporal.py``'s
 tolerances (1e-6, widened by one label's share per near tie ranked the
-other way).  Each flag of a feature not ported yet exits before any file is
-read, and so does a run that asks for the card where there is none.
+other way).  Each mesh flag: a layout that is not the world's size exits
+with the JAX CLI's message before any file is read, and the run goes
+through on a 2-rank gloo world; at ``--data_parallelism 2`` that run's
+eval CSV against the JAX CLI's over a 2-device mesh.  A run that asks for
+the card where there is none exits before reading.
 """
 import csv
 import gzip
 import json
+import pickle
+import re
+import subprocess
+import sys
 import types
 from pathlib import Path
+
+import jax
+import torch.distributed as dist
 
 import numpy as np
 import pytest
@@ -40,6 +50,7 @@ from chameleon_recsys_tpu.cli import nar_preprocess_gcom as jax_preprocess
 from chameleon_recsys_tpu.cli import nar_trainer_gcom as jax_trainer
 from chameleon_recsys_tpu.data.collate import collate_sessions as jax_collate
 from chameleon_recsys_tpu.data.sessions import read_sessions_tfrecord as jax_read_sessions
+from chameleon_recsys_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from chameleon_recsys_tpu.state.stream_state import (
     update_stream_state as jax_update_stream_state,
 )
@@ -48,8 +59,19 @@ from chameleon_recsys_tpu.train.steps import _batch_all_clicks as jax_batch_all_
 from chameleon_recsys_tpu_torch.cli import make_pseudo_g1, nar_preprocess_gcom
 from chameleon_recsys_tpu_torch.cli import nar_trainer_gcom
 from chameleon_recsys_tpu_torch.convert import params_from_flax, stream_from_numpy
+from chameleon_recsys_tpu_torch.data.tfrecord import read_tfrecord_file
 
-from test_torch_temporal import BASELINES, _near_tie_swaps, jax_draws, numpy_tree
+from _torch_parallel_worker import cli_rank, run_world
+from test_torch_temporal import (
+    BASELINES,
+    _near_tie_swaps,
+    jax_draws,
+    jax_eval_uniforms,
+    numpy_tree,
+)
+from test_torch_train_step import jax_train_uniforms
+
+HERE = Path(__file__).resolve().parent
 
 BUNDLE = ["--hours", "6", "--num_articles", "300", "--mean_sessions_per_hour", "100",
           "--ace_dim", "8", "--seed", "5", "--regime", "mixed"]
@@ -225,29 +247,85 @@ def test_negative_samples_equal_jax(runs):
     assert port_log == read_json_lines(model_dir(runs, "jax") / name) and port_log
 
 
-NOT_PORTED = {
-    "--data_parallelism": (["--data_parallelism", "2"], "multi-GPU"),
-    "--model_parallelism": (["--model_parallelism", "2"], "multi-GPU"),
-}
 MISSING = ["--train_set_path_regex", "/nonexistent/sessions_*.tfrecord.gz",
            "--acr_module_articles_metadata_csv_path", "/nonexistent/meta.csv",
            "--acr_module_articles_content_embeddings_pickle_path", "/nonexistent/ace.pkl"]
+# each mesh flag at 2, and the layout it asks for (data, model)
+MESH_FLAGS = {"--data_parallelism": (2, 1), "--model_parallelism": (None, 2)}
 
 
-@pytest.mark.parametrize("flag", sorted(NOT_PORTED))
-def test_not_ported_flag_exits_before_reading(flag, capsys, tmp_path):
-    extra, slice_name = NOT_PORTED[flag]
-    with pytest.raises(SystemExit) as exit_info:
+def port_argv(root: Path, out: Path, side="port"):
+    """The trainer's flags over ``root / side``'s session files, writing
+    into ``out``."""
+    return [
+        "--train_set_path_regex", str(root / side / "sessions" / "sessions_hour_*.tfrecord.gz"),
+        "--acr_module_articles_metadata_csv_path",
+        str(root / side / "bundle" / "articles_metadata.csv"),
+        "--acr_module_articles_content_embeddings_pickle_path",
+        str(root / side / "bundle" / "articles_embeddings.pickle"),
+        "--model_dir", str(out / "model"), "--artifact_store_root", str(out / "store"),
+    ] + TRAINER
+
+
+@pytest.mark.parametrize("flag", sorted(MESH_FLAGS))
+def test_not_ported_flag_exits_before_reading(flag, runs, tmp_path):
+    """A mesh flag: over a world of one a layout of two devices exits with
+    the JAX CLI's ``make_mesh`` message before any file is read (and leaves
+    the process group it made); under a 2-rank gloo world, as under
+    ``torchrun``, the run goes through."""
+    dp, mp = MESH_FLAGS[flag]
+    with pytest.raises(ValueError) as jax_error:
+        jax_make_mesh(data_parallelism=dp, model_parallelism=mp, devices=jax.devices()[:1])
+    with pytest.raises(SystemExit, match=re.escape(str(jax_error.value))):
         nar_trainer_gcom.main(MISSING + ["--model_dir", str(tmp_path / "m"),
-                                         "--platform", "cpu"] + extra)
-    assert exit_info.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and slice_name in err and "not ported" in err
-    assert not (tmp_path / "m").exists()
-    # the flag's default value and a value the port runs pass the check
+                                         "--platform", "cpu", flag, "2"])
+    assert not (tmp_path / "m").exists() and not dist.is_initialized()
+    # the flag's default value passes, with the other flags
     args = nar_trainer_gcom.parse_args(MISSING + ["--model_parallelism", "1",
                                                   "--dropout_keep_prob", "0.8"])
     assert args.dropout_keep_prob == 0.8 and args.data_parallelism == 0
+    run_world(cli_rank, 2, nar_trainer_gcom.__name__,
+              port_argv(runs, tmp_path / "two") + [flag, "2"], None)
+    _, rows = read_csv(tmp_path / "two" / "model" / "eval_stats_benchmarks.csv")
+    assert len(rows) == 2
+    for row in rows:
+        assert row["hitrate_at_n"] == row["hitrate_at_n_chameleon"]
+
+
+def test_data_parallel_cli_matches_jax(runs, tmp_path):
+    """``--data_parallelism 2``: the port's CLI on a 2-rank gloo world
+    against the JAX CLI on a 2-device mesh (``tests/_jax_cli_mesh.py``, in
+    a process of its own), on the same session files, from the JAX run's
+    weights and warm stream, with its draws (every step's, at the global
+    batch's shape, from its key chain) injected: the same artifact files
+    and the eval CSV as ``test_eval_csv_matches_jax`` holds it."""
+    jax_out, port_out = tmp_path / "jax", tmp_path / "port"
+    subprocess.run(
+        [sys.executable, str(HERE / "_jax_cli_mesh.py"), "2", warm_file(runs / "jax"),
+         str(tmp_path / "start.pkl")] + port_argv(runs, jax_out, side="jax")
+        + ["--data_parallelism", "2"],
+        check=True, cwd=str(HERE.parent), timeout=300)
+    start = pickle.loads((tmp_path / "start.pkl").read_bytes())
+    cfg, b = start["cfg"], start["cfg"].batch_size
+    files = sorted((runs / "port" / "sessions").glob("sessions_hour_*.tfrecord.gz"))[1:6]
+    steps = [-(-sum(1 for _ in read_tfrecord_file(f)) // b) for f in files]
+    rng, uniforms = start["rng"], []
+    for kind, hour in (("train", 0), ("train", 1), ("eval", 2), ("train", 2), ("train", 3),
+                       ("eval", 4), ("train", 4)):
+        for _ in range(steps[hour]):
+            if kind == "train":
+                u, rng = jax_train_uniforms(cfg, rng, None, b, cfg.max_session_length,
+                                            cfg.recent_clicks_buffer_max_size)
+            else:
+                u, rng = jax_eval_uniforms(cfg, rng, b, cfg.recent_clicks_buffer_max_size)
+            uniforms.append(tuple(x.numpy() for x in u))
+    run_world(cli_rank, 2, nar_trainer_gcom.__name__,
+              port_argv(runs, port_out) + ["--data_parallelism", "2"],
+              {"params": start["params"], "stream": start["stream"], "uniforms": uniforms})
+    for sub in ("model", "store/run"):
+        assert sorted(p.name for p in (port_out / sub).iterdir()) == sorted(
+            p.name for p in (jax_out / sub).iterdir()), sub
+    assert_eval_csv_matches(port_out / "model", jax_out / "model")
 
 
 def test_card_asked_without_a_card_exits(monkeypatch, tmp_path):

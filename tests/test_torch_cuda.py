@@ -1224,3 +1224,45 @@ def test_device_time_helpers_on_card(card, tmp_path):
     totals = profiling.device_op_totals(str(tmp_path))
     assert len(totals) >= 2 and all(ms > 0 for ms in totals.values())
     assert len(profiling.device_op_durations_by_track(str(tmp_path))) == 1
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU on one card: the collectives the sharded steps use, and the
+# sharded step at 1 x 1 over NCCL against the plain step
+# ---------------------------------------------------------------------------
+
+
+def test_gloo_collectives_take_cuda_tensors_two_ranks_on_one_card(card):
+    from _torch_parallel_worker import card_collectives_rank, run_world
+
+    ranks = run_world(card_collectives_rank, 2)
+    for rank in ranks:
+        assert rank["on_card"]
+        np.testing.assert_array_equal(rank["sum"], np.full(5, 3.0))
+        np.testing.assert_array_equal(np.stack(rank["gathered"]),
+                                      [[0, 1, 2], [10, 11, 12]])
+
+
+def test_sharded_step_at_1x1_over_nccl_is_the_plain_step(card):
+    """One rank over NCCL: the sharded eval step's metrics, fetches and
+    stream and the sharded train step's metrics and stream bit-equal to the
+    plain steps' on the same weights and uniforms, with the same kernel
+    launches (eval K1f 1, K2f 2; train K1fs 1, K1b 1, K2f 2, K2b 2); the
+    gradients within f32 noise (the embeddings' backward adds with float
+    atomics on the card, ROADMAP section 3.3)."""
+    from _torch_parallel_worker import card_step_rank, run_world
+
+    cfg, sess, art = _tiny_eval_world()
+    cfg = dataclasses.replace(cfg, train_valid_row_capacity=48, negative_samples=5,
+                              negative_sample_from_buffer=30)
+    [out] = run_world(card_step_rank, 1, cfg, sess, art, backend="nccl")
+    assert out["backend"] == "nccl"
+    plain, sharded = out["plain"], out["sharded"]
+    # [K1f, K1fs, K1b, K2f, K2b] per eval step, then per train step
+    assert plain["launches"] == sharded["launches"] == [[1, 0, 0, 2, 0], [0, 1, 1, 2, 2]]
+    for key in ("eval_metrics", "fetches", "eval_stream", "metrics", "stream"):
+        assert plain[key].keys() == sharded[key].keys(), key
+        for name, value in plain[key].items():
+            np.testing.assert_array_equal(sharded[key][name], value, err_msg=f"{key} {name}")
+    for name, g in plain["grads"].items():
+        assert np.linalg.norm(sharded["grads"][name] - g) <= 1e-5 * np.linalg.norm(g) + 1e-7, name

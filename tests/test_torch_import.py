@@ -69,6 +69,11 @@ import chameleon_recsys_tpu_torch.native
 import chameleon_recsys_tpu_torch.native.build
 import chameleon_recsys_tpu_torch.native.loader
 import chameleon_recsys_tpu_torch.native.sknn
+import chameleon_recsys_tpu_torch.parallel
+import chameleon_recsys_tpu_torch.parallel.mesh
+import chameleon_recsys_tpu_torch.parallel.distributed
+import chameleon_recsys_tpu_torch.parallel.sharded
+import chameleon_recsys_tpu_torch.parallel.dryrun
 # the native libraries: built from the port's own sources and loaded
 assert chameleon_recsys_tpu_torch.native.sknn.native_available()
 assert chameleon_recsys_tpu_torch.native.loader.native_available()

@@ -299,24 +299,41 @@ def test_hypertuning_cli_matches_jax(sweep_inputs):
         assert [r["trial_id"] for r in port_file] == [r["trial_id"] for r in jax_results]
 
 
-def test_hypertuning_cli_refuses_as_the_trainer(sweep_inputs, capsys, monkeypatch):
+def test_hypertuning_cli_refuses_as_the_trainer(sweep_inputs, monkeypatch):
+    """As the JAX sweep, the port's takes ``--data_parallelism`` and
+    ``--model_parallelism`` and ignores them (its trials run on one device,
+    on no mesh): a sweep with them writes the trial results of the same
+    sweep without them.  Without a card and ``--platform cpu`` it exits
+    before reading; ``--use_native_loader`` is accepted (and ignored)."""
     root = sweep_inputs
+    argv = ["--train_set_path_regex", str(root / "sessions" / "sessions_hour_*.tfrecord.gz"),
+            "--acr_module_articles_metadata_csv_path", str(root / "articles_metadata.csv"),
+            "--acr_module_articles_content_embeddings_pickle_path",
+            str(root / "articles_embeddings.pickle"), "--max_trials", "1",
+            "--param_grid", json.dumps({"rnn_units": [8]})] + HYPER
+    runs = {}
+    for name, extra in (("one", []), ("mesh_flags", ["--data_parallelism", "2",
+                                                     "--model_parallelism", "2"])):
+        nar_hypertuning_gcom.main(argv + ["--model_dir", str(root / name)] + extra)
+        rows = json.loads((root / name / "sweep_results.json").read_text())
+        for row in rows:  # wall-clock throughput differs between the runs
+            for key in [k for k in row["metrics"] if k.startswith("train_")
+                        and k != "train_steps"]:
+                row["metrics"].pop(key)
+        runs[name] = rows
+    assert runs["mesh_flags"] == runs["one"] and len(runs["one"]) == 1
+    assert runs["one"][0]["metrics"]["clicks_count"] > 0
     base = ["--train_set_path_regex", "/nonexistent/s_*.tfrecord.gz",
             "--acr_module_articles_metadata_csv_path", "/nonexistent/m.csv",
             "--acr_module_articles_content_embeddings_pickle_path", "/nonexistent/a.pkl",
             "--model_dir", str(root / "refused")]
-    with pytest.raises(SystemExit) as exit_info:
-        nar_hypertuning_gcom.main(base + ["--data_parallelism", "2", "--platform", "cpu"])
-    assert exit_info.value.code == 2 and "not ported" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--platform cpu"):
-        nar_hypertuning_gcom.main(base)
+        nar_hypertuning_gcom.main(base + ["--data_parallelism", "2"])
     assert not (root / "refused").exists()
-    # as in the JAX CLI, --use_native_loader is accepted (and ignored)
-    args = nar_hypertuning_gcom.refuse_not_ported(
-        nar_hypertuning_gcom.create_sweep_parser(), nar_hypertuning_gcom._NOT_PORTED,
+    args = nar_hypertuning_gcom.create_sweep_parser().parse_args(
         base + ["--max_trials", "4", "--max_parallel", "2", "--dropout_keep_prob", "0.8",
-                "--use_native_loader"])
+                "--use_native_loader", "--data_parallelism", "2"])
     assert (args.max_trials, args.max_parallel, args.dropout_keep_prob) == (4, 2, 0.8)
-    assert args.use_native_loader
+    assert args.use_native_loader and args.data_parallelism == 2
     assert nar_hypertuning_gcom.DEFAULT_GRID == jax_hyper.DEFAULT_GRID

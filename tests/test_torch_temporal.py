@@ -53,6 +53,7 @@ from chameleon_recsys_tpu.cli.nar_trainer_gcom import (
 )
 from chameleon_recsys_tpu.config import RunConfig as JaxRunConfig
 from chameleon_recsys_tpu.data.collate import collate_sessions as jax_collate
+from chameleon_recsys_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from chameleon_recsys_tpu.data.synthetic import (
     make_synthetic_corpus,
     synthetic_hour_sessions,
@@ -82,6 +83,7 @@ from chameleon_recsys_tpu_torch.convert import (
 )
 from chameleon_recsys_tpu_torch.data import synthetic as port_synthetic
 from chameleon_recsys_tpu_torch.ops.sampling import SamplerUniforms
+from chameleon_recsys_tpu_torch.parallel.mesh import MeshPlan
 from chameleon_recsys_tpu_torch.train import steps, temporal
 from chameleon_recsys_tpu_torch.train.temporal import BenchmarkSpec, TemporalHarness
 from chameleon_recsys_tpu_torch.utils.io import deserialize, serialize
@@ -528,10 +530,17 @@ def test_from_checkpoint_serves_as_the_live_server(world, tmp_path):
 
 
 def test_harness_raises_on_what_is_not_ported(world):
-    """Only ``mesh_plan`` is still refused; the tooling and every baseline
-    of this package are taken, and a baseline of the JAX package is not."""
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_harness(world, "raises", mesh_plan=object())
+    """A mesh whose data parallelism does not divide the batch raises JAX's
+    ``ValueError``; the tooling and every baseline of this package are
+    taken, and a baseline of the JAX package is not."""
+    dp = 3
+    assert world.cfg.batch_size % dp
+    with pytest.raises(ValueError) as jax_error:
+        jax_harness(world, mesh_plan=jax_make_mesh(dp, 1, devices=jax.devices()[:dp]))
+    plan = MeshPlan(dp, 0, dp, 1, None, None, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError) as port_error:
+        port_harness(world, "raises", mesh_plan=plan)
+    assert str(port_error.value) == str(jax_error.value)
     with pytest.raises(TypeError, match="BenchmarkRecommender"):
         port_harness(world, "raises",
                      benchmarks=[BenchmarkSpec(JaxRecentlyPopular, {})])
