@@ -28,7 +28,9 @@ the G1 ACR chain with the denoising autoencoder (``cli.acr_preprocess_gcom``,
 (``cli.run_gru4rec``, ``cli.run_sr_gnn``), the native host code
 (``native``: the session-kNN's C++ predictor and the C++ session loader,
 built with ``g++`` at first use), grouped train compaction and ACR in
-bfloat16, with the UGRNN forward
+bfloat16, multi-GPU training (``parallel``), the quality example on the
+learnable synthetic streams (``cli.train_nar_synthetic``) and the harness's
+directory checkpoint (``save_checkpoint_dcp``), with the UGRNN forward
 and backward (``ops/kernels/ugrnn.py``) and the fused candidate scorer's
 forward, stash forward, stash backward and recompute backward
 (``ops/kernels/cand_scorer.py``) as CUDA kernels.

@@ -12,6 +12,7 @@ path's negatives through the hand-written CUDA kernels
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -63,6 +64,12 @@ class SessionFeaturesSchema:
         return tuple(
             f for f in self.sequence if f.name not in SESSION_REQ_SEQ_FEATURES
         )
+
+    def by_name(self, name: str) -> FeatureSpec:
+        for f in self.single + self.sequence:
+            if f.name == name:
+                return f
+        raise KeyError(name)
 
 
 @dataclass(frozen=True)
@@ -260,6 +267,11 @@ class ExperimentConfig:
     mesh: MeshConfig = MeshConfig()
     session_schema: SessionFeaturesSchema = SessionFeaturesSchema()
     article_schema: ArticleFeaturesSchema = ArticleFeaturesSchema()
+
+
+def replace(cfg, **kwargs):
+    """dataclasses.replace passthrough for ergonomic config overrides."""
+    return dataclasses.replace(cfg, **kwargs)
 
 
 def _parse_groups(enabled) -> Optional[set]:

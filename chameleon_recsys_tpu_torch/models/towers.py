@@ -7,7 +7,7 @@ channel axis.  All channels concatenate on the last axis.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -18,6 +18,23 @@ from ..config import FeatureSpec, embedding_dim_for_cardinality
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` with ids clamped into range, as XLA clamps a gather."""
     return table[ids.long().clamp(0, table.shape[0] - 1)]
+
+
+def towers_output_dim(
+    features: Tuple[FeatureSpec, ...], max_cardinality_for_ohe: int = 10,
+    const_mult: int = 8,
+) -> int:
+    """The width of ``FeatureTowers``' output for ``features``."""
+    dim = 0
+    for spec in features:
+        if spec.kind == "categorical":
+            if spec.cardinality <= max_cardinality_for_ohe:
+                dim += spec.cardinality
+            else:
+                dim += embedding_dim_for_cardinality(spec.cardinality, const_mult)
+        else:
+            dim += 1
+    return dim
 
 
 class FeatureTowers(nn.Module):
@@ -34,18 +51,12 @@ class FeatureTowers(nn.Module):
         self.max_cardinality_for_ohe = max_cardinality_for_ohe
         self.dtype = dtype
         self.embeddings = nn.ModuleDict()
-        self.output_dim = 0
+        self.output_dim = towers_output_dim(self.features, max_cardinality_for_ohe)
         for spec in self.features:
-            if spec.kind != "categorical":
-                self.output_dim += 1
-            elif spec.cardinality <= max_cardinality_for_ohe:
-                self.output_dim += spec.cardinality
-            else:
-                dim = embedding_dim_for_cardinality(spec.cardinality)
+            if spec.kind == "categorical" and spec.cardinality > max_cardinality_for_ohe:
                 self.embeddings[f"{spec.name}_embedding"] = nn.Embedding(
-                    spec.cardinality, dim
+                    spec.cardinality, embedding_dim_for_cardinality(spec.cardinality)
                 )
-                self.output_dim += dim
 
     def forward(self, inputs: Dict[str, torch.Tensor],
                 lookup: Callable = gather_rows) -> torch.Tensor:

@@ -125,7 +125,8 @@ def initialize_multihost(
 
 
 def make_pod_mesh(model_parallelism: int = 1, device=None) -> MeshPlan:
-    """The (data x model) mesh over every rank of the world."""
+    """The (data x model) mesh over every rank of the world; ``device`` as
+    ``make_mesh`` takes it (without one and without a card it raises)."""
     return make_mesh(
         data_parallelism=dist.get_world_size() // model_parallelism,
         model_parallelism=model_parallelism,

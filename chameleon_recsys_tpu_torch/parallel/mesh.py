@@ -57,10 +57,11 @@ class MeshPlan(NamedTuple):
 
 
 def default_device() -> torch.device:
-    """``cuda:LOCAL_RANK`` (modulo the cards present) where there is a card,
-    else the CPU."""
+    """``cuda:LOCAL_RANK`` (modulo the cards present).  Raises where there is
+    no card: the CPU is taken only when asked for (``device="cpu"``)."""
     if not torch.cuda.is_available():
-        return torch.device("cpu")
+        raise RuntimeError('no CUDA device: pass device="cpu" to lay the mesh '
+                           "out on the CPU")
     local = int(os.environ.get("LOCAL_RANK", "0"))
     return torch.device("cuda", local % torch.cuda.device_count())
 
@@ -71,7 +72,9 @@ def make_mesh(
     device=None,
 ) -> MeshPlan:
     """The plan of this rank over the initialised process group (every rank
-    calls it: it creates the data and model subgroups, collectively)."""
+    calls it: it creates the data and model subgroups, collectively).
+    ``device``: the rank's device; by default its card (``default_device``),
+    and without a card it raises."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(parallel.distributed.initialize_multihost)")
@@ -83,6 +86,7 @@ def make_mesh(
             f"{data_parallelism}x{model_parallelism} mesh needs "
             f"{data_parallelism * model_parallelism} devices, got {n}"
         )
+    device = torch.device(device) if device is not None else default_device()
     rank, dp, mp = dist.get_rank(), data_parallelism, model_parallelism
     data_group = model_group = None
     # every rank creates every group, in the same order
@@ -94,8 +98,7 @@ def make_mesh(
         group = dist.new_group([d * mp + m for m in range(mp)])
         if rank // mp == d:
             model_group = group
-    return MeshPlan(n, rank, dp, mp, data_group, model_group,
-                    torch.device(device) if device is not None else default_device(),
+    return MeshPlan(n, rank, dp, mp, data_group, model_group, device,
                     dist.get_backend())
 
 

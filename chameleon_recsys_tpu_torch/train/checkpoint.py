@@ -24,15 +24,31 @@ checkpoint.  Under a mesh (``parallel/sharded.py``) the row shards of the
 parameters and their Adam moments are gathered into the whole tensors on
 save, and each rank keeps its rows on load: a checkpoint written at one
 (data x model) layout loads at any other.
+
+The directory backend (``save_train_state_dcp`` / ``load_train_state_dcp``,
+the harness's ``save_checkpoint_dcp``) writes the same train state with
+``torch.distributed.checkpoint`` (DCP) instead: every rank writes what it
+holds, the row shards of a sharded table as a ``DTensor`` over the model
+group (so DCP records each shard's row offset and keeps it apart from the
+other ranks'), a replicated tensor once.  On load each rank reads the rows
+of its live layout, from whatever layout wrote them.  Its keys:
+``model.<parameter>``, ``adam.<parameter>.{step,exp_avg,exp_avg_sq}``
+(after a first step), ``stream.<field>``, ``generator.<device type>`` and
+``step``.
 """
 from __future__ import annotations
 
+import contextlib
+import shutil
+import warnings
+from pathlib import Path
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from ..convert import stream_from_numpy
+from ..state.stream_state import StreamState
 from .steps import TrainState
 
 FORMAT = "chameleon_recsys_tpu_torch/checkpoint-1"
@@ -120,6 +136,116 @@ def unpack_train_state(payload: Mapping, state: TrainState, programs=None) -> Tr
         state.generator.manual_seed(state.generator.initial_seed())
     return state._replace(stream=stream_from_numpy(payload["stream"], device=device),
                           step=int(payload["step"]))
+
+
+def _dcp_layout(state: TrainState, programs=None):
+    """``(wrap, local)``: ``wrap(name, tensor)`` gives DCP the rank's
+    ``tensor`` of the parameter ``name`` (or of its Adam moments), the row
+    shard of a sharded one as a ``DTensor`` at its global shape;
+    ``local(value)`` undoes it."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    sharding = {} if programs is None else {
+        name: spec for name, spec in programs.state_sharding.items() if spec is not None}
+    mesh = None
+    if sharding:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        mesh = DeviceMesh.from_group(programs.plan.model_group, programs.plan.device.type)
+
+    def wrap(name, tensor):
+        spec = sharding.get(name)
+        if spec is None or tensor.ndim == 0:
+            return tensor
+        shape = list(tensor.shape)
+        shape[spec.dim] = spec.rows.rows
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(tensor, mesh, [Shard(spec.dim)], run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
+
+    def local(value):
+        return value.to_local() if isinstance(value, DTensor) else value
+
+    return wrap, local
+
+
+@contextlib.contextmanager
+def _single_process_quiet():
+    """DCP warns on every call without a process group that it assumes one
+    process, which ``no_dist`` says already."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        yield
+
+
+def save_train_state_dcp(path, state: TrainState, programs=None) -> None:
+    """Write ``state`` as a DCP checkpoint directory ``path`` (replacing
+    one there); under a mesh (``programs``) every rank calls it and writes
+    its own rows of the sharded tables."""
+    import torch.distributed.checkpoint as dcp
+
+    path = Path(path)
+    if programs is None or programs.plan.rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    if programs is not None:
+        from ..parallel.distributed import barrier
+
+        barrier(programs.plan)  # no rank writes before the old files are gone
+    wrap, _ = _dcp_layout(state, programs)
+    tensors = {f"model.{n}": wrap(n, t) for n, t in state.model.state_dict().items()}
+    for name, p in state.model.named_parameters():
+        tensors.update({f"adam.{name}.{k}": wrap(name, v)
+                        for k, v in state.optimizer.state.get(p, {}).items()})
+    tensors.update({f"stream.{k}": v for k, v in state.stream._asdict().items()})
+    tensors[f"generator.{state.generator.device.type}"] = state.generator.get_state()
+    tensors["step"] = torch.tensor(int(state.step))
+    with _single_process_quiet():
+        dcp.save(tensors, checkpoint_id=str(path), no_dist=programs is None)
+
+
+def load_train_state_dcp(path, state: TrainState, programs=None) -> TrainState:
+    """Load the DCP checkpoint directory ``path`` into ``state``'s model
+    and optimizer (in place, on their device; each rank its rows of the
+    live layout) and return the train state with its stream, generator
+    state and step.  A generator state saved on the other device type is
+    not loaded: the generator is re-seeded with its initial seed, as
+    ``unpack_train_state`` does."""
+    import torch.distributed.checkpoint as dcp
+
+    path = str(path)
+    saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    wrap, local = _dcp_layout(state, programs)
+    params = state.model.state_dict()
+    dest = {f"model.{n}": wrap(n, torch.empty_like(t)) for n, t in params.items()}
+    for name, t in params.items():
+        key = f"adam.{name}"
+        if f"{key}.step" in saved:
+            dest[f"{key}.step"] = torch.zeros((), dtype=saved[f"{key}.step"].properties.dtype)
+            for k in ("exp_avg", "exp_avg_sq"):
+                dest[f"{key}.{k}"] = wrap(name, torch.zeros_like(t))
+    dest.update({f"stream.{k}": torch.empty_like(v)
+                 for k, v in state.stream._asdict().items()})
+    generator = f"generator.{state.generator.device.type}"
+    if generator in saved:
+        dest[generator] = torch.empty_like(state.generator.get_state())
+    dest["step"] = torch.zeros((), dtype=torch.int64)
+    with _single_process_quiet():
+        dcp.load(dest, checkpoint_id=path, no_dist=programs is None)
+
+    state.model.load_state_dict({n: local(dest[f"model.{n}"]) for n in params}, strict=True)
+    names = [name for name, _ in state.model.named_parameters()]
+    state.optimizer.load_state_dict({
+        "state": {index: {k: local(dest[f"adam.{name}.{k}"])
+                          for k in ("step", "exp_avg", "exp_avg_sq")}
+                  for index, name in enumerate(names) if f"adam.{name}.step" in dest},
+        "param_groups": state.optimizer.state_dict()["param_groups"],
+    })
+    if generator in dest:
+        state.generator.set_state(dest[generator])
+    else:
+        state.generator.manual_seed(state.generator.initial_seed())
+    stream = StreamState(**{k: dest[f"stream.{k}"] for k in StreamState._fields})
+    return state._replace(stream=stream, step=int(dest["step"]))
 
 
 def _check_format(payload: Mapping) -> None:

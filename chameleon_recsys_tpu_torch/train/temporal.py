@@ -14,9 +14,10 @@ as this module's names at call time.  It runs on ``cuda`` unless given
 ``device="cpu"``.  Beside CHAMELEON it runs any of this package's classical
 baselines (``baselines/``), uploads ``model_dir`` to an artifact store on
 every export (``utils/artifact_store.py``) and writes the per-step scalars
-and per-hour parameter histograms (``utils/summary.py``).  The JAX
-harness's orbax checkpoints have no counterpart: this package's pickle is
-its one format.
+and per-hour parameter histograms (``utils/summary.py``).  Beside the
+pickle (``save_checkpoint``, the default) it writes the JAX harness's
+directory checkpoint (orbax there) through ``torch.distributed.checkpoint``
+(``save_checkpoint_dcp`` / ``load_checkpoint_dcp``).
 
 Multi-GPU (``mesh_plan``, ``parallel/``): one harness per rank.  Every rank
 collates the same global batches of ``batch_size`` sessions and steps on
@@ -31,7 +32,8 @@ with its eval fetches' rows to rank 0 (``_rank_blocks``), which scores the
 whole batch as one device does: the metric suite, the cold-start tracking
 and the eval logs.  So the eval row is the one-device row (a stochastic
 baseline draws per rank).  Rank 0 alone writes ``model_dir``, the store and
-the checkpoint (gathered from every rank's rows).
+the pickle checkpoint (gathered from every rank's rows); in the directory
+checkpoint every rank writes its own rows.
 """
 from __future__ import annotations
 
@@ -69,7 +71,12 @@ from ..utils.io import (
 )
 from ..utils.profiling import ThroughputMeter
 from ..utils.summary import HistogramWriter, ScalarWriter
-from .checkpoint import pack_train_state, unpack_train_state
+from .checkpoint import (
+    load_train_state_dcp,
+    pack_train_state,
+    save_train_state_dcp,
+    unpack_train_state,
+)
 from .steps import TrainState, eval_step, init_train_state, train_step
 
 log = logging.getLogger("chameleon_recsys_tpu_torch.temporal")
@@ -786,14 +793,10 @@ class TemporalHarness:
 
     # ------------------------------------------------------------------
     # checkpoint/resume: the full unit (train/checkpoint.py has the format)
-    def save_checkpoint(self, path=None):
-        self._ensure_initialized()
-        path = Path(path or Path(self.run_cfg.model_dir) / "checkpoint.pkl")
-        payload = pack_train_state(self.state, self._sharded)
-        if not self._primary:
-            barrier(self.mesh_plan)  # the file is written when this returns
-            return path
-        payload.update({
+    def _host_payload(self) -> Dict:
+        """The harness's own fields of a checkpoint, as the JAX harness names
+        them."""
+        return {
             "hours_trained": self.hours_trained,
             "evals_done": self.evals_done,
             "metrics_log": self.artifacts.eval_sessions_metrics_log,
@@ -801,7 +804,26 @@ class TemporalHarness:
             "host_first_click_step": self.host_state.items_first_click_step,
             "host_current_step": self.host_state.current_step,
             "host_benchmarks_states": self.host_state.benchmarks_states,
-        })
+        }
+
+    def _restore_host(self, payload) -> None:
+        self.hours_trained = payload["hours_trained"]
+        self.evals_done = payload["evals_done"]
+        self.artifacts.eval_sessions_metrics_log = payload["metrics_log"]
+        self.host_state.items_coocurrences = payload["host_cooccurrence"]
+        self.host_state.items_first_click_step = payload["host_first_click_step"]
+        self.host_state.current_step = payload["host_current_step"]
+        self.host_state.benchmarks_states = payload["host_benchmarks_states"]
+        self._refresh_state_view()
+
+    def save_checkpoint(self, path=None):
+        self._ensure_initialized()
+        path = Path(path or Path(self.run_cfg.model_dir) / "checkpoint.pkl")
+        payload = pack_train_state(self.state, self._sharded)
+        if not self._primary:
+            barrier(self.mesh_plan)  # the file is written when this returns
+            return path
+        payload.update(self._host_payload())
         serialize(path, payload)
         if self.mesh_plan is not None:
             barrier(self.mesh_plan)
@@ -814,11 +836,37 @@ class TemporalHarness:
         payload = deserialize(path)
         self._ensure_initialized()
         self.state = unpack_train_state(payload, self.state, self._sharded)
-        self.hours_trained = payload["hours_trained"]
-        self.evals_done = payload["evals_done"]
-        self.artifacts.eval_sessions_metrics_log = payload["metrics_log"]
-        self.host_state.items_coocurrences = payload["host_cooccurrence"]
-        self.host_state.items_first_click_step = payload["host_first_click_step"]
-        self.host_state.current_step = payload["host_current_step"]
-        self.host_state.benchmarks_states = payload["host_benchmarks_states"]
-        self._refresh_state_view()
+        self._restore_host(payload)
+
+    # -- the directory backend, the counterpart of the JAX harness's orbax
+    # one: the device state through torch.distributed.checkpoint, the host
+    # structures (scipy csr, dicts) in a pickle sidecar
+    def save_checkpoint_dcp(self, dir_path=None):
+        """The counterpart of the JAX harness's ``save_checkpoint_orbax``:
+        the train state (parameters, Adam, stream, generator, step) in
+        ``dir_path/device_state`` (``train/checkpoint.py::save_train_state_dcp``;
+        under a mesh every rank writes its own rows of the sharded tables,
+        nothing is gathered) and the harness's fields in
+        ``dir_path/host_state.pkl``.  Returns ``dir_path``."""
+        self._ensure_initialized()
+        dir_path = Path(dir_path or Path(self.run_cfg.model_dir) / "dcp_ckpt").absolute()
+        save_train_state_dcp(dir_path / "device_state", self.state, self._sharded)
+        if self._primary:
+            serialize(dir_path / "host_state.pkl", self._host_payload())
+        if self.mesh_plan is not None:
+            barrier(self.mesh_plan)  # the sidecar is written when this returns
+        return dir_path
+
+    def load_checkpoint_dcp(self, dir_path):
+        """Load a ``save_checkpoint_dcp`` directory.  As the JAX harness's
+        ``load_checkpoint_orbax``, it wants an initialised harness
+        (``init_state``): the live state is the template.  Under a mesh
+        each rank reads its rows of the live layout, whatever layout wrote
+        the directory."""
+        if self.state is None:
+            raise RuntimeError("initialize the harness (init_state) before restoring "
+                               "a DCP checkpoint")
+        dir_path = Path(dir_path).absolute()
+        self.state = load_train_state_dcp(dir_path / "device_state", self.state,
+                                          self._sharded)
+        self._restore_host(deserialize(dir_path / "host_state.pkl"))

@@ -21,7 +21,8 @@ the neural baselines through their CLIs (``cli.run_gru4rec``,
 ``cli.run_sr_gnn``), the native host code (the C++ session loader under
 ``--use_native_loader`` and the session-kNN's C++ predictor), the train
 step with grouped compaction, ACR in bf16, multi-GPU training through the
-sharded steps, and every hand-written kernel of those paths:
+sharded steps, the quality example on the learnable synthetic streams, and
+every hand-written kernel of those paths:
 
 1. builds each kernel from ``chameleon_recsys_tpu_torch/csrc`` (one ``nvcc``
    per source, started together; beside them, in a thread, the native
@@ -63,7 +64,10 @@ sharded steps, and every hand-written kernel of those paths:
    server on the live model, and trains and evaluates one more hour on
    both harnesses, then on two resumes with a planted fault (the sampler's
    generator re-seeded, Adam's state dropped) that the resume check must
-   catch;
+   catch; beside the pickle, the directory checkpoint
+   (``save_checkpoint_dcp``, ``torch.distributed.checkpoint``) at the same
+   point, its load bit-equal and its next hour against the pickle-resumed
+   one's;
 6. the G1 pipeline through its CLIs, on the card: a pseudo-G1 bundle at the
    published shape (46,033 articles, 250-wide ACEs, 2,600 sessions an hour
    on average, seed 7; 11 hourly files, on 4 processes), its session
@@ -210,10 +214,26 @@ sharded steps, and every hand-written kernel of those paths:
    over a 2 x 2 world of four ranks on the card (gloo): the harness with a
    ``MeshPlan`` through two train hours, the eval hour with the host tier
    on each data index, a checkpoint gathered, restored and replayed, its
-   kernel launches counted on every rank.  Run beside phase 13, on phase
-   6's files: phase 6's CLI with ``--data_parallelism 1``, a world of one
-   over NCCL through ``mesh_from_args``, its baseline columns bit-equal to
-   phase 6's.
+   kernel launches counted on every rank.  In the 1 x 2 world each rank
+   also writes its state through the directory checkpoint (its own rows of
+   the sharded tables, its own file; none holds the whole item table) and
+   resumes it, bit-equal, and the next step against the pickle-resumed
+   one's.  Run beside phase 13, on phase 6's files: phase 6's CLI with
+   ``--data_parallelism 1``, a world of one over NCCL through
+   ``mesh_from_args``, its baseline columns bit-equal to phase 6's;
+17. the quality example (``cli/train_nar_synthetic.py``) on the card at the
+   sizes RESULTS.md publishes: A (Markov stream, 800 items, 9 hours of 96
+   sessions), D (churning catalog, 1,500 items, 16 hours of 320 sessions,
+   top 3 of 51) and B (10,000 items, 24 hours of 768 sessions, CAR 1024,
+   UGRNN 255 x 2, 50 negatives) with both kernel flags on in float32,
+   counted (every one of K2f, K2b, K1f, K1fs and K1b launched); each
+   per-eval-hour table and ``train_sessions_per_s``; the quality checks
+   (A: CHAMELEON's HR@10 above popularity's at every eval; D: the last
+   HR@3 above co-occurrence's and SR's; B: the last HR@10 above the
+   first); the five kernels at B's shapes in float32 against their twins,
+   timed beside their bounds; A's hours 0-4 on the card and on its host's
+   CPU with the same weights and draws (baseline columns bit-equal,
+   CHAMELEON within ``SYNTHETIC_CPU_TOL``).
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 numbers before the last line, and as the last line
@@ -231,6 +251,7 @@ import json
 import math
 import re
 import shlex
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1119,6 +1140,30 @@ def checkpoint_phase(port, harness, source, make, corpus):
           f"{load_s:.3f} s")
     check((resumed.hours_trained, resumed.evals_done)
           == (harness.hours_trained, harness.evals_done), "checkpoint: cursors differ")
+    # the directory backend at the same point: written, loaded into an
+    # initialised harness, its parameters and Adam moments bit-equal
+    t0 = time.perf_counter()
+    directory = harness.save_checkpoint_dcp()
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    by_dcp = make()
+    by_dcp.init_state()
+    t0 = time.perf_counter()
+    by_dcp.load_checkpoint_dcp(directory)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in directory.rglob("*") if f.is_file())
+    same = [torch.equal(p, q) for p, q in zip(harness.state.model.parameters(),
+                                               by_dcp.state.model.parameters())]
+    same += [torch.equal(harness.state.optimizer.state[p][k], by_dcp.state.optimizer.state[q][k])
+             for p, q in zip(harness.state.model.parameters(), by_dcp.state.model.parameters())
+             for k in ("exp_avg", "exp_avg_sq")]
+    print(f"checkpoint (directory, torch.distributed.checkpoint): {size} bytes in "
+          f"{sum(1 for f in directory.rglob('*') if f.is_file())} files, save {save_s:.3f} s, "
+          f"load {load_s:.3f} s; parameters and Adam moments bit-equal {all(same)}")
+    check(all(same) and (by_dcp.hours_trained, by_dcp.evals_done)
+          == (harness.hours_trained, harness.evals_done),
+          "checkpoint (directory): the loaded state differs from the saved one")
 
     args = (harness.cfg, harness.session_schema, harness.article_schema)
     live = port.NARServer(*args, harness.state.model.state_dict(),
@@ -1144,11 +1189,14 @@ def checkpoint_phase(port, harness, source, make, corpus):
     original = next_hour(harness)
     params = [p.detach().clone() for p in harness.state.model.parameters()]
 
-    def readings(h, label):
-        """One more hour on ``h`` against the original harness's: the loss's
-        relative difference, HR's and MRR's, and the largest parameter
-        difference after the hour's training."""
-        (stats_a, row_a), (stats_b, row_b) = original, next_hour(h)
+    outcomes = {}
+
+    def readings(h, label, against=original):
+        """One more hour on ``h`` against the original harness's (or
+        ``against``): the loss's relative difference, HR's and MRR's, and
+        the largest parameter difference after the hour's training."""
+        (stats_a, row_a), (stats_b, row_b) = against, next_hour(h)
+        outcomes[label] = (stats_b, row_b)
         diffs = {
             "loss": abs(stats_a["avg_ce_loss"] - stats_b["avg_ce_loss"])
             / abs(stats_a["avg_ce_loss"]),
@@ -1169,6 +1217,12 @@ def checkpoint_phase(port, harness, source, make, corpus):
 
     sound = beyond(readings(resumed, "sound"))
     check(not sound, f"resume: the next hour differs beyond the tolerance in {sound}")
+    # the directory-resumed run against the pickle-resumed one (the
+    # parameter difference is still from the original's)
+    sound = beyond(readings(by_dcp, "sound, directory checkpoint", outcomes["sound"]))
+    check(not sound, f"resume (directory): the next hour differs from the pickle-resumed "
+                     f"run's beyond the tolerance in {sound}")
+    del by_dcp
     # planted faults: a resume that re-seeds the sampler's generator, and one
     # that starts Adam afresh; the tolerances must tell each from a sound one
     del resumed
@@ -2808,11 +2862,11 @@ MESH_NOISE_LEAF = 1e-3
 MESH_TIMEOUT = 300  # seconds a world may take, its processes' start included
 
 
-def mesh_rank(rank, dp, mp, backend, port_number, queue):
+def mesh_rank(rank, dp, mp, backend, port_number, workdir, queue):
     """(16) One rank of a phase-16 world; puts (rank, its results) on
     ``queue``, or (rank, the traceback)."""
     try:
-        queue.put((rank, _mesh_rank(rank, dp, mp, backend, port_number)))
+        queue.put((rank, _mesh_rank(rank, dp, mp, backend, port_number, workdir)))
     except BaseException:
         import traceback
 
@@ -2822,13 +2876,14 @@ def mesh_rank(rank, dp, mp, backend, port_number, queue):
             torch.distributed.destroy_process_group()
 
 
-def _mesh_rank(rank, dp, mp, backend, port_number):
+def _mesh_rank(rank, dp, mp, backend, port_number, workdir):
     """The sharded eval step from the initial weights, then
     ``MESH_TRAIN_STEPS`` sharded train steps, counted (kernels and
     collectives per step); the stream, the gathered Adam moments and a
-    digest of each of the rank's parameters; the ms a train step by CUDA
-    events; on rank 0 the one-device steps on the global batches and the
-    comparison with them."""
+    digest of each of the rank's parameters; with a model axis the state
+    through the directory checkpoint in ``workdir`` and the pickle payload
+    (``mesh_checkpoint``); the ms a train step by CUDA events; on rank 0 the
+    one-device steps on the global batches and the comparison with them."""
     import copy
     import hashlib
 
@@ -2911,6 +2966,15 @@ def _mesh_rank(rank, dp, mp, backend, port_number):
                for key in ("exp_avg", "exp_avg_sq")}
     out["digests"] = {n: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
                       for n, p in params.items()}
+    if mp > 1:
+        def fresh():
+            m = port.NARModel(cfg, sess, art, 250)
+            m.reset_parameters(torch.Generator().manual_seed(99))
+            shard = shard_nar_programs(plan, m.cuda(), corpus.ace_matrix)
+            return init_train_state(m, warm, torch.Generator(device="cuda").manual_seed(0)), shard
+
+        out["checkpoint"] = mesh_checkpoint(plan, state, programs, fresh, batches[0], ace,
+                                            metadata, f"{workdir}/dcp_{dp}x{mp}")
     holder = [state]
 
     def step():
@@ -3079,13 +3143,15 @@ def mesh_phase():
                       "cand_score_bwd_recompute": 0, **ugrnn_expected(2, 2)}
     totals = collections.Counter()
     ctx = mp.get_context("spawn")
+    workdir = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_")
     for name, dp, mpar, backend in MESH_WORLDS:
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
             port_number = sock.getsockname()[1]
         queue = ctx.Queue()
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=mesh_rank, args=(r, dp, mpar, backend, port_number, queue))
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, dp, mpar, backend, port_number, workdir, queue))
                  for r in range(dp * mpar)]
         for p in procs:
             p.start()
@@ -3172,8 +3238,112 @@ def mesh_phase():
             check("item_clicked_embedding.weight" in first["sharded"]
                   and first["ace_rows"] == [0, MESH_ITEMS // 2, MESH_ITEMS],
                   f"mesh {name}: the tables are not row-sharded")
+            report_mesh_checkpoint(name, results)
+    shutil.rmtree(workdir)
     totals.update(mesh_dryrun())
     return dict(totals)
+
+
+def mesh_checkpoint(plan, state, programs, fresh, batch, ace, metadata, path):
+    """(16) The rank's train state through the directory checkpoint (every
+    rank writes its rows) and through the pickle's payload (gathered, each
+    rank keeping its rows), each loaded into a fresh sharded state
+    (``fresh()``), which then takes one more train step on ``batch``: the
+    loaded parameters against the rank's, the two steps' losses and
+    parameters against each other; on rank 0 the directory's metadata:
+    each chunk of the item table with its rows and file, and each rank's
+    file size."""
+    from chameleon_recsys_tpu_torch.parallel.distributed import barrier
+    from chameleon_recsys_tpu_torch.parallel.sharded import put_batch
+    from chameleon_recsys_tpu_torch.train.checkpoint import (
+        load_train_state_dcp,
+        pack_train_state,
+        save_train_state_dcp,
+        unpack_train_state,
+    )
+
+    t0 = time.perf_counter()
+    save_train_state_dcp(path, state, programs)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    payload = pack_train_state(state, programs)
+    by_dcp, dcp_programs = fresh()
+    t0 = time.perf_counter()
+    by_dcp = load_train_state_dcp(path, by_dcp, dcp_programs)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    by_pickle, pickle_programs = fresh()
+    by_pickle = unpack_train_state(payload, by_pickle, pickle_programs)
+    del payload
+    same = all(torch.equal(p, q) for p, q in zip(state.model.parameters(),
+                                                  by_dcp.model.parameters()))
+    same = same and all(torch.equal(state.optimizer.state[p][k], by_dcp.optimizer.state[q][k])
+                        for p, q in zip(state.model.parameters(), by_dcp.model.parameters())
+                        for k in ("exp_avg", "exp_avg_sq"))
+    losses = []
+    for resumed, shard in ((by_dcp, dcp_programs), (by_pickle, pickle_programs)):
+        resumed, metrics = shard.train_step(resumed, put_batch(shard, batch), ace, metadata)
+        losses.append(float(metrics["loss"]))
+    param = max((p - q).abs().max().item() for p, q in zip(by_dcp.model.parameters(),
+                                                           by_pickle.model.parameters()))
+    out = {"bit_equal": same, "losses": losses, "param": param, "save_s": save_s,
+           "load_s": load_s}
+    barrier(plan)
+    if plan.rank == 0:
+        import torch.distributed.checkpoint as dcp
+
+        written = dcp.FileSystemReader(path).read_metadata()
+        key = "model.item_clicked_embedding.weight"
+        table = written.state_dict_metadata[key]
+        out["chunks"] = sorted(
+            (list(index.offset), next(list(c.sizes) for c in table.chunks
+                                      if c.offsets == index.offset), info.relative_path)
+            for index, info in written.storage_data.items() if index.fqn == key)
+        out["table"] = list(table.size)
+        out["files"] = {f.name: f.stat().st_size for f in Path(path).iterdir()}
+        # the bytes each file holds of the table and of its Adam moments
+        out["table_bytes"] = {}
+        keys = {key} | {f"adam.item_clicked_embedding.weight.{k}"
+                         for k in ("exp_avg", "exp_avg_sq")}
+        for index, info in written.storage_data.items():
+            if index.fqn in keys:
+                per_file = out["table_bytes"].setdefault(index.fqn, {})
+                per_file[info.relative_path] = per_file.get(info.relative_path, 0) + info.length
+    return out
+
+
+def report_mesh_checkpoint(name, results):
+    """(16) Prints and checks ``mesh_checkpoint``'s readings of every rank:
+    the loaded state bit-equal, the next step within ``RESUME_TOL`` of the
+    pickle-resumed one, each rank's rows of the item table in its own file
+    and no file holding the whole table or one of its whole Adam moments
+    (the replicated tensors, written once, may make one file the larger)."""
+    ranks = [results[r]["checkpoint"] for r in sorted(results)]
+    first = ranks[0]
+    rows, dim = first["table"]
+    table_bytes = rows * dim * 4
+    loss = max(abs(a - b) / abs(b) for a, b in (r["losses"] for r in ranks))
+    param = max(r["param"] for r in ranks)
+    print(f"mesh {name} directory checkpoint: save "
+          + ", ".join(f"{r['save_s']:.3f}" for r in ranks) + " s, load "
+          + ", ".join(f"{r['load_s']:.3f}" for r in ranks) + " s a rank; files "
+          f"{first['files']}; item table [{rows}, {dim}] ({table_bytes} bytes) in chunks "
+          f"{first['chunks']}, its bytes (and its moments') by file {first['table_bytes']}; loaded state bit-equal {[r['bit_equal'] for r in ranks]}; "
+          f"the next step against the pickle-resumed one: loss {loss:.3e}, parameters "
+          f"{param:.3e}")
+    owners = [(offset[0], sizes[0], file) for offset, sizes, file in first["chunks"]]
+    check(owners == [(0, rows // 2, "__0_0.distcp"), (rows // 2, rows // 2, "__1_0.distcp")],
+          f"mesh {name}: the item table's chunks are not each rank's rows in its file {owners}")
+    check(len(first["table_bytes"]) == 3 and all(
+              len(per_file) == 2 and all(n < table_bytes for n in per_file.values())
+              for per_file in first["table_bytes"].values()),
+          f"mesh {name}: a rank's file holds the whole item table or its moments "
+          f"{first['table_bytes']}")
+    check(all(r["bit_equal"] for r in ranks),
+          f"mesh {name}: the directory checkpoint's state differs from the saved one")
+    check(loss <= RESUME_TOL["loss"] and param <= RESUME_TOL["param"],
+          f"mesh {name}: the directory-resumed step lies off the pickle-resumed one "
+          f"(loss {loss:.3e}, parameters {param:.3e})")
 
 
 def mesh_cli_phase(workdir, phase6_argv, phase6_rows):
@@ -3230,6 +3400,239 @@ def mesh_dryrun():
           f"start): kernel launches by rank {result['launches_by_rank']}; collectives on "
           f"rank 0 {result['collectives']}")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# 17: the quality example on the card
+# ---------------------------------------------------------------------------
+
+# RESULTS.md's experiments through the port's example
+# (cli/train_nar_synthetic.py), each at the size RESULTS.md publishes: A the
+# Markov stream (CAR 128, UGRNN 64 x 2, 20 negatives, top 10), D the churning
+# catalog (50 negatives, top 3), B the G1-scale model (CAR 1024, UGRNN 255 x
+# 2, 50 negatives), which runs with both kernel flags on in the example's f32
+SYNTHETIC_RUNS = {
+    "A": ["--hours", "9", "--eval_every", "2", "--sessions_per_hour", "96",
+          "--num_items", "800"],
+    "D": ["--stream", "churn", "--hours", "16", "--eval_every", "2",
+          "--sessions_per_hour", "320", "--num_items", "1500", "--batch_size", "24",
+          "--negatives", "50", "--top_n", "3"],
+    "B": ["--num_items", "10000", "--hours", "24", "--sessions_per_hour", "768",
+          "--car_size", "1024", "--rnn_units", "255", "--negatives", "50",
+          "--eval_every", "4"],
+}
+SYNTHETIC_KERNELS = {"use_pallas_rnn": True, "use_pallas_scorer": True}
+# A's hours 0-4 on the card and on its host's CPU from the same weights and
+# sampler uniforms: the baseline columns bit-equal, CHAMELEON's HR and MRR
+# within these (absolute; set before the first run on the card from the
+# 7.6e-3 probability drift between the card and the CPU that
+# scripts/card_cpu_drift.py reads for a NAR CLI over three hours: at 21
+# candidates a drift that size moves a positive across the 10th rank in a
+# few percent of ~550 clicks an eval)
+SYNTHETIC_CPU_HOURS = 5
+SYNTHETIC_CPU_TOL = {"hr": 5e-2, "mrr": 2e-2}
+
+
+@contextlib.contextmanager
+def seeded_uniforms(seed, cfg):
+    """Within the block the harness's train and eval steps draw their
+    sampler uniforms from ``np.random.RandomState(seed)``, step by step, at
+    the grid's shapes (``cfg``'s batch, no capacity): a run on the CPU and
+    one on the card draw the same."""
+    from chameleon_recsys_tpu_torch.ops.sampling import SamplerUniforms
+    from chameleon_recsys_tpu_torch.train import steps, temporal
+
+    rng = np.random.RandomState(seed)
+    b, length = cfg.batch_size, cfg.max_session_length
+
+    def draw(device, negatives, from_buffer):
+        nc = min(negatives * cfg.neg_sampling_multiplying_factor, b * length + from_buffer)
+        shapes = ((cfg.recent_clicks_buffer_max_size,), (b * length + from_buffer,),
+                  (b, length, nc))
+        return SamplerUniforms(*(torch.from_numpy(rng.uniform(size=s).astype(np.float32))
+                                 .to(device) for s in shapes))
+
+    saved = temporal.train_step, temporal.eval_step
+    temporal.train_step = lambda state, batch, ace, meta: steps.train_step(
+        state, batch, ace, meta,
+        uniforms=draw(ace.device, cfg.negative_samples, cfg.negative_sample_from_buffer))
+    temporal.eval_step = lambda model, stream, batch, ace, meta, **kw: steps.eval_step(
+        model, stream, batch, ace, meta, uniforms=draw(
+            ace.device, cfg.eval_negative_samples, cfg.eval_negative_sample_from_buffer),
+        **kw)
+    try:
+        yield
+    finally:
+        temporal.train_step, temporal.eval_step = saved
+
+
+def synthetic_run(label, argv, device="cuda", overrides=None, hours=None, seed=None):
+    """The example's harness on ``argv`` (``cli.train_nar_synthetic.build``)
+    over its hours (or ``hours``), with the example's own draws or, with
+    ``seed``, ``seeded_uniforms``; prints the per-eval-hour table and
+    returns (rows, wall seconds, the harness, its hour source)."""
+    from chameleon_recsys_tpu_torch.cli import train_nar_synthetic
+
+    args = train_nar_synthetic.create_args_parser().parse_args(argv + ["--platform", device])
+    harness, source = train_nar_synthetic.build(args, device, overrides)
+    hours = range(args.hours) if hours is None else hours
+    draws = (contextlib.nullcontext() if seed is None
+             else seeded_uniforms(seed, harness.cfg))
+    t0 = time.perf_counter()
+    with draws:
+        rows = harness.run(source, hours)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    harness.export_artifacts()
+    for i, row in enumerate(rows):
+        print(f"synthetic {label}: {train_nar_synthetic.format_row(i, row)}; MRR "
+              f"{row['mrr_at_n_chameleon']:.6f}, HR {row['hitrate_at_n_chameleon']:.6f}")
+    print(f"synthetic {label}: {len(list(hours))} hours in {wall:.3f} s wall, "
+          f"train_sessions_per_s {rows[-1]['train_sessions_per_s']:.1f}")
+    return rows, wall, harness, source
+
+
+def synthetic_kernel_times(harness, source, launches):
+    """The five kernels at B's shapes in f32 (the example's dtype): the
+    fused scorer on the operands of an eval and a train step of B's model
+    on hour 0's first batch, the UGRNN kernels on random operands at B's
+    widths ([32, 11, 510]) under that batch's mask; each against its twin,
+    timed by CUDA events beside its twin and its bound; one JSON line."""
+    from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer, ugrnn
+    from chameleon_recsys_tpu_torch.train.steps import (
+        eval_scorer_operands,
+        train_scorer_operands,
+        valid_click_mask,
+    )
+
+    cfg = harness.cfg
+    np_batch = next(iter(harness._batches(source(0))))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in np_batch.items()}
+    args = (harness.state.model, harness.state.stream, batch, harness.ace_matrix,
+            harness.metadata)
+    out = {}
+    with torch.no_grad():
+        ops = eval_scorer_operands(*args, generator=torch.Generator("cuda").manual_seed(5))
+        err = (cand_scorer.cand_score_kernel(*ops)
+               - cand_scorer.cand_score_reference(*ops)).abs().max().item()
+        check(err <= 1e-5, f"synthetic B: cand_score_fwd disagrees at B's shape: {err}")
+        bms, by, _ = cand_score_bound_ms(ops)
+        out["cand_score_fwd"] = dict(
+            shape=list(ops[0].shape), max_abs_err=err, bound_ms=bms, bound_by=by,
+            ms=cuda_ms(lambda: cand_scorer.cand_score_kernel(*ops), iters=20, warmup=3),
+            plain_ms=cuda_ms(lambda: cand_scorer.cand_score_reference(*ops), iters=5,
+                             warmup=1))
+        ops = train_scorer_operands(*args, generator=torch.Generator("cuda").manual_seed(6))
+        bt, k = ops[1].shape[0], ops[0].shape[0] // ops[1].shape[0]
+        g = (torch.randn(bt, k, generator=torch.Generator().manual_seed(7))
+             / (bt * cfg.softmax_temperature)).cuda()
+        nc_err, bwd_err = check_scorer_train_kernels("synthetic_b", ops, g, 2e-4)
+        _, nc = cand_scorer.cand_score_kernel(*ops, return_nc=True)
+        bms, by = cand_score_stash_bound_ms(ops)
+        out["cand_score_fwd_stash"] = dict(
+            shape=list(ops[0].shape), max_abs_err=nc_err, bound_ms=bms, bound_by=by,
+            ms=cuda_ms(lambda: cand_scorer.cand_score_kernel(*ops, return_nc=True),
+                       iters=20, warmup=3),
+            plain_ms=cuda_ms(lambda: cand_scorer.cand_score_reference(*ops, return_nc=True),
+                             iters=5, warmup=1))
+        bms, by = cand_score_bwd_bound_ms(ops)
+        out["cand_score_bwd"] = dict(
+            shape=list(ops[0].shape), max_abs_err=bwd_err, bound_ms=bms, bound_by=by,
+            ms=cuda_ms(lambda: cand_scorer.cand_score_bwd_kernel(*ops, nc, g), iters=20,
+                       warmup=3),
+            plain_ms=cuda_ms(lambda: cand_scorer.cand_score_bwd_reference(*ops, nc, g),
+                             iters=5, warmup=1))
+        del ops, nc
+    mask = valid_click_mask(batch["session_size"], cfg.max_inputs_length).cpu()
+    x, w, m = ugrnn_inputs(mask, torch.float32, seed=8, units=cfg.rnn_units)
+    err = (ugrnn.ugrnn_scan_kernel(x, w, m)
+           - ugrnn.ugrnn_scan_reference(x, w, m)).abs().max().item()
+    check(err <= 1e-5, f"synthetic B: ugrnn_fwd disagrees at B's shape: {err}")
+    bms, by = ugrnn_bound_ms(x, w, m)
+    out["ugrnn_fwd"] = dict(
+        shape=list(x.shape), max_abs_err=err, bound_ms=bms, bound_by=by,
+        ms=queued_ms(lambda: ugrnn.ugrnn_scan_kernel(x, w, m, return_acts=True), iters=200),
+        plain_ms=cuda_ms(lambda: ugrnn.ugrnn_scan_reference(x, w, m), iters=20))
+    _, hs, acts = ugrnn.ugrnn_scan_kernel(x, w, m, return_acts=True)
+    g_out = torch.randn(*hs.shape, generator=torch.Generator().manual_seed(9)).cuda()
+    got = ugrnn.ugrnn_scan_bwd_kernel(x, w, m, hs, g_out, acts=acts)
+    ref = ugrnn.ugrnn_scan_bwd_reference(x, w, m, hs, g_out)
+    errs = [(a - e).abs().max().item() / max(e.abs().max().item(), 1e-30)
+            for a, e in zip(got, ref)]
+    check(max(errs) <= 2e-4, f"synthetic B: ugrnn_bwd disagrees at B's shape: {errs}")
+    bms, by = ugrnn_bwd_bound_ms(x, w, m)
+    out["ugrnn_bwd"] = dict(
+        shape=list(x.shape), max_abs_err=max((a - e).abs().max().item()
+                                             for a, e in zip(got, ref)),
+        bound_ms=bms, bound_by=by,
+        ms=queued_ms(lambda: ugrnn.ugrnn_scan_bwd_kernel(x, w, m, hs, g_out, acts=acts),
+                     iters=100),
+        plain_ms=cuda_ms(lambda: ugrnn.ugrnn_scan_bwd_reference(x, w, m, hs, g_out,
+                                                                acts=acts), iters=10))
+    for name, entry in out.items():
+        entry["launches"] = launches[name]
+    print("synthetic B kernels, float32 at B's shapes " + json.dumps(out))
+
+
+def synthetic_phase():
+    """(17) RESULTS.md's A, D and B through the port's example on the card
+    (``SYNTHETIC_RUNS``), B with both kernel flags on, counted; checks the
+    quality RESULTS.md reports (A: CHAMELEON's HR@10 above popularity's at
+    every eval; D: the last eval's HR@3 above co-occurrence's and SR's; B:
+    the last eval's HR@10 above the first's) and that B launched the five
+    kernels of its path; then A's hours 0-4 on the card and on the CPU with
+    the same draws (``SYNTHETIC_CPU_TOL``), and the five kernels timed at
+    B's shapes.  Returns B's launch counts."""
+    rows, _, _, _ = synthetic_run("A", SYNTHETIC_RUNS["A"])
+    below = [i for i, r in enumerate(rows)
+             if r["hitrate_at_n_chameleon"] <= r["hitrate_at_n_pop_recent"]]
+    check(len(rows) == 4 and not below,
+          f"synthetic A: CHAMELEON's HR@10 not above popularity's at evals {below}")
+    rows, _, _, _ = synthetic_run("D", SYNTHETIC_RUNS["D"])
+    last = rows[-1]
+    check(last["hitrate_at_n_chameleon"] > max(last["hitrate_at_n_coocurrent"],
+                                               last["hitrate_at_n_sr"]),
+          "synthetic D: the last eval's HR@3 is not above co-occurrence's and SR's")
+    zero_launch_counts()
+    rows, _, harness, source = synthetic_run("B", SYNTHETIC_RUNS["B"],
+                                             overrides=SYNTHETIC_KERNELS)
+    counts = launch_counts()
+    train_steps, eval_steps = 24 * 24, 5 * 24  # 768 sessions in batches of 32
+    expected = {"cand_score_fwd": eval_steps, "cand_score_fwd_stash": train_steps,
+                "cand_score_bwd": train_steps, "cand_score_bwd_recompute": 0,
+                **ugrnn_expected(2 * (train_steps + eval_steps), 2 * train_steps)}
+    print(f"synthetic B launches {counts} (both kernel flags, float32)")
+    check(all(counts[k] > 0 for k in ("ugrnn_fwd", "ugrnn_bwd", "cand_score_fwd",
+                                      "cand_score_fwd_stash", "cand_score_bwd")),
+          f"synthetic B: a kernel of the path was not launched {counts}")
+    check(counts == expected, f"synthetic B launches {counts}, expected {expected}")
+    check(len(rows) == 5 and rows[-1]["hitrate_at_n_chameleon"]
+          > rows[0]["hitrate_at_n_chameleon"],
+          "synthetic B: the last eval's HR@10 is not above the first's")
+    synthetic_kernel_times(harness, source, counts)
+    del harness
+
+    hours = range(SYNTHETIC_CPU_HOURS)
+    card, _, _, _ = synthetic_run("A card, seeded draws", SYNTHETIC_RUNS["A"],
+                                  hours=hours, seed=17)
+    cpu, _, _, _ = synthetic_run("A cpu, seeded draws", SYNTHETIC_RUNS["A"], device="cpu",
+                                 hours=hours, seed=17)
+    baseline = [k for k in cpu[0] if k.endswith(("_pop_recent", "_coocurrent", "_sr"))]
+    differ = [(i, k) for i, (a, b) in enumerate(zip(card, cpu)) for k in baseline
+              if a[k] != b[k]]
+    diffs = {m: max(abs(a[f"{key}_chameleon"] - b[f"{key}_chameleon"])
+                    for a, b in zip(card, cpu))
+             for m, key in (("hr", "hitrate_at_n"), ("mrr", "mrr_at_n"))}
+    print(f"synthetic A card vs cpu (hours 0-{SYNTHETIC_CPU_HOURS - 1}, same weights and "
+          f"draws): {len(baseline)} baseline columns a row bit-equal {not differ}; "
+          f"CHAMELEON HR difference {diffs['hr']:.3e}, MRR {diffs['mrr']:.3e} "
+          f"(tolerances {SYNTHETIC_CPU_TOL})")
+    check(len(card) == len(cpu) == 2 and not differ,
+          f"synthetic A: the card's baseline columns differ from the CPU's {differ[:5]}")
+    check(all(diffs[k] <= SYNTHETIC_CPU_TOL[k] for k in diffs),
+          f"synthetic A: CHAMELEON on the card lies off the CPU's {diffs}")
+    return counts
 
 
 def main() -> int:
@@ -3399,10 +3802,19 @@ def main() -> int:
     acr_bf16_counts, profile_acr_bf16 = acr_bf16_phase()
     # ---- 16. multi-GPU on the one card: three worlds of spawned ranks ----
     mesh_counts = mesh_phase()
+    # ---- 17. the quality example: RESULTS.md's A, D and B on the card ----
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as workdir:
+        tempfile.tempdir = workdir  # the example's model directories
+        try:
+            t0 = time.perf_counter()
+            synthetic_counts = synthetic_phase()
+            print(f"synthetic phase: {time.perf_counter() - t0:.1f} s wall")
+        finally:
+            tempfile.tempdir = None
     paths = (serve_counts, eval_counts, train_counts, recompute_counts, harness_counts,
              cli_counts, adressa_counts, dropout_counts, sweep_counts, g1_acr_counts,
              neural_counts, native_counts, grouped_counts, acr_bf16_counts, mesh_cli_counts,
-             mesh_counts)
+             mesh_counts, synthetic_counts)
     main_launches = {k: sum(path.get(k, 0) for path in paths)
                      for k in KERNEL_NAMES + UGRNN_INSTANTIATIONS}
     print(f"launches over the counted paths: {main_launches}")

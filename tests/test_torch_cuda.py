@@ -1266,3 +1266,93 @@ def test_sharded_step_at_1x1_over_nccl_is_the_plain_step(card):
             np.testing.assert_array_equal(sharded[key][name], value, err_msg=f"{key} {name}")
     for name, g in plain["grads"].items():
         assert np.linalg.norm(sharded["grads"][name] - g) <= 1e-5 * np.linalg.norm(g) + 1e-7, name
+
+
+# the quality example (cli/train_nar_synthetic.py) with both kernel flags
+# against the same run without them, from the same weights and sampler
+# uniforms: f32 sums in another order, which Adam's first moves (~lr times
+# the sign of gradients that are 0 up to rounding) carry on over the steps,
+# so each hour's loss at 1e-4 relative and the eval's HR and MRR at 2e-2
+# (a few of ~450 ranked clicks across a near tie)
+SYNTHETIC_LOSS_REL, SYNTHETIC_METRIC_ABS = 1e-4, 2e-2
+
+
+def test_quality_example_kernels_match_the_plain_path(card, monkeypatch, tmp_path):
+    """RESULTS.md A's size (800 items, 96 sessions an hour, CAR 128, UGRNN
+    64 x 2, 20 negatives) over two hours (train 0, evaluate 1, train 1),
+    both runs drawing their sampler uniforms from one numpy seed
+    (``chip_smoke.seeded_uniforms``)."""
+    from chameleon_recsys_tpu_torch.cli import train_nar_synthetic
+    from chip_smoke import seeded_uniforms
+
+    monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
+    argv = ["--hours", "2", "--eval_every", "1", "--sessions_per_hour", "96",
+            "--num_items", "800"]
+    args = train_nar_synthetic.create_args_parser().parse_args(argv)
+    runs = {}
+    for flags in (False, True):
+        harness, source = train_nar_synthetic.build(
+            args, "cuda", {"use_pallas_rnn": flags, "use_pallas_scorer": flags})
+        losses = []
+        train_hour = harness.train_hour
+        harness.train_hour = lambda s: losses.append(train_hour(s)["avg_ce_loss"])
+        with seeded_uniforms(3, harness.cfg):
+            before = [cand_scorer.launches, cand_scorer.stash_launches,
+                      cand_scorer.bwd_launches, ugrnn.launches, ugrnn.bwd_launches]
+            rows = harness.run(source, range(args.hours))
+            torch.cuda.synchronize()
+        after = [cand_scorer.launches, cand_scorer.stash_launches, cand_scorer.bwd_launches,
+                 ugrnn.launches, ugrnn.bwd_launches]
+        runs[flags] = losses, rows, [a - b for a, b in zip(after, before)]
+    assert all(n == 0 for n in runs[False][2])
+    assert all(n > 0 for n in runs[True][2]), runs[True][2]
+    (plain_losses, plain_rows, _), (losses, rows, _) = runs[False], runs[True]
+    np.testing.assert_allclose(losses, plain_losses, rtol=SYNTHETIC_LOSS_REL)
+    assert len(rows) == len(plain_rows) == 1
+    for key in ("hitrate_at_n_chameleon", "mrr_at_n_chameleon"):
+        assert rows[0][key] == pytest.approx(plain_rows[0][key], abs=SYNTHETIC_METRIC_ABS)
+    assert rows[0]["hitrate_at_n_pop_recent"] == plain_rows[0]["hitrate_at_n_pop_recent"]
+
+
+def test_directory_checkpoint_round_trip_on_card(card, monkeypatch, tmp_path):
+    """The harness's directory checkpoint on the card (the example's harness
+    at a small size, both kernel flags on): the state bit-equal after the
+    load, the next hour against the pickle-resumed harness's (the
+    embeddings' backward adds with float atomics: the loss and the
+    parameters at 1e-5)."""
+    from chameleon_recsys_tpu_torch.cli import train_nar_synthetic
+
+    monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
+    args = train_nar_synthetic.create_args_parser().parse_args(
+        ["--hours", "3", "--eval_every", "1", "--sessions_per_hour", "32",
+         "--num_items", "200", "--car_size", "32", "--rnn_units", "16", "--batch_size", "8"])
+    overrides = {"use_pallas_rnn": True, "use_pallas_scorer": True,
+                 "matching_layer_sizes": (16, 8, 8)}
+    h, source = train_nar_synthetic.build(args, "cuda", overrides)
+    h.run(source, range(2))
+    directory = h.save_checkpoint_dcp()
+    pickled = h.save_checkpoint()
+    by_dcp, by_pickle = (train_nar_synthetic.build(args, "cuda", overrides)[0]
+                         for _ in range(2))
+    by_dcp.init_state()
+    by_dcp.load_checkpoint_dcp(directory)
+    by_pickle.load_checkpoint(pickled)
+    for (name, p), q in zip(h.state.model.named_parameters(), by_dcp.state.model.parameters()):
+        assert torch.equal(p, q), name
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(h.state.optimizer.state[p][k],
+                               by_dcp.state.optimizer.state[q][k]), (name, k)
+    for field, value in h.state.stream._asdict().items():
+        assert torch.equal(getattr(by_dcp.state.stream, field), value), field
+    assert torch.equal(h.state.generator.get_state(), by_dcp.state.generator.get_state())
+    assert (by_dcp.hours_trained, by_dcp.evals_done, by_dcp.state.step) == (
+        h.hours_trained, h.evals_done, h.state.step)
+    a, b = by_dcp.train_hour(source(2)), by_pickle.train_hour(source(2))
+    assert a["avg_ce_loss"] == pytest.approx(b["avg_ce_loss"], rel=1e-5)
+    # but the matching output's bias: its gradient is 0 up to rounding (each
+    # row's candidate gradients sum to 0), so Adam moves it by about lr on
+    # the atomics' noise (ROADMAP section 3; read on an H100: 7.8e-4)
+    for (name, p), q in zip(by_dcp.state.model.named_parameters(),
+                            by_pickle.state.model.parameters()):
+        if name != "matching_out_bias":
+            assert (p - q).abs().max().item() <= 1e-5, name

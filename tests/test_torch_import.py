@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "chameleon_recsys_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+    ROOT / "chip_smoke.py", ROOT / "examples" / "train_nar_synthetic_torch.py"
 ]
 CUDA_SOURCES = sorted((ROOT / "chameleon_recsys_tpu_torch" / "csrc").glob("*.cu"))
 
@@ -74,6 +74,9 @@ import chameleon_recsys_tpu_torch.parallel.mesh
 import chameleon_recsys_tpu_torch.parallel.distributed
 import chameleon_recsys_tpu_torch.parallel.sharded
 import chameleon_recsys_tpu_torch.parallel.dryrun
+import chameleon_recsys_tpu_torch.cli.train_nar_synthetic
+import runpy
+runpy.run_path("examples/train_nar_synthetic_torch.py", run_name="imported")
 # the native libraries: built from the port's own sources and loaded
 assert chameleon_recsys_tpu_torch.native.sknn.native_available()
 assert chameleon_recsys_tpu_torch.native.loader.native_available()

@@ -5,8 +5,8 @@ parameter trees of both packages: the conftest model at a small
 ``min_rows`` (the item embedding, the ACE matrix and a Dense kernel
 sharded), and the G1 model at the default 4,096 rows (its 46,034-row tables
 sharded at model parallelism 2, 46,033 rows replicated), each rank's rows
-of each sharded leaf; ``make_mesh``'s errors; the batch's blocks by data
-index.
+of each sharded leaf; ``make_mesh``'s errors, and its refusal to fall
+back to the CPU unasked; the batch's blocks by data index.
 """
 import dataclasses
 import socket
@@ -188,6 +188,25 @@ def test_make_mesh_errors():
         assert distributed.all_gather(torch.ones(3), plan.data_group)[0].sum() == 3
         distributed.all_reduce(torch.ones(3), plan.model_group)
         assert all(v["calls"] == 0 for v in distributed.counts.values())
+    finally:
+        dist.destroy_process_group()
+
+
+def test_make_mesh_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Without a device and without a card ``make_mesh`` and
+    ``make_pod_mesh`` raise, naming ``device="cpu"``; with it they lay the
+    mesh out on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize_multihost(f"localhost:{port}", 1, 0, backend="gloo")
+    try:
+        for make in (lambda **kw: make_mesh(1, 1, **kw),
+                     lambda **kw: distributed.make_pod_mesh(1, **kw)):
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                make()
+            assert make(device="cpu").device == torch.device("cpu")
     finally:
         dist.destroy_process_group()
 
