@@ -39,8 +39,8 @@
 //   2. dp, the segment sum of dp_rep (its scratch is then free);
 //   3. dW1 = prod^T da1 on the GEMM core (sm90_gemm.cuh: TMA, mbarrier
 //      ring, wgmma), prod = [d] nc * pred first written into dp_rep's slot,
-//      both operands MN-major, the rows split into f32 partials summed in
-//      split order; the last read of nc;
+//      both operands MN-major (f32: split and transposed), the rows split
+//      into f32 partials summed in split order; the last read of nc;
 //   4. dpre on the core, A = dncp_c K-major, B = car_W read as B^T
 //      K-major; its epilogue reads
 //      i_rows and u and writes di = [d] dpre leaky'(i + u) and
@@ -49,9 +49,23 @@
 //   6. dcar_w = pre^T dncp_c on the core, as dW1;
 //   7. dW2, dW3 (narrow split-N transposed products on WMMA) and the column
 //      sums (bias grads, dw4).
-// The float32 path has the same launches with the products on the CUDA
-// cores in full f32 (no TF32): the row kernel's f32 branch (kRows = 32) and
-// a tiled CUDA-core GEMM with the same epilogues in place of the core.
+// The float32 path has the same launches with its products on the tensor
+// cores in split TF32 (sm90_gemm.cuh, three TF32 products a product, f32
+// accuracy), but for a1: the row kernel's f32 branch (kRows = 32) forms a1
+// on the CUDA cores, register-tiled, each sum a chain of fmaf in k order as
+// the f32 twin's product sums, so that leaky'(a1), a step, takes the
+// twin's branch (any other order of summation moves a1 by ~1e-7 and flips
+// it for an a1 that close to 0, and with it a row of di); dprod runs
+// on WMMA m16n16k8, each k8 step summed fresh and added in f32 (the tensor
+// cores round toward zero); the C-wide products on the split-TF32 core
+// (gemm_tf32).  TF32
+// wgmma reads both operands K-major, and dW1 and dcar_w are products over
+// rows (both operands MN-major), so small passes write each operand's hi
+// and lo halves K-major into scratch first (split_transpose_kernel: prod^T
+// from nc and pred, da1^T, pre^T from i_rows and u, dncp_c^T;
+// split_rows_kernel: dncp_c and car_W as they stand).  Those passes are
+// memory-bound (~0.09 ms each at the quality example B's shapes) where the
+// products are bound by the tensor cores.
 //
 // The recompute variant K1b' (replacing _bwd_kernel, _bwd_body with
 // nc_ref=None, run when _STASH_NC is off) is not in this file: the caller
@@ -73,6 +87,39 @@ namespace {
 
 using namespace nvcuda;
 
+// float32 on WMMA: split TF32 fragments (m16n16k8), three products a k step
+using TfAcc = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
+using TfA = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major>;
+using TfBc = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::col_major>;
+
+// acc += a b in f32 accuracy: a_hi and b_hi hold the loaded f32 fragments;
+// each is split (hi = rna_tf32(x), lo = rna_tf32(x - hi)) and the three
+// products run small ones first (sm90_gemm.cuh, "split TF32") into a fresh
+// fragment, added to acc on the CUDA cores: the tensor cores round their
+// sums toward zero, and a long chain of them drifts (~1e-5 of the sum)
+template <class A, class B>
+__device__ __forceinline__ void mma3(TfAcc& acc, A& a_hi, A& a_lo, B& b_hi, B& b_lo) {
+#pragma unroll
+  for (int i = 0; i < a_hi.num_elements; ++i) {
+    const float x = a_hi.x[i], h = wmma::__float_to_tf32(x);
+    a_hi.x[i] = h;
+    a_lo.x[i] = wmma::__float_to_tf32(x - h);
+  }
+#pragma unroll
+  for (int i = 0; i < b_hi.num_elements; ++i) {
+    const float x = b_hi.x[i], h = wmma::__float_to_tf32(x);
+    b_hi.x[i] = h;
+    b_lo.x[i] = wmma::__float_to_tf32(x - h);
+  }
+  TfAcc step;
+  wmma::fill_fragment(step, 0.f);
+  wmma::mma_sync(step, a_lo, b_hi, step);
+  wmma::mma_sync(step, a_hi, b_lo, step);
+  wmma::mma_sync(step, a_hi, b_hi, step);
+#pragma unroll
+  for (int i = 0; i < acc.num_elements; ++i) acc.x[i] += step.x[i];
+}
+
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kRowThreads = 512;  // 16 warps: the row kernel, one block an SM
 constexpr int kCh = 64;        // C columns (and W1 rows) per row-kernel step
@@ -80,8 +127,6 @@ constexpr int kMaxM1 = 128;    // widest first matching layer
 constexpr int kTn = 64;        // output tile edge of the transposed products
 constexpr int kTnDepth = 64;   // rows per step of the transposed products
 constexpr int kSumCols = 32;   // columns per block of the column sums
-constexpr int kSimt = 64;      // output tile edge of the CUDA-core GEMM
-constexpr int kSimtDepth = 16;  // its k step
 constexpr int kSmemLimit = 232448;  // 227 KB a block may use on sm_90
 constexpr int kTargetBlocks = 264;  // two blocks per SM of an H100
 
@@ -373,16 +418,18 @@ __global__ void __launch_bounds__(kRowThreads, 1)
 
   // ---- a1 = prod @ W1 (bias below), prod = [d] nc * pred per chunk ----
   {
-    // tensor path: warp w owns tiles (w % 4, 2 * (w / 4) + {0, 1}) of 16 x 16
+    // bf16: warp w owns tiles (w % 4, 2 * (w / 4) + {0, 1}) of 16 x 16.
+    // f32: on the CUDA cores, thread t the rows 4 (t / 64) + {0..3} and the
+    // columns 2 (t % 64) + {0, 1} (a warp's loads: one 16-byte broadcast a
+    // row for 4 k, one 256-byte row of W1 a k), each sum a chain of fmaf in
+    // k order, the order of the f32 twin's product, so that a1 carries its
+    // bits and leaky'(a1) takes its branch (a split-TF32 a1, ~1e-7 off,
+    // flips it where a1 lies that close to 0, and with it a row of di)
     Frag acc[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.f);
-    constexpr int kPer = (R * kMaxM1 + kRowThreads - 1) / kRowThreads;
-    float acc_c[kTensor ? 1 : kPer];
-    if constexpr (!kTensor) {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) acc_c[i] = 0.f;
-    }
+    float acc_c[4][2] = {};
+    const int rp = 4 * (tid / 64), cq = 2 * (tid % 64);
     for (int i = 0; i < S - 1; ++i) load_chunk(i);
     for (int i = 0; i < n_ch; ++i) {
       cp_async_wait<S - 2>();  // chunk i has landed (this thread's copies)
@@ -425,18 +472,23 @@ __global__ void __launch_bounds__(kRowThreads, 1)
             }
           }
         }
-      } else {
+      } else if (cq < L.m1_pad) {
+        const Scalar* a_rows = prod + rp * L.ld_ch;
+#pragma unroll 2
+        for (int kk = 0; kk < kCh; kk += 4) {
+          float4 a4[4];
 #pragma unroll
-        for (int q = 0; q < kPer; ++q) {
-          const int v = tid + q * kRowThreads;
-          if (v < R * L.m1_pad) {
-            const Scalar* a_row = prod + (v / L.m1_pad) * L.ld_ch;
-            const Scalar* b_col = wt + v % L.m1_pad;
-            float s_acc = acc_c[q];
-#pragma unroll 8
-            for (int kk = 0; kk < kCh; ++kk)
-              s_acc = fmaf(to_f32(a_row[kk]), to_f32(b_col[kk * L.ld_w1]), s_acc);
-            acc_c[q] = s_acc;
+          for (int r = 0; r < 4; ++r)
+            a4[r] = *reinterpret_cast<const float4*>(a_rows + r * L.ld_ch + kk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 b = *reinterpret_cast<const float2*>(wt + (kk + e) * L.ld_w1 + cq);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float a = reinterpret_cast<const float*>(&a4[r])[e];
+              acc_c[r][0] = fmaf(a, b.x, acc_c[r][0]);
+              acc_c[r][1] = fmaf(a, b.y, acc_c[r][1]);
+            }
           }
         }
       }
@@ -448,12 +500,11 @@ __global__ void __launch_bounds__(kRowThreads, 1)
         if (ct + j < m1_tiles)
           wmma::store_matrix_sync(a1 + 16 * rt * L.ld_a1 + 16 * (ct + j),
                                   acc[j], L.ld_a1, wmma::mem_row_major);
-    } else {
+    } else if (cq < L.m1_pad) {
 #pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        const int v = tid + q * kRowThreads;
-        if (v < R * L.m1_pad) a1[(v / L.m1_pad) * L.ld_a1 + v % L.m1_pad] = acc_c[q];
-      }
+      for (int r = 0; r < 4; ++r)
+        *reinterpret_cast<float2*>(a1 + (rp + r) * L.ld_a1 + cq) =
+            make_float2(acc_c[r][0], acc_c[r][1]);
     }
   }
   __syncthreads();  // a1 is complete; every stage of the ring is consumed
@@ -613,16 +664,21 @@ __global__ void __launch_bounds__(kRowThreads, 1)
       }
       wmma::store_matrix_sync(stage + 16 * rt * L.ld_stage + 16 * ct, acc,
                               L.ld_stage, wmma::mem_row_major);
-    } else {
-      for (int v = tid; v < R * kCh; v += kRowThreads) {
-        const int r = v / kCh, j = v % kCh;
-        const Scalar* a_row = da1 + r * L.ld_da1;
-        const Scalar* b_row = wt + j * L.ld_w1;
-        float s_acc = 0.f;
-        for (int kk = 0; kk < L.m1_pad; ++kk)
-          s_acc = fmaf(to_f32(a_row[kk]), to_f32(b_row[kk]), s_acc);
-        stage[r * L.ld_stage + j] = s_acc;
+    } else if (warp < 8) {
+      // f32: warps 0-7 own the 16 x 16 tiles (w % 2, w / 2), split TF32
+      const int rt = warp % 2, ct = warp / 2;
+      TfAcc acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll 2
+      for (int kk = 0; kk < L.m1_pad; kk += 8) {
+        TfA a_hi, a_lo;
+        TfBc b_hi, b_lo;
+        wmma::load_matrix_sync(a_hi, da1 + 16 * rt * L.ld_da1 + kk, L.ld_da1);
+        wmma::load_matrix_sync(b_hi, wt + 16 * ct * L.ld_w1 + kk, L.ld_w1);
+        mma3(acc, a_hi, a_lo, b_hi, b_lo);
       }
+      wmma::store_matrix_sync(stage + 16 * rt * L.ld_stage + 16 * ct, acc, L.ld_stage,
+                              wmma::mem_row_major);
     }
     __syncthreads();
     const Scalar* nct = nc_tile(s);
@@ -842,61 +898,77 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// 4. the float32 path's C-wide products: a tiled GEMM on the CUDA cores
+// 4. the float32 path's C-wide products: their operands, split for the
+//    TF32 core (sm90_gemm.cuh, gemm_tf32), and dpre's epilogue
 // ---------------------------------------------------------------------------
 
-// C[m, n] = sum_k A(m, k) B(k, n) in full f32 for k in the block's split,
-// with A(m, k) = a[m * sam + k * sak] and B(k, n) = b[k * sbk + n * sbn];
-// each thread owns 4 x 4 elements of a 64 x 64 tile and hands each to
-// epi.one(split, row, col, value).  grid (ceil(N / 64), ceil(M / 64), S).
-template <class Epi>
-__global__ void __launch_bounds__(kThreads)
-    simt_gemm_kernel(const float* __restrict__ a, long long sam, long long sak,
-                     const float* __restrict__ b, long long sbk, long long sbn,
-                     int M, int N, int K, int k_per_split, Epi epi) {
-  __shared__ float as[kSimtDepth][kSimt + 4];
-  __shared__ float bs[kSimtDepth][kSimt + 4];
-  const int m0 = blockIdx.y * kSimt, n0 = blockIdx.x * kSimt;
-  const int split = blockIdx.z;
-  const int k_begin = split * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += kSimtDepth) {
-    for (int v = tid; v < kSimtDepth * kSimt; v += kThreads) {
-      // the fast index follows each operand's contiguous dimension
-      const int ka = sak == 1 ? v % kSimtDepth : v / kSimt;
-      const int ma = sak == 1 ? v / kSimtDepth : v % kSimt;
-      const int gm = m0 + ma, gka = k0 + ka;
-      as[ka][ma] = gm < M && gka < k_end ? a[gm * sam + gka * sak] : 0.f;
-      const int kb = sbk == 1 ? v % kSimtDepth : v / kSimt;
-      const int nb = sbk == 1 ? v / kSimtDepth : v % kSimt;
-      const int gn = n0 + nb, gkb = k0 + kb;
-      bs[kb][nb] = gn < N && gkb < k_end ? b[gkb * sbk + gn * sbn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSimtDepth; ++kk) {
-      float ar[4], br[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ar[i] = as[kk][4 * ty + i];
-        br[i] = bs[kk][4 * tx + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
+__device__ __forceinline__ void store_split(float* hi, float* lo, size_t at, float v) {
+  uint32_t h, l;
+  sm90::split_tf32(v, h, l);
+  hi[at] = __uint_as_float(h);
+  lo[at] = __uint_as_float(l);
+}
+
+// hi and lo [rows][ld] of x [rows][cols], K-major as they stand (columns
+// cols .. ld - 1 zero)
+__global__ void split_rows_kernel(const float* __restrict__ x, float* __restrict__ hi,
+                                  float* __restrict__ lo, long long rows, int cols, int ld) {
+  const long long total = rows * ld;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long r = e / ld;
+    const int p = (int)(e % ld);
+    store_split(hi, lo, (size_t)e, p < cols ? x[r * cols + p] : 0.f);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + 4 * ty + i, col = n0 + 4 * tx + j;
-      if (row < M && col < N) epi.one(split, row, col, acc[i][j]);
-    }
+}
+
+// The element sources of the transposed operands: x itself, prod = [d] nc *
+// pred, and pre = [d] leaky(i + u), at (row r, column c).
+struct PlainSrc {
+  const float* x;
+  int cols;
+  __device__ __forceinline__ float operator()(long long r, int c) const {
+    return x[r * cols + c];
+  }
+};
+struct ProdSrc {
+  const float *nc, *pred;
+  int cols, k;
+  __device__ __forceinline__ float operator()(long long r, int c) const {
+    return nc[r * cols + c] * pred[(r / k) * cols + c];
+  }
+};
+struct PreSrc {
+  const float *i_rows, *u;
+  int cols, k;
+  float alpha;
+  __device__ __forceinline__ float operator()(long long r, int c) const {
+    return leaky(i_rows[r * cols + c] + u[(r / k) * cols + c], alpha);
+  }
+};
+
+// hi and lo [cols][ld] with element (c, r) = src(r, c), zero for rows <= r
+// < ld: the K-major halves of an operand whose rows are the reduction (dW1,
+// dcar_w).  A 32 x 32 tile a block, through shared memory, so that the
+// reads run along c and the writes along r; grid (ld / 32, ceil(cols / 32)).
+template <class Src>
+__global__ void __launch_bounds__(kThreads)
+    split_transpose_kernel(Src src, float* __restrict__ hi, float* __restrict__ lo,
+                           long long rows, int cols, long long ld) {
+  __shared__ float t[32][33];
+  const long long r0 = (long long)blockIdx.x * 32;
+  const int c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += kThreads / 32) {
+    const long long r = r0 + i;
+    const int c = c0 + tx;
+    t[i][tx] = r < rows && c < cols ? src(r, c) : 0.f;
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += kThreads / 32) {
+    const int c = c0 + i;
+    if (c < cols) store_split(hi, lo, (size_t)c * ld + r0 + tx, t[tx][i]);
+  }
 }
 
 // dpre's epilogue: di = [d] dpre leaky'(i + u) and pre = [d] leaky(i + u)
@@ -910,11 +982,24 @@ struct DpreEpilogue {
   int c, k;
   float alpha;
 
+  // the f32 core's call: one element (pre null: the f32 path forms pre^T
+  // for dcar_w from i_rows and u itself)
   __device__ __forceinline__ void one(int, int row, int col, float v) const {
     const size_t at = (size_t)row * c + col;
     const float a0 = to_f32(i_rows[at]) + to_f32(u[(size_t)(row / k) * c + col]);
     di[at] = from_f32<Scalar>(v * dleaky(a0, alpha));
-    pre[at] = from_f32<Scalar>(leaky(a0, alpha));
+    if (pre != nullptr) pre[at] = from_f32<Scalar>(leaky(a0, alpha));
+  }
+
+  // the f32 core's call where C is a multiple of 4: 4 consecutive columns,
+  // 16-byte loads and stores (float32 only)
+  __device__ __forceinline__ void vec4(int, int row, int col, const float (&v)[4]) const {
+    const size_t at = (size_t)row * c + col;
+    const float4 i4 = *reinterpret_cast<const float4*>(i_rows + at);
+    const float4 u4 = *reinterpret_cast<const float4*>(u + (size_t)(row / k) * c + col);
+    *reinterpret_cast<float4*>(di + at) =
+        make_float4(v[0] * dleaky(i4.x + u4.x, alpha), v[1] * dleaky(i4.y + u4.y, alpha),
+                    v[2] * dleaky(i4.z + u4.z, alpha), v[3] * dleaky(i4.w + u4.w, alpha));
   }
 
   // the core's call (bf16): 8 consecutive columns, 16-byte loads and stores
@@ -1030,33 +1115,33 @@ struct SumPlan {
   size_t floats() const { return (size_t)S * J; }
 };
 
-// The splits of an [i, j] weight gradient's reduction over the n rows: on
-// the core its own rule; on the CUDA cores about kTargetBlocks 64 x 64
-// blocks of >= 512 rows each.
-int row_splits(int i, int j, long long n, bool tensor) {
-  if (tensor) return sm90::splits_for(i, j, n);
-  long long s = kTargetBlocks / (div_up(i, kSimt) * div_up(j, kSimt));
-  const long long most = div_up(n, 512);
-  s = s < most ? s : most;
-  return (int)(s > 1 ? s : 1);
+// The splits of an [i, j] weight gradient's reduction over the n rows, by
+// the rule of the core that runs it (bf16 or split TF32).
+int row_splits(int i, int j, long long n, bool bf16) {
+  return bf16 ? sm90::splits_for(i, j, n) : sm90::tf32_splits_for(i, j, n);
 }
 
 // The scratch the launches need, carved from one buffer the caller
 // allocates: the row kernel's outputs in the operands' dtype (dp_rep's slot
-// later holds prod, then pre), then the f32 partials of every sum.
+// later holds prod, then pre, in bf16), then the f32 partials of every sum;
+// in f32 then the split-TF32 halves (hi, lo) of the C-wide products'
+// operands, each K-major: t1 prod^T, later pre^T ([C][ld_n]); t2 dncp_c
+// ([n][ld_c]), later dncp_c^T; car_W ([C][ld_c]); da1^T ([M1][ld_n]).
 struct Plan {
-  long long n;
-  int c, m1, m2, m3, elem, s_car_w, s_w1;
+  long long n, ld_n;
+  int c, m1, m2, m3, elem, s_car_w, s_w1, ld_c;
   TnPlan w2, w3;
   SumPlan s_car, s_1, s_2, s_3, s_4;
   size_t off_dp_rep, off_dncp, off_x1, off_da1, off_x2, off_da2, off_x3,
       off_da3, off_part_car, off_part_w1, off_part_w2, off_part_w3,
-      off_sum_car, off_sum_1, off_sum_2, off_sum_3, off_sum_4, bytes;
+      off_sum_car, off_sum_1, off_sum_2, off_sum_3, off_sum_4, off_t1[2], off_t2[2],
+      off_car[2], off_da1t[2], bytes;
 
   Plan(long long n_rows, int c_, int m1_, int m2_, int m3_, int elem_)
-      : n(n_rows), c(c_), m1(m1_), m2(m2_), m3(m3_), elem(elem_),
-        s_car_w(row_splits(c_, c_, n_rows, elem_ == 2)),
-        s_w1(row_splits(c_, m1_, n_rows, elem_ == 2)), w2(m1_, m2_, n_rows), w3(m2_, m3_, n_rows), s_car(c_, n_rows),
+      : n(n_rows), ld_n(div_up(n_rows, 32) * 32), c(c_), m1(m1_), m2(m2_), m3(m3_),
+        elem(elem_), s_car_w(row_splits(c_, c_, n_rows, elem_ == 2)),
+        s_w1(row_splits(c_, m1_, n_rows, elem_ == 2)), ld_c(round_up(c_, 4)),
+        w2(m1_, m2_, n_rows), w3(m2_, m3_, n_rows), s_car(c_, n_rows),
         s_1(m1_, n_rows), s_2(m2_, n_rows), s_3(m3_, n_rows), s_4(m3_, n_rows) {
     size_t at = 0;
     auto take = [&](size_t b) {
@@ -1081,6 +1166,15 @@ struct Plan {
     off_sum_2 = take(s_2.floats() * 4);
     off_sum_3 = take(s_3.floats() * 4);
     off_sum_4 = take(s_4.floats() * 4);
+    const bool f32 = elem == 4;
+    const size_t t1 = (size_t)c * ld_n * 4;
+    const size_t t2 = t1 > (size_t)n * ld_c * 4 ? t1 : (size_t)n * ld_c * 4;
+    for (int h = 0; h < 2; ++h) {
+      off_t1[h] = take(f32 ? t1 : 0);
+      off_t2[h] = take(f32 ? t2 : 0);
+      off_car[h] = take(f32 ? (size_t)c * ld_c * 4 : 0);
+      off_da1t[h] = take(f32 ? (size_t)m1 * ld_n * 4 : 0);
+    }
     bytes = at;
   }
 };
@@ -1116,17 +1210,35 @@ cudaError_t column_sum(const Plan& plan, const SumPlan& sp, const void* x,
   return cudaGetLastError();
 }
 
-// C = A op B on the CUDA cores (see simt_gemm_kernel), S splits over K.
-template <class Epi>
-cudaError_t simt_gemm(const void* a, long long sam, long long sak,
-                      const void* b, long long sbk, long long sbn, int M,
-                      int N, int K, int S, Epi epi, cudaStream_t stream) {
-  const int per = (int)div_up(div_up(K, S), kSimtDepth) * kSimtDepth;
-  const dim3 grid((unsigned)div_up(N, kSimt), (unsigned)div_up(M, kSimt), S);
-  simt_gemm_kernel<Epi><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(a), sam, sak, static_cast<const float*>(b), sbk,
-      sbn, M, N, K, per, epi);
+// The split-TF32 halves of the operand src(r, c) (rows x cols) transposed:
+// hi and lo [cols][ld] at off[0], off[1] of the scratch.
+template <class Src>
+cudaError_t split_transpose(Src src, unsigned char* scratch, const size_t (&off)[2],
+                            long long rows, int cols, long long ld, cudaStream_t stream) {
+  const dim3 grid((unsigned)(ld / 32), (unsigned)div_up(cols, 32));
+  split_transpose_kernel<Src><<<grid, kThreads, 0, stream>>>(
+      src, reinterpret_cast<float*>(scratch + off[0]),
+      reinterpret_cast<float*>(scratch + off[1]), rows, cols, ld);
   return cudaGetLastError();
+}
+
+// The split-TF32 halves of x [rows][cols] as it stands: [rows][ld].
+cudaError_t split_rows(const void* x, unsigned char* scratch, const size_t (&off)[2],
+                       long long rows, int cols, int ld, cudaStream_t stream) {
+  split_rows_kernel<<<grid_for(rows * ld), kThreads, 0, stream>>>(
+      static_cast<const float*>(x), reinterpret_cast<float*>(scratch + off[0]),
+      reinterpret_cast<float*>(scratch + off[1]), rows, cols, ld);
+  return cudaGetLastError();
+}
+
+// C = A B on the split-TF32 core, A and B^T the halves at a[0..1], b[0..1].
+template <class Epi>
+cudaError_t tf32_gemm(unsigned char* scratch, const size_t (&a)[2], long long lda,
+                      const size_t (&b)[2], long long ldb, int M, int N, int K, int splits,
+                      Epi epi, cudaStream_t stream) {
+  auto at = [&](size_t off) { return reinterpret_cast<const float*>(scratch + off); };
+  return sm90::gemm_tf32(at(a[0]), at(a[1]), (int)lda, at(b[0]), at(b[1]), (int)ldb, M, N,
+                         K, splits, epi, stream);
 }
 
 struct Inputs {
@@ -1178,40 +1290,54 @@ cudaError_t launch_typed(const Inputs& in, const RowParams& rp_in,
       rp.k, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // 3. dW1 = prod^T da1: prod into dp_rep's slot (the last read of nc,
-  // which may live in di), then the product split over rows
-  const long long prod_blocks = n < 132 * 16 ? n : 132 * 16;
-  prod_kernel<Scalar><<<(unsigned)prod_blocks, 128, 0, stream>>>(
-      static_cast<const Scalar*>(rp.nc), static_cast<const Scalar*>(rp.pred),
-      static_cast<Scalar*>(rp.dp_rep), n, rp.k, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 3. dW1 = prod^T da1 (the last read of nc, which may live in di), the
+  // product split over rows: bf16 with prod into dp_rep's slot, f32 with
+  // prod^T and da1^T split for the TF32 core
   float* w1_part = part(plan.off_part_w1);
   const int M1 = rp.m1;
   const sm90::StorePartial w1_epi{w1_part, M1, (size_t)C * M1};
-  if constexpr (kTensor)
-    err = sm90::gemm<1, 1>(rp.dp_rep, rp.da1, C, M1, (int)n, plan.s_w1, w1_epi,
-                           stream);
-  else
-    err = simt_gemm(rp.dp_rep, 1, C, rp.da1, M1, 1, C, M1, (int)n, plan.s_w1,
-                    w1_epi, stream);
+  if constexpr (kTensor) {
+    const long long prod_blocks = n < 132 * 16 ? n : 132 * 16;
+    prod_kernel<Scalar><<<(unsigned)prod_blocks, 128, 0, stream>>>(
+        static_cast<const Scalar*>(rp.nc), static_cast<const Scalar*>(rp.pred),
+        static_cast<Scalar*>(rp.dp_rep), n, rp.k, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = sm90::gemm<1, 1>(rp.dp_rep, rp.da1, C, M1, (int)n, plan.s_w1, w1_epi, stream);
+  } else {
+    const ProdSrc prod{static_cast<const float*>(rp.nc), static_cast<const float*>(rp.pred),
+                       C, rp.k};
+    const PlainSrc da1{static_cast<const float*>(rp.da1), M1};
+    if ((err = split_transpose(prod, scratch, plan.off_t1, n, C, plan.ld_n, stream)) !=
+            cudaSuccess ||
+        (err = split_transpose(da1, scratch, plan.off_da1t, n, M1, plan.ld_n, stream)) !=
+            cudaSuccess)
+      return err;
+    err = tf32_gemm(scratch, plan.off_t1, plan.ld_n, plan.off_da1t, plan.ld_n, C, M1, (int)n,
+                    plan.s_w1, w1_epi, stream);
+  }
   if (err != cudaSuccess) return err;
   reduce_partials_kernel<Scalar><<<grid_for((long long)C * M1), kThreads, 0,
                                    stream>>>(w1_part, plan.s_w1, (long long)C * M1,
                                              C, M1, M1, static_cast<Scalar*>(o.dw1));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // 4. dpre = dncp_c car_W^T, writing di and pre (into dp_rep's slot)
+  // 4. dpre = dncp_c car_W^T, writing di (and in bf16 pre, into dp_rep's slot)
   Scalar* pre = static_cast<Scalar*>(rp.dp_rep);
   const DpreEpilogue<Scalar> dpre_epi{static_cast<const Scalar*>(in.i_rows),
                                       static_cast<const Scalar*>(in.u),
-                                      static_cast<Scalar*>(o.di), pre, C,
-                                      rp.k, rp.alpha};
-  if constexpr (kTensor)
-    err = sm90::gemm<0, 0>(rp.dncp_c, in.car_w, (int)n, C, C, 1, dpre_epi,
-                           stream);
-  else
-    err = simt_gemm(rp.dncp_c, C, 1, in.car_w, 1, C, (int)n, C, C, 1, dpre_epi,
-                    stream);
+                                      static_cast<Scalar*>(o.di), kTensor ? pre : nullptr,
+                                      C, rp.k, rp.alpha};
+  if constexpr (kTensor) {
+    err = sm90::gemm<0, 0>(rp.dncp_c, in.car_w, (int)n, C, C, 1, dpre_epi, stream);
+  } else {
+    if ((err = split_rows(rp.dncp_c, scratch, plan.off_t2, n, C, plan.ld_c, stream)) !=
+            cudaSuccess ||
+        (err = split_rows(in.car_w, scratch, plan.off_car, C, C, plan.ld_c, stream)) !=
+            cudaSuccess)
+      return err;
+    err = tf32_gemm(scratch, plan.off_t2, plan.ld_c, plan.off_car, plan.ld_c, (int)n, C, C, 1,
+                    dpre_epi, stream);
+  }
   if (err != cudaSuccess) return err;
 
   // 5. du
@@ -1220,15 +1346,24 @@ cudaError_t launch_typed(const Inputs& in, const RowParams& rp_in,
       C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // 6. dcar_w = pre^T dncp_c: S partials, summed in split order
+  // 6. dcar_w = pre^T dncp_c: S partials, summed in split order (f32: pre^T
+  // formed from i_rows and u, and dncp_c^T, each split for the TF32 core)
   float* car_part = part(plan.off_part_car);
   const sm90::StorePartial car_epi{car_part, C, (size_t)C * C};
-  if constexpr (kTensor)
-    err = sm90::gemm<1, 1>(pre, rp.dncp_c, C, C, (int)n, plan.s_car_w, car_epi,
-                           stream);
-  else
-    err = simt_gemm(pre, 1, C, rp.dncp_c, C, 1, C, C, (int)n, plan.s_car_w,
-                    car_epi, stream);
+  if constexpr (kTensor) {
+    err = sm90::gemm<1, 1>(pre, rp.dncp_c, C, C, (int)n, plan.s_car_w, car_epi, stream);
+  } else {
+    const PreSrc pre_src{static_cast<const float*>(in.i_rows),
+                         static_cast<const float*>(in.u), C, rp.k, rp.alpha};
+    const PlainSrc dncp{static_cast<const float*>(rp.dncp_c), C};
+    if ((err = split_transpose(pre_src, scratch, plan.off_t1, n, C, plan.ld_n, stream)) !=
+            cudaSuccess ||
+        (err = split_transpose(dncp, scratch, plan.off_t2, n, C, plan.ld_n, stream)) !=
+            cudaSuccess)
+      return err;
+    err = tf32_gemm(scratch, plan.off_t1, plan.ld_n, plan.off_t2, plan.ld_n, C, C, (int)n,
+                    plan.s_car_w, car_epi, stream);
+  }
   if (err != cudaSuccess) return err;
   reduce_partials_kernel<Scalar><<<grid_for((long long)C * C), kThreads, 0,
                                    stream>>>(car_part, plan.s_car_w,

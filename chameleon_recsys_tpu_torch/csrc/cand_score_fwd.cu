@@ -56,10 +56,37 @@
 // others), M1, M2 and M3 <= 128, and the block's pre must fit shared memory
 // beside the rings (C <= 1536).
 //
-// float32 (cand_score_fwd_f32): the same function on the CUDA cores in full
-// f32 (no TF32), 16 rows a block: pre in shared memory, car_W and W1 tiles
-// staged through registers, the CAR output walked in 64-column chunks and
-// folded into the first matching layer.  It is the parity path.
+// float32 (cand_score_fwd_tf32): the same function on the tensor cores in
+// split TF32 (sm90_gemm.cuh: every product as lo hi + hi lo + hi hi of
+// TF32 halves, f32-like accuracy at a third of the TF32 rate, 165 TFLOP/s;
+// the CUDA cores' f32 peak is 67).  What shapes it: 64 rows of f32 pre at
+// C 1024 take 256 KB, more than a block's shared memory, so pre is not
+// kept: each consumer thread forms its A fragments, pre = leaky(i + u) split
+// into hi and lo, in registers straight from i_rows and u (L2-resident
+// between passes), one 32-column k block ahead, for every 64-column tile of
+// the CAR output it passes over.  TF32 wgmma reads B only K-major from
+// shared memory, and car_W and W1 come MN-major, so a first launch writes
+// their split halves transposed (split_weight_kernel: 8 MB at C 1024),
+// their k order permuted so that a thread's fragments are 8 consecutive
+// columns of a row of pre (two 16-byte loads) and a CAR accumulator's
+// column pairs are, as they stand, the A fragments of the fold into the
+// first matching layer.  A block (one consumer warpgroup and a producer
+// warp, two blocks an SM) owns 64 rows and a run of the C / 64 tiles; the
+// producer streams each tile's car_W k blocks, then its W1 rows, hi and lo
+// boxes by TMA into a 4-stage ring of 16 KB; per k block the warpgroup runs
+// 4 k8 steps x 3 m64n64k8 products with A from registers.  The tensor cores
+// round each sum toward zero, so each k block sums into a fresh
+// accumulator that is added to the tile's in f32 (a C-long chain drifts nc
+// by ~1e-5; this keeps it within ~6e-7 of the exactly rounded nc).  Then in
+// registers: + car_b, tanh, the stash, prod = nc * pred, split into the A
+// fragments of x1 += prod @ W1[tile, :] (per 64-column half of W1 a fresh
+// sum, added to x1 in shared memory, each thread's own 64 values).  The
+// block writes its x1 as one of the row block's partials (the runs are cut
+// so that the blocks fill >= 90% of the card's waves: B's 275 row blocks x
+// 16 tiles run as 8 runs of 2), and a last launch (cand_score_fwd_tail)
+// sums them in run order (no atomics: two launches give the same bits),
+// then runs the other two layers on the CUDA cores, 16 rows a block.  Any C
+// (no pre is kept); the tail's rows in shared memory bound M1 + M2 + M3.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -572,285 +599,454 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// 2. float32 on the CUDA cores
+// 2. float32: split TF32 on wgmma
 // ---------------------------------------------------------------------------
 
 namespace f32 {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kRows = 16;
-constexpr int kPad = 4;        // 16 bytes of row padding against bank conflicts
-constexpr int kChunk = 64;     // CAR output columns per step
-constexpr int kDepth = 64;     // depth of one car_W tile
-constexpr int kVec = 4;        // floats per 16-byte vector
+constexpr int kRows = 64;                   // candidate rows of a block: one wgmma M
+constexpr int kTileN = 64;                  // CAR output columns of a tile
+constexpr int kDepth = 32;                  // k of a ring entry: one 128-byte row of f32
+constexpr int kStages = 4;                  // ring stages
+constexpr int kBoxBytes = 64 * kDepth * 4;  // one 64 x 32 f32 TMA box: 8 KB
+constexpr int kStageBytes = 2 * kBoxBytes;  // its hi and lo halves
+constexpr int kConsumers = 128;             // one warpgroup
+constexpr int kThreads = kConsumers + 32;   // + the producer's warp
+constexpr int kX1Bytes = 128 * 64 * 4;      // x1: 64 f32 a consumer thread
+constexpr int kMainSmemBytes = 1024 + kStages * kStageBytes + kX1Bytes + 2 * kStages * 8;
+constexpr int kSlots = 264;                 // blocks the card holds: two on each of 132 SMs
+constexpr int kMaxParts = 16;
+constexpr int kTailRows = 16;
+constexpr int kTailThreads = 256;
 
-// Shared-memory layout of one block (byte offsets), shared by the host,
-// which sizes the launch, and the kernel.  The epilogue's buffers alias the
-// region of `pre`, which is dead by then.
-struct Layout {
-  int c_pad, m1_pad;
-  int ld_pre, ld_w, ld_stage, ld_prod, ld_w1, ld_x1;
-  size_t off_w, off_stage, off_prod, off_w1, bytes;
+// The matching tail's dynamic shared memory: kTailRows rows of x1, x2, x3.
+__host__ __device__ constexpr long long tail_bytes(int m1, int m2, int m3) {
+  return 4LL * kTailRows * ((long long)m1 + m2 + m3);
+}
 
-  __host__ __device__ Layout(int c, int m1, int m2, int m3) {
-    c_pad = round_up(c, kChunk);
-    m1_pad = round_up(m1, 16);
-    ld_pre = c_pad + kPad;
-    ld_w = kChunk + kPad;
-    ld_stage = kChunk + 4;
-    ld_prod = kChunk + kPad;
-    ld_w1 = m1_pad + kPad;
-    ld_x1 = m1_pad + 4;
-    const size_t pre = (size_t)kRows * ld_pre * 4;
-    const size_t epilogue = (size_t)kRows * (ld_x1 + m2 + m3) * 4;
-    off_w = align128(pre > epilogue ? pre : epilogue);
-    off_stage = off_w + align128((size_t)kDepth * ld_w * 4);
-    off_prod = off_stage + align128((size_t)kRows * ld_stage * 4);
-    off_w1 = off_prod + align128((size_t)kRows * ld_prod * 4);
-    bytes = off_w1 + align128((size_t)kChunk * ld_w1 * 4);
+// The launches' grid and scratch at these shapes.  The CAR output's T tiles
+// of a row block are cut into `parts` runs of `tiles_per_part` tiles, one
+// block each, each writing its partial x1 [64 rows][M1] (f32, ld_m) for the
+// tail to sum in part order: the fewest parts whose blocks fill at least 90%
+// of the waves of kSlots blocks (else the fullest, up to kMaxParts).  Then the
+// split-TF32 halves of car_W^T [C][ld_k] and W1^T [M1][ld_w], k permuted
+// within each 32 (car_W) or 8 (W1) as the A fragments are (see the kernel).
+struct Plan {
+  int row_blocks, tiles, tiles_per_part, parts, ld_k, ld_w, ld_m;
+  size_t off_car[2], off_w1[2], off_part, bytes;
+  Plan(long long n_rows, int c, int m1) {
+    row_blocks = (int)((n_rows + kRows - 1) / kRows);
+    tiles = (c + kTileN - 1) / kTileN;
+    double best = -1.0;
+    for (int want = 1; want <= tiles && want <= kMaxParts; ++want) {
+      const int per = (tiles + want - 1) / want, parts_ = (tiles + per - 1) / per;
+      const long long blocks = (long long)row_blocks * parts_;
+      const long long waves = (blocks + kSlots - 1) / kSlots;
+      const double fill = (double)row_blocks * tiles / ((double)waves * kSlots * per);
+      if (fill > best + 1e-9) {
+        best = fill;
+        tiles_per_part = per;
+        parts = parts_;
+      }
+      if (best >= 0.9) break;
+    }
+    ld_k = round_up(c, 32);
+    ld_w = round_up(c, 64);
+    ld_m = round_up(m1, 4);
+    size_t at = 0;
+    auto take = [&](size_t b) {
+      const size_t here = at;
+      at += align128(b);
+      return here;
+    };
+    for (int h = 0; h < 2; ++h) {
+      off_car[h] = take((size_t)c * ld_k * 4);
+      off_w1[h] = take((size_t)m1 * ld_w * 4);
+    }
+    off_part = take((size_t)parts * n_rows * ld_m * 4);
+    bytes = at;
   }
 };
 
-// kVec elements starting at p; elements at or past `valid` read as 0.
-__device__ __forceinline__ void load4(const float* p, int valid, bool vec_ok,
-                                      float (&out)[kVec]) {
-  if (vec_ok && valid >= kVec) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) out[e] = e < valid ? p[e] : 0.f;
+// Which of the 32 rows of a k block the kernel's position i reads: car_W
+// (mode 0), permuted so that lane q's A fragments of the four k8 steps are
+// columns 8 q .. 8 q + 7 of a row of pre (two 16-byte loads); W1 (mode 1),
+// within each 8 as a CAR accumulator's columns pair up into A fragments.
+__device__ __forceinline__ int source_row(int i, int mode) {
+  if (mode == 0) {
+    const int s = i / 8, q = i % 8;
+    return q < 4 ? 8 * q + 2 * s : 8 * (q - 4) + 2 * s + 1;
+  }
+  const int q = i % 8;
+  return (i & ~7) + (q < 4 ? 2 * q : 2 * (q - 4) + 1);
+}
+
+// hi and lo [cols][ld] with element (n, p) = w[32 (p / 32) + source_row(p %
+// 32)][n] of w [rows][cols] (zero past the rows): the weight transposed to
+// K-major and split.  A 32 x 32 tile a block, through shared memory; grid
+// (ld / 32, ceil(cols / 32)).
+__global__ void __launch_bounds__(256)
+    split_weight_kernel(const float* __restrict__ w, float* __restrict__ hi,
+                        float* __restrict__ lo, int rows, int cols, int ld, int mode) {
+  __shared__ float t[32][33];
+  const int p0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += 8) {
+    const int r = p0 + i, n = n0 + tx;
+    t[i][tx] = r < rows && n < cols ? w[(size_t)r * cols + n] : 0.f;
+  }
+  __syncthreads();
+  const int from = source_row(tx, mode);
+  for (int i = ty; i < 32; i += 8) {
+    const int n = n0 + i;
+    if (n >= cols) continue;
+    uint32_t h, l;
+    sm90::split_tf32(t[from][i], h, l);
+    const size_t at = (size_t)n * ld + p0 + tx;
+    hi[at] = __uint_as_float(h);
+    lo[at] = __uint_as_float(l);
   }
 }
 
-// A [rows x cols] tile of a row-major global matrix [n_rows, n_cols], from
-// (r0, c0), staged through registers so that the loads of the next tile are
-// in flight while the current one is used.  `cols` is a multiple of kVec
-// and at most kMaxCols; outside the matrix reads as 0.
-template <int kTileRows, int kMaxCols>
-struct TileLoader {
-  static constexpr int kPer = (kTileRows * kMaxCols / kVec + kThreads - 1) / kThreads;
-  float4 regs[kPer];
-
-  __device__ __forceinline__ void load(const float* g, int n_rows, int n_cols, int r0,
-                                       int c0, int cols, bool vec_ok) {
-    const int vecs_per_row = cols / kVec;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int v = threadIdx.x + i * kThreads;
-      float4 value = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (v < kTileRows * vecs_per_row) {
-        const int gr = r0 + v / vecs_per_row;
-        const int gc = c0 + (v % vecs_per_row) * kVec;
-        if (gr < n_rows && gc < n_cols) {
-          float e[kVec];
-          load4(g + (size_t)gr * n_cols + gc, n_cols - gc, vec_ok, e);
-          value = make_float4(e[0], e[1], e[2], e[3]);
-        }
-      }
-      regs[i] = value;
-    }
-  }
-
-  __device__ __forceinline__ void store(float* s, int ld, int cols) const {
-    const int vecs_per_row = cols / kVec;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int v = threadIdx.x + i * kThreads;
-      if (v < kTileRows * vecs_per_row)
-        *reinterpret_cast<float4*>(s + (v / vecs_per_row) * ld + (v % vecs_per_row) * kVec) =
-            regs[i];
-    }
-  }
+struct MainParams {
+  const float *i_rows, *u, *pred, *car_b;
+  float* nc;    // [n_rows, c], or null
+  float* part;  // [parts][n_rows][ld_m]
+  int n_rows, k, c, m1, ld_m, tiles, tiles_per_part, parts;
+  float alpha;
 };
 
-__global__ void __launch_bounds__(kThreads, 1) cand_score_fwd_f32(const Params p) {
-  constexpr int R = kRows;
-  const Layout L(p.c, p.m1, p.m2, p.m3);
-  const int C = p.c, M1 = p.m1, M2 = p.m2, M3 = p.m3;
-  const float alpha = p.alpha;
-  const long long row0 = (long long)blockIdx.x * R;
+// 8 consecutive f32 from p (columns col .. col + 7 of a row of c), zero past c
+__device__ __forceinline__ void load8(const float* p, int col, int c, bool vec, float* out) {
+  if (vec && col + 8 <= c) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
+    out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) out[e] = col + e < c ? p[e] : 0.f;
+  }
+}
+
+// The CAR product and the first matching layer of a block's 64 rows over its
+// run of CAR output tiles, on wgmma in split TF32 (see the top of the file).
+template <bool kStash>
+__global__ void __launch_bounds__(kThreads, 2)
+    cand_score_fwd_tf32(const __grid_constant__ CUtensorMap map_car_hi,
+                        const __grid_constant__ CUtensorMap map_car_lo,
+                        const __grid_constant__ CUtensorMap map_w1_hi,
+                        const __grid_constant__ CUtensorMap map_w1_lo, const MainParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  // the ring, x1 (thread t's element i at [i][t]: each thread reads back
+  // only what it wrote), the barriers
+  float* x1 = reinterpret_cast<float*>(smem_raw + (base - raw) + kStages * kStageBytes);
+  const uint32_t bars = base + kStages * kStageBytes + kX1Bytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  auto stage_of = [&](int e) { return base + (e % kStages) * kStageBytes; };
+
+  const int C = p.c, K = p.k, N = p.n_rows;
+  const int part = blockIdx.x % p.parts;
+  const int row0 = (blockIdx.x / p.parts) * kRows;
+  const int t0 = part * p.tiles_per_part;
+  const int t1 = min(p.tiles, t0 + p.tiles_per_part);
+  const int kb_n = (C + kDepth - 1) / kDepth;
+  const int w1_n = p.m1 > 64 ? 2 : 1;  // 64-column halves of W1
+  // a tile's ring entries: its kb_n k blocks of car_W, then per 64-column
+  // half of W1 (w1_n of them) the tile's rows of it in two k halves of 32
+  const int per_tile = kb_n + 2 * w1_n;
   const int tid = threadIdx.x;
 
-  const float* i_rows = static_cast<const float*>(p.i_rows);
-  const float* u = static_cast<const float*>(p.u);
-  const float* pred = static_cast<const float*>(p.pred);
-  const float* car_w = static_cast<const float*>(p.car_w);
-  const float* car_b = static_cast<const float*>(p.car_b);
-  const float* w1 = static_cast<const float*>(p.w1);
-  const float* b1 = static_cast<const float*>(p.b1);
-  const float* w2 = static_cast<const float*>(p.w2);
-  const float* b2 = static_cast<const float*>(p.b2);
-  const float* w3 = static_cast<const float*>(p.w3);
-  const float* b3 = static_cast<const float*>(p.b3);
-  const float* w4 = static_cast<const float*>(p.w4);
-  float* nc_out = static_cast<float*>(p.nc);
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* pre = reinterpret_cast<float*>(smem);
-  float* w_tile = reinterpret_cast<float*>(smem + L.off_w);
-  float* stage = reinterpret_cast<float*>(smem + L.off_stage);
-  float* prod = reinterpret_cast<float*>(smem + L.off_prod);
-  float* w1_tile = reinterpret_cast<float*>(smem + L.off_w1);
-  float* x1 = reinterpret_cast<float*>(smem);  // epilogue, aliases pre
-  float* x2 = x1 + R * L.ld_x1;
-  float* x3 = x2 + R * M2;
-
-  const bool c_vec = C % kVec == 0;
-  const bool m1_vec = M1 % kVec == 0;
-
-  // ---- pre = leaky(i + u) for the block's rows ----
-  {
-    const int vecs_per_row = L.c_pad / kVec;
-    for (int v = tid; v < R * vecs_per_row; v += kThreads) {
-      const int r = v / vecs_per_row;
-      const int col = (v % vecs_per_row) * kVec;
-      const long long row = row0 + r;
-      float out[kVec] = {0.f, 0.f, 0.f, 0.f};
-      if (row < p.n_rows && col < C) {
-        const long long bt = row / p.k;
-        float iv[kVec], uv[kVec];
-        load4(i_rows + row * C + col, C - col, c_vec, iv);
-        load4(u + bt * C + col, C - col, c_vec, uv);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) out[e] = leaky(iv[e] + uv[e], alpha);
-      }
-      *reinterpret_cast<float4*>(pre + r * L.ld_pre + col) =
-          make_float4(out[0], out[1], out[2], out[3]);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), 1);
     }
-  }
-
-  // ---- CAR in column chunks, each folded into the first matching layer;
-  // thread owns elements tid + i * kThreads ----
-  const int n_depth = L.c_pad / kDepth;
-  TileLoader<kDepth, kChunk> w_loader;
-  TileLoader<kChunk, kMaxM1> w1_loader;
-  constexpr int kCarPer = R * kChunk / kThreads;
-  constexpr int kX1Per = (R * kMaxM1 + kThreads - 1) / kThreads;
-  float x1_acc[kX1Per];
-#pragma unroll
-  for (int i = 0; i < kX1Per; ++i) x1_acc[i] = 0.f;
-
-  for (int n0 = 0; n0 < L.c_pad; n0 += kChunk) {
-    w1_loader.load(w1, C, M1, n0, 0, L.m1_pad, m1_vec);
-    w_loader.load(car_w, C, C, 0, n0, kChunk, c_vec);
-    float car_acc[kCarPer];
-#pragma unroll
-    for (int i = 0; i < kCarPer; ++i) car_acc[i] = 0.f;
-
-    for (int kt = 0; kt < n_depth; ++kt) {
-      __syncthreads();  // the previous tile (or chunk) is consumed
-      w_loader.store(w_tile, L.ld_w, kChunk);
-      __syncthreads();
-      if (kt + 1 < n_depth)
-        w_loader.load(car_w, C, C, (kt + 1) * kDepth, n0, kChunk, c_vec);
-      const float* a_base = pre + kt * kDepth;
-#pragma unroll
-      for (int i = 0; i < kCarPer; ++i) {
-        const int v = tid + i * kThreads;
-        const float* a_row = a_base + (v / kChunk) * L.ld_pre;
-        const float* b_col = w_tile + v % kChunk;
-        float acc = car_acc[i];
-#pragma unroll 8
-        for (int kk = 0; kk < kDepth; ++kk) acc = fmaf(a_row[kk], b_col[kk * L.ld_w], acc);
-        car_acc[i] = acc;
-      }
-    }
-
-    // stage the CAR pre-activation; the layer-1 tile of this chunk goes to
-    // shared memory (the previous chunk's users of it passed the barriers
-    // of the depth loop)
-#pragma unroll
-    for (int i = 0; i < kCarPer; ++i) {
-      const int v = tid + i * kThreads;
-      stage[(v / kChunk) * L.ld_stage + v % kChunk] = car_acc[i];
-    }
-    w1_loader.store(w1_tile, L.ld_w1, L.m1_pad);
-    __syncthreads();
-
-    // prod = tanh(acc + car_b) * pred; zero past the edges
-    for (int v = tid; v < R * kChunk; v += kThreads) {
-      const int r = v / kChunk, j = v % kChunk;
-      const long long row = row0 + r;
-      const int col = n0 + j;
-      float value = 0.f;
-      if (row < p.n_rows && col < C) {
-        const float nc = tanhf(stage[r * L.ld_stage + j] + car_b[col]);
-        if (nc_out != nullptr) nc_out[row * C + col] = nc;
-        value = nc * pred[(row / p.k) * C + col];
-      }
-      prod[r * L.ld_prod + j] = value;
-    }
-    __syncthreads();
-
-    // x1 += prod @ W1[chunk, :]
-#pragma unroll
-    for (int i = 0; i < kX1Per; ++i) {
-      const int v = tid + i * kThreads;
-      if (v < R * L.m1_pad) {
-        const float* a_row = prod + (v / L.m1_pad) * L.ld_prod;
-        const float* b_col = w1_tile + v % L.m1_pad;
-        float acc = x1_acc[i];
-#pragma unroll 8
-        for (int kk = 0; kk < kChunk; ++kk) acc = fmaf(a_row[kk], b_col[kk * L.ld_w1], acc);
-        x1_acc[i] = acc;
-      }
-    }
-  }
-  __syncthreads();  // every read of pre, prod and the W1 tile is done
-
-  // ---- epilogue in shared memory ----
-#pragma unroll
-  for (int i = 0; i < kX1Per; ++i) {
-    const int v = tid + i * kThreads;
-    if (v < R * L.m1_pad) x1[(v / L.m1_pad) * L.ld_x1 + v % L.m1_pad] = x1_acc[i];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int v = tid; v < R * M1; v += kThreads) {
-    float* x = x1 + (v / M1) * L.ld_x1 + v % M1;
-    *x = leaky(*x + b1[v % M1], alpha);
+
+  if (tid >= kConsumers) {
+    // ---- the producer: one thread keeps the ring full ----
+    if (tid != kConsumers) return;
+    const int total = (t1 - t0) * per_tile;
+    for (int e = 0; e < total; ++e) {
+      const int s = e % kStages;
+      sm90::mbar_wait(empty(s), ((e / kStages) & 1) ^ 1);
+      const int t = t0 + e / per_tile, j = e % per_tile;
+      const uint32_t stage = stage_of(e);
+      sm90::mbar_expect_tx(full(s), kStageBytes);
+      if (j < kb_n) {
+        sm90::tma_load_2d(stage, &map_car_hi, full(s), j * kDepth, t * kTileN);
+        sm90::tma_load_2d(stage + kBoxBytes, &map_car_lo, full(s), j * kDepth, t * kTileN);
+      } else {
+        const int nh = (j - kb_n) / 2, kh = (j - kb_n) % 2;
+        const int k0 = t * kTileN + kh * kDepth;
+        sm90::tma_load_2d(stage, &map_w1_hi, full(s), k0, nh * 64);
+        sm90::tma_load_2d(stage + kBoxBytes, &map_w1_lo, full(s), k0, nh * 64);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup ----
+  const int warp = tid / 32, lane = tid % 32, q = lane % 4;
+  // accumulator element i of this thread: row r_a + 8 ((i / 2) % 2), column
+  // 8 (i / 4) + 2 q + i % 2 of its tile
+  const int r_a = 16 * warp + lane / 4;
+  const int row[2] = {row0 + r_a, row0 + r_a + 8};
+  const bool in[2] = {row[0] < N, row[1] < N};
+  const float* i_row[2];
+  const float* u_row[2];
+  const float* pred_row[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = in[e] ? row[e] : 0;
+    i_row[e] = p.i_rows + (size_t)r * C;
+    u_row[e] = p.u + (size_t)(r / K) * C;
+    pred_row[e] = p.pred + (size_t)(r / K) * C;
+  }
+  const bool vec = C % 4 == 0;
+  // raw i and u of this thread's rows at columns 8 q .. 8 q + 7 of a k block,
+  // loaded one k block ahead of their use
+  float ri[2][8], ru[2][8];
+  auto load_raw = [&](int kb) {
+    const int col = kb * kDepth + 8 * q;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      load8(i_row[e] + col, col, in[e] ? C : 0, vec, ri[e]);
+      load8(u_row[e] + col, col, in[e] ? C : 0, vec, ru[e]);
+    }
+  };
+#pragma unroll 8
+  for (int i = 0; i < 64; ++i) x1[i * kConsumers + tid] = 0.f;
+  uint32_t fhi[16], flo[16];  // A fragments: k8 step s at 4 s .. 4 s + 3
+  auto release = [&](int e) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      sm90::keep(fhi[i]);
+      sm90::keep(flo[i]);
+    }
+    if (tid == 0) sm90::mbar_arrive(empty(e % kStages));
+  };
+  int e = 0;  // ring entry
+  if (t0 < t1) load_raw(0);
+
+  for (int t = t0; t < t1; ++t) {
+    // acc = pre @ car_W[:, tile], pre = leaky(i + u) formed k block by k
+    // block from the raw loads (A fragment slots: rows a, b at column 2 s,
+    // then at 2 s + 1, of this thread's eight); each k block's 12 products
+    // sum into a fresh blk, added to acc in f32 (the tensor cores round
+    // toward zero: a C-long chain would drift nc by ~1e-5)
+    float acc[32], blk[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = blk[i] = 0.f;
+    for (int kb = 0; kb < kb_n; ++kb, ++e) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int slot = 0; slot < 4; ++slot) {
+          const int r = slot % 2, c = 2 * s + slot / 2;
+          sm90::split_tf32(leaky(ri[r][c] + ru[r][c], p.alpha), fhi[4 * s + slot],
+                           flo[4 * s + slot]);
+        }
+      if (kb + 1 < kb_n)
+        load_raw(kb + 1);
+      else if (t + 1 < t1)
+        load_raw(0);
+      sm90::mbar_wait(full(e % kStages), (e / kStages) & 1);
+      const uint32_t stage = stage_of(e);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        sm90::mma3_m64n64k8_rs(blk, fhi + 4 * s, flo + 4 * s,
+                               sm90::smem_desc(stage + 32 * s, 16, 1024),
+                               sm90::smem_desc(stage + kBoxBytes + 32 * s, 16, 1024), s);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      release(e);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += blk[i];
+    }
+
+    // nc = tanh(acc + car_b), the stash, prod = nc * pred (zero past N and C)
+    const int n0 = t * kTileN;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + 8 * j + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool ok0 = in[h] && col < C, ok1 = in[h] && col + 1 < C;
+        float* a = acc + 4 * j + 2 * h;
+        const float nc0 = ok0 ? tanhf(a[0] + p.car_b[col]) : 0.f;
+        const float nc1 = ok1 ? tanhf(a[1] + p.car_b[col + 1]) : 0.f;
+        if (kStash) {  // predicated stores: no branch near the wgmma registers
+          float* out = p.nc + (size_t)row[h] * C + col;
+          if (ok0) out[0] = nc0;
+          if (ok1) out[1] = nc1;
+        }
+        a[0] = ok0 ? nc0 * pred_row[h][col] : 0.f;
+        a[1] = ok1 ? nc1 * pred_row[h][col + 1] : 0.f;
+      }
+    }
+
+    // x1 += prod @ W1[tile rows, :], per 64-column half of W1 a fresh sum
+    // (blk) over the tile's 64 k in two halves of 32, added to x1 in f32; k8
+    // step s of half kh is the accumulator's column group j = 4 kh + s, its
+    // pairs (2 q, 2 q + 1) the fragment's slots (q, q + 4), as W1^T's k
+    // order is permuted
+#pragma unroll
+    for (int nh = 0; nh < 2; ++nh) {
+      if (nh >= w1_n) break;
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh, ++e) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const float* a = acc + 4 * (4 * kh + s);
+          const float v[4] = {a[0], a[2], a[1], a[3]};
+#pragma unroll
+          for (int slot = 0; slot < 4; ++slot)
+            sm90::split_tf32(v[slot], fhi[4 * s + slot], flo[4 * s + slot]);
+        }
+        sm90::mbar_wait(full(e % kStages), (e / kStages) & 1);
+        const uint32_t stage = stage_of(e);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          sm90::mma3_m64n64k8_rs(blk, fhi + 4 * s, flo + 4 * s,
+                                 sm90::smem_desc(stage + 32 * s, 16, 1024),
+                                 sm90::smem_desc(stage + kBoxBytes + 32 * s, 16, 1024),
+                                 kh + s);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        release(e);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x1[(32 * nh + i) * kConsumers + tid] += blk[i];
+    }
+  }
+
+  // ---- this block's partial x1 (element i of this thread: column half
+  // i / 32, element i % 32 of its accumulator) ----
+  float* out = p.part + (size_t)part * N * p.ld_m;
+#pragma unroll 4
+  for (int i = 0; i < 32 * w1_n; ++i) {
+    const int h = (i / 2) % 2, col = 64 * (i / 32) + 8 * ((i % 32) / 4) + 2 * q + i % 2;
+    if (in[h] && col < p.m1) out[(size_t)row[h] * p.ld_m + col] = x1[i * kConsumers + tid];
+  }
+}
+
+struct TailParams {
+  const float *part, *b1, *w2, *b2, *w3, *b3, *w4;
+  float* out;
+  int n_rows, m1, m2, m3, ld_m, parts;
+  float alpha;
+};
+
+// The matching tail of kTailRows rows a block, on the CUDA cores: x1 = the
+// partials summed in part order, leaky(x1 + b1), the other two layers, and
+// s = sum_m x3 w4.
+__global__ void __launch_bounds__(kTailThreads) cand_score_fwd_tail(const TailParams p) {
+  extern __shared__ __align__(16) float tail_smem[];
+  const int M1 = p.m1, M2 = p.m2, M3 = p.m3, N = p.n_rows;
+  const int row0 = blockIdx.x * kTailRows;
+  const float alpha = p.alpha;
+  float* x1 = tail_smem;
+  float* x2 = x1 + kTailRows * M1;
+  float* x3 = x2 + kTailRows * M2;
+  for (int v = threadIdx.x; v < kTailRows * M1; v += kTailThreads) {
+    const int r = v / M1, m = v % M1, row = row0 + r;
+    float s = 0.f;
+    if (row < N)
+      for (int q = 0; q < p.parts; ++q)
+        s += p.part[((size_t)q * N + row) * p.ld_m + m];
+    x1[v] = leaky(s + p.b1[m], alpha);
   }
   __syncthreads();
-  for (int v = tid; v < R * M2; v += kThreads) {
+  for (int v = threadIdx.x; v < kTailRows * M2; v += kTailThreads) {
     const int r = v / M2, m = v % M2;
-    const float* x_row = x1 + r * L.ld_x1;
+    const float* x_row = x1 + r * M1;
     float acc = 0.f;
-    for (int j = 0; j < M1; ++j) acc = fmaf(x_row[j], w2[j * M2 + m], acc);
-    x2[v] = leaky(acc + b2[m], alpha);
+    for (int j = 0; j < M1; ++j) acc = fmaf(x_row[j], p.w2[j * M2 + m], acc);
+    x2[v] = leaky(acc + p.b2[m], alpha);
   }
   __syncthreads();
-  for (int v = tid; v < R * M3; v += kThreads) {
+  for (int v = threadIdx.x; v < kTailRows * M3; v += kTailThreads) {
     const int r = v / M3, m = v % M3;
     const float* x_row = x2 + r * M2;
     float acc = 0.f;
-    for (int j = 0; j < M2; ++j) acc = fmaf(x_row[j], w3[j * M3 + m], acc);
-    x3[v] = leaky(acc + b3[m], alpha) * w4[m];
+    for (int j = 0; j < M2; ++j) acc = fmaf(x_row[j], p.w3[j * M3 + m], acc);
+    x3[v] = leaky(acc + p.b3[m], alpha) * p.w4[m];
   }
   __syncthreads();
-  for (int r = tid; r < R; r += kThreads) {
-    const long long row = row0 + r;
-    if (row < p.n_rows) {
-      float s = 0.f;
-      for (int m = 0; m < M3; ++m) s += x3[r * M3 + m];
-      p.out[row] = s;
-    }
+  for (int r = threadIdx.x; r < kTailRows; r += kTailThreads) {
+    if (row0 + r >= N) continue;
+    float s = 0.f;
+    for (int m = 0; m < M3; ++m) s += x3[r * M3 + m];
+    p.out[row0 + r] = s;
   }
 }
 
 bool takes(int c, int m1, int m2, int m3) {
   return c > 0 && m1 > 0 && m1 <= kMaxM1 && m2 > 0 && m3 > 0 &&
-         Layout(c, m1, m2, m3).bytes <= (size_t)kSmemLimit;
+         tail_bytes(m1, m2, m3) <= kSmemLimit;
 }
 
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  if (!takes(p.c, p.m1, p.m2, p.m3) || (p.n_rows + kRows - 1) / kRows > 0x7fffffffLL)
+// The largest dynamic shared memory of the launches: the main kernel's ring,
+// or the tail's rows.
+long long smem_bytes(int m1, int m2, int m3) {
+  const long long tail = tail_bytes(m1, m2, m3);
+  return tail > kMainSmemBytes ? tail : kMainSmemBytes;
+}
+
+cudaError_t launch(const Params& p, void* scratch, cudaStream_t stream) {
+  if (!takes(p.c, p.m1, p.m2, p.m3) || p.n_rows > 0x7fffffffLL || scratch == nullptr)
     return cudaErrorInvalidValue;
-  const Layout layout(p.c, p.m1, p.m2, p.m3);
-  cudaError_t err = cudaFuncSetAttribute(
-      cand_score_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)layout.bytes);
+  const int n = (int)p.n_rows, C = p.c, M1 = p.m1;
+  const Plan plan(n, C, M1);
+  unsigned char* buf = static_cast<unsigned char*>(scratch);
+  auto at = [&](size_t off) { return reinterpret_cast<float*>(buf + off); };
+  // the weights' split-TF32 halves, K-major and permuted
+  split_weight_kernel<<<dim3(plan.ld_k / 32, (C + 31) / 32), 256, 0, stream>>>(
+      static_cast<const float*>(p.car_w), at(plan.off_car[0]), at(plan.off_car[1]), C, C,
+      plan.ld_k, 0);
+  split_weight_kernel<<<dim3(plan.ld_w / 32, (M1 + 31) / 32), 256, 0, stream>>>(
+      static_cast<const float*>(p.w1), at(plan.off_w1[0]), at(plan.off_w1[1]), C, M1,
+      plan.ld_w, 1);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long blocks = (p.n_rows + kRows - 1) / kRows;
-  cand_score_fwd_f32<<<(unsigned)blocks, kThreads, layout.bytes, stream>>>(p);
+  CUtensorMap maps[4];
+  if (!sm90::make_map_f32(&maps[0], at(plan.off_car[0]), plan.ld_k, C, plan.ld_k, 64) ||
+      !sm90::make_map_f32(&maps[1], at(plan.off_car[1]), plan.ld_k, C, plan.ld_k, 64) ||
+      !sm90::make_map_f32(&maps[2], at(plan.off_w1[0]), plan.ld_w, M1, plan.ld_w, 64) ||
+      !sm90::make_map_f32(&maps[3], at(plan.off_w1[1]), plan.ld_w, M1, plan.ld_w, 64))
+    return cudaErrorInvalidValue;
+  using F = const float*;
+  const MainParams mp{static_cast<F>(p.i_rows), static_cast<F>(p.u), static_cast<F>(p.pred),
+                      static_cast<F>(p.car_b), static_cast<float*>(p.nc), at(plan.off_part),
+                      n, p.k, C, M1, plan.ld_m, plan.tiles, plan.tiles_per_part, plan.parts,
+                      p.alpha};
+  auto kernel = p.nc != nullptr ? cand_score_fwd_tf32<true> : cand_score_fwd_tf32<false>;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kMainSmemBytes)) != cudaSuccess)
+    return err;
+  kernel<<<(unsigned)((long long)plan.row_blocks * plan.parts), kThreads, kMainSmemBytes,
+           stream>>>(maps[0], maps[1], maps[2], maps[3], mp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const TailParams tp{at(plan.off_part), static_cast<F>(p.b1), static_cast<F>(p.w2),
+                      static_cast<F>(p.b2), static_cast<F>(p.w3), static_cast<F>(p.b3),
+                      static_cast<F>(p.w4), p.out, n, M1, p.m2, p.m3, plan.ld_m,
+                      plan.parts, p.alpha};
+  const int tail = (int)tail_bytes(M1, p.m2, p.m3);
+  if ((err = cudaFuncSetAttribute(cand_score_fwd_tail,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, tail)) !=
+      cudaSuccess)
+    return err;
+  cand_score_fwd_tail<<<(unsigned)((n + kTailRows - 1) / kTailRows), kTailThreads, tail,
+                        stream>>>(tp);
   return cudaGetLastError();
 }
 
@@ -861,9 +1057,19 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // Dynamic shared memory of a launch at these widths (dtype codes as below),
 // or -1 for widths the kernel does not take.
 extern "C" long long cand_score_fwd_smem_bytes(int c, int m1, int m2, int m3, int dtype) {
-  if (dtype == 0)
-    return f32::takes(c, m1, m2, m3) ? (long long)f32::Layout(c, m1, m2, m3).bytes : -1;
+  if (dtype == 0) return f32::takes(c, m1, m2, m3) ? f32::smem_bytes(m1, m2, m3) : -1;
   if (dtype == 1) return tc::takes(c, m1, m2, m3) ? (long long)tc::TcLayout(c).bytes : -1;
+  return -1;
+}
+
+// Bytes of scratch `cand_score_fwd` needs at these shapes (dtype codes as
+// below; bfloat16 needs none), or -1 for shapes it does not take.
+extern "C" long long cand_score_fwd_scratch_bytes(long long n_rows, int c, int m1, int m2,
+                                                  int m3, int dtype) {
+  if (n_rows <= 0 || n_rows > 0x7fffffffLL) return -1;
+  if (dtype == 0)
+    return f32::takes(c, m1, m2, m3) ? (long long)f32::Plan(n_rows, c, m1).bytes : -1;
+  if (dtype == 1) return tc::takes(c, m1, m2, m3) ? 0 : -1;
   return -1;
 }
 
@@ -872,10 +1078,11 @@ extern "C" long long cand_score_fwd_smem_bytes(int c, int m1, int m2, int m3, in
 // [BT, c]; car_w [c, c]; car_b [c]; w1 [c, m1] (m1 <= 128); b1 [m1];
 // w2 [m1, m2]; b2 [m2]; w3 [m2, m3]; b3 [m3]; w4 [m3]; out [n_rows];
 // nc null, or [n_rows, c] in the operands' dtype (the training stash).  In
-// bfloat16 c and every m are multiples of 8, c <= 1536 and m2, m3 <= 128.  Every pointer
-// is 16-byte aligned and every array contiguous.  Returns the cudaError_t of
-// the launch (0 on success); the kernel runs on `stream` and is not waited
-// for.
+// bfloat16 c and every m are multiples of 8, c <= 1536 and m2, m3 <= 128.
+// `scratch` holds cand_score_fwd_scratch_bytes(...) bytes, 128-byte aligned
+// (null where that is 0).  Every pointer is 16-byte aligned and every array
+// contiguous.  Returns the cudaError_t of the launches (0 on success); the
+// kernels run on `stream` and are not waited for.
 extern "C" int cand_score_fwd(const void* i_rows, const void* u,
                               const void* pred, const void* car_w,
                               const void* car_b, const void* w1,
@@ -884,13 +1091,13 @@ extern "C" int cand_score_fwd(const void* i_rows, const void* u,
                               void* out, void* nc, long long n_rows, int k,
                               int c,
                               int m1, int m2, int m3, int dtype, float alpha,
-                              void* stream) {
+                              void* scratch, void* stream) {
   if (n_rows <= 0 || k <= 0 || n_rows % k != 0) return cudaErrorInvalidValue;
   const Params p{i_rows, u, pred, car_w, car_b, w1, b1, w2, b2, w3, b3, w4,
                  static_cast<float*>(out), nc, n_rows, k, c, m1, m2, m3,
                  alpha};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return f32::launch(p, s);
+  if (dtype == 0) return f32::launch(p, scratch, s);
   if (dtype == 1) return tc::launch(p, s);
   return cudaErrorInvalidValue;
 }

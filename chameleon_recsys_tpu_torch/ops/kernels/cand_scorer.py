@@ -10,10 +10,10 @@ the backward ``_bwd_kernel``, which recomputes nc instead of reading the
 stash: it launches the stash forward with its nc written into the ``di``
 buffer, then the same ``csrc/cand_score_bwd.cu`` on that nc.  The backward's
 C-wide products (dW1, dpre, dcar_w) run on a hand-written wgmma + TMA GEMM
-core (``csrc/sm90_gemm.cuh``) in bf16; ``sm90_gemm_kernel`` calls that core alone
-(for its tests).  In bf16 a C or a first matching width that is no
-multiple of 8 is zero-padded around the backward (``pad_widths`` /
-``slice_widths``).  On a CUDA tensor a wrapper
+core (``csrc/sm90_gemm.cuh``), in bf16 or in f32 as split TF32;
+``sm90_gemm_kernel`` calls the bf16 core alone (for its tests).  In bf16 a C
+or a first matching width that is no multiple of 8 is zero-padded around the
+backward (``pad_widths`` / ``slice_widths``).  On a CUDA tensor a wrapper
 launches its kernel or raises; on a CPU tensor it runs its plain PyTorch twin
 (``cand_score_reference``, ``cand_score_bwd_reference``).  ``cand_score`` is
 the differentiable entry: with ``_STASH_NC`` on (the default, read at call
@@ -47,7 +47,10 @@ zero-padded around both kernels (``pad_widths``, ``pad_forward``).
 Numerics are the Pallas kernel's (``_fwd_compute``), not those of the JAX
 ``cand_score_reference``: ``i + u`` is added in f32, and each activation is
 rounded to the input dtype once, after its bias and nonlinearity.  float32
-inputs run in full f32 on the CUDA cores (no TF32).
+inputs run on the tensor cores in split TF32: each product as three TF32
+products of the operands' hi and lo halves, f32-like accuracy (the f32
+forward's nc within ~6e-7 of the exactly rounded one, closer than cuBLAS's
+f32 product at C 1024); its matching tail runs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -65,12 +68,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # live in registers (kMaxM1 of both .cu files); the bf16 forward's last two
 # layers are m64n128 products at most (kMaxM23), and its shared memory,
 # which C alone sizes, fits the 227 KB a block may use up to C 1536
-# (kMaxKBlocks); the f32 forward's and the backward row kernel's depend on
-# every width (``_f32_fwd_smem_bytes``, ``_bwd_smem_bytes``).
+# (kMaxKBlocks); the f32 forward's depends on the matching widths alone
+# (``_f32_fwd_smem_bytes``), the backward row kernel's on those too
+# (``_bwd_smem_bytes``).
 _MAX_M1 = 128
 _BF16_MAX_M23 = 128
 _BF16_MAX_C = 1536
 _SMEM_LIMIT = 232448
+_F32_MAIN_SMEM = 1024 + 4 * 16384 + 128 * 64 * 4 + 2 * 4 * 8
 # bf16 widths that the TMA maps take: rows of a multiple of 16 bytes
 _ALIGN = 8
 
@@ -188,13 +193,13 @@ def _up(v: int, m: int) -> int:
 
 
 def _f32_fwd_smem_bytes(c: int, m1: int, m2: int, m3: int) -> int:
-    """Dynamic shared memory of the f32 forward (``cand_score_fwd.cu``'s
-    ``Layout``): 16 rows of pre (C padded to 64, + 4) or, aliasing them, the
-    epilogue's rows (M1 padded to 16, + 4, + M2 + M3), then the car_W tile,
-    the stage and prod rows (26,112 bytes) and the W1 tile."""
-    m1_pad = _up(m1, 16)
-    return (_up(64 * max(_up(c, 64) + 4, m1_pad + 4 + m2 + m3), 128)
-            + 256 * (m1_pad + 4) + 26112)
+    """The largest dynamic shared memory of the f32 forward's launches
+    (``cand_score_fwd.cu``, namespace ``f32``): the main kernel's ring of four
+    16 KB stages, its 32 KB of first-layer sums, the barriers and 1 KB of
+    alignment slack (99,392 bytes, whatever the widths: pre is formed in
+    registers, not kept), or the matching tail's 16 rows of x1, x2 and x3 in
+    f32."""
+    return max(_F32_MAIN_SMEM, 4 * 16 * (m1 + m2 + m3))
 
 
 def _bwd_smem_bytes(m1: int, m2: int, m3: int, dtype) -> int:
@@ -235,8 +240,9 @@ def kernel_limit(c: int, m1: int, m2: int, m3: int, dtype, train: bool = False):
             return (f"the bf16 forward takes C up to {_BF16_MAX_C}, not {c} (the block's "
                     f"pre beside its rings in shared memory)")
     elif (fwd := _f32_fwd_smem_bytes(c, m1, m2, m3)) > _SMEM_LIMIT:
-        return (f"the f32 forward needs {fwd} bytes of shared memory for C {c}, more "
-                f"than the {_SMEM_LIMIT} a block may use")
+        return (f"the f32 forward needs {fwd} bytes of shared memory for its matching "
+                f"tail (M1 + M2 + M3 = {m1 + m2 + m3}), more than the {_SMEM_LIMIT} a "
+                f"block may use")
     if train and (bwd := _bwd_smem_bytes(*bwd_widths, dtype)) > _SMEM_LIMIT:
         return (f"the backward's row kernel needs {bwd} bytes of shared memory, "
                 f"more than the {_SMEM_LIMIT} a block may use")
@@ -284,9 +290,23 @@ def _library():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [
             ctypes.c_int
-        ] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        ] * 6 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _fwd_scratch(n_rows, c, m1, m2, m3, dtype, device):
+    """The forward's scratch (f32: the weights' split halves and the
+    first layer's partials), or None where it needs none."""
+    size = build.load(_SOURCE).cand_score_fwd_scratch_bytes
+    if size.argtypes is None:
+        size.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
+        size.restype = ctypes.c_longlong
+    n_bytes = size(n_rows, c, m1, m2, m3, _DTYPE_CODES[dtype])
+    if n_bytes < 0:
+        raise ValueError(f"cand_score_fwd cannot take rows {n_rows} at widths "
+                         f"{(c, m1, m2, m3)}")
+    return torch.empty(n_bytes, dtype=torch.uint8, device=device) if n_bytes else None
 
 
 def _bwd_library():
@@ -336,11 +356,13 @@ def _fwd_into(operands, scores, nc, alpha):
             nc = torch.empty_like(operands[0])
         c, m1, m2, m3 = _widths(operands)
     with torch.cuda.device(i_rows.device):
+        scratch = _fwd_scratch(n_rows, c, m1, m2, m3, i_rows.dtype, i_rows.device)
         err = _library()(
             *(t.data_ptr() for t in operands), scores.data_ptr(),
             None if nc is None else nc.data_ptr(),
             n_rows, n_rows // u.shape[0], c, m1, m2, m3,
             _DTYPE_CODES[i_rows.dtype], float(alpha),
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "cand_score_fwd")

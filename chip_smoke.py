@@ -268,6 +268,9 @@ from chameleon_recsys_tpu_torch.utils.profiling import cuda_ms, device_profile, 
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM
 H100_F32_FLOP_PER_S = 67e12  # CUDA cores, no tensor cores
 H100_BF16_FLOP_PER_S = 989e12  # tensor cores, dense
+# f32-accurate work on the TF32 tensor cores (495 TFLOP/s dense), split into
+# three TF32 products (the scorer's f32 kernels): a third of the TF32 rate
+H100_SPLIT_TF32_FLOP_PER_S = 495e12 / 3
 # queued_ms: the card waits this many cycles a timed call (0.25 ms at 2 GHz)
 # while the host queues the calls
 QUEUE_CYCLES_PER_CALL = 500_000
@@ -546,36 +549,40 @@ def ugrnn_bound_ms(x, w, mask):
     return bound(n_bytes, n_ops, H100_F32_FLOP_PER_S)
 
 
-def cand_score_bound_ms(operands):
+def cand_score_bound_ms(operands, cuda_cores=False):
     """(least ms, what bounds it, operations) for the fused scorer on these
     operands: every input read once and the [N] f32 scores written once;
     2 N (C C + C M1 + M1 M2 + M2 M3) + 2 N M3 operations at the dtype's
-    peak (bf16 tensor cores, or f32 CUDA cores: the kernel uses no TF32)."""
+    peak (``_scorer_rate``: bf16 tensor cores; f32 as split TF32 on the
+    tensor cores, or with ``cuda_cores`` on the CUDA cores)."""
     i_rows, _, _, _, _, w1, _, w2, _, w3 = operands[:10]
     n, c = i_rows.shape
     m1, m2, m3 = w1.shape[1], w2.shape[1], w3.shape[1]
     n_bytes = sum(t.numel() * t.element_size() for t in operands) + n * 4
     n_ops = 2 * n * (c * c + c * m1 + m1 * m2 + m2 * m3) + 2 * n * m3
-    rate = (H100_BF16_FLOP_PER_S if i_rows.dtype == torch.bfloat16
-            else H100_F32_FLOP_PER_S)
-    return bound(n_bytes, n_ops, rate) + (n_ops,)
+    return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype, cuda_cores)) + (n_ops,)
 
 
-def _scorer_rate(dtype):
-    return H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_F32_FLOP_PER_S
+def _scorer_rate(dtype, cuda_cores=False):
+    """The peak rate of the scorer's work in ``dtype``: bf16 on the tensor
+    cores; f32-accurate work at a third of the TF32 tensor cores' rate (the
+    kernels' split TF32), or with ``cuda_cores`` the CUDA cores' f32 rate."""
+    if dtype == torch.bfloat16:
+        return H100_BF16_FLOP_PER_S
+    return H100_F32_FLOP_PER_S if cuda_cores else H100_SPLIT_TF32_FLOP_PER_S
 
 
-def cand_score_stash_bound_ms(operands):
+def cand_score_stash_bound_ms(operands, cuda_cores=False):
     """(least ms, what bounds it) for the training forward: the forward's
     work, plus the [N, C] nc written once."""
     i_rows = operands[0]
     _, _, n_ops = cand_score_bound_ms(operands)
     n_bytes = (sum(t.numel() * t.element_size() for t in operands)
                + i_rows.shape[0] * 4 + i_rows.numel() * i_rows.element_size())
-    return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype))
+    return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype, cuda_cores))
 
 
-def cand_score_bwd_bound_ms(operands):
+def cand_score_bwd_bound_ms(operands, cuda_cores=False):
     """(least ms, what bounds it) for the scorer's backward: the 12
     operands, nc and the f32 cotangent read once, the 12 gradients written
     once; 2 N (2 C C + 3 C M1 + 3 M1 M2 + 3 M2 M3) operations (the two
@@ -586,10 +593,10 @@ def cand_score_bwd_bound_ms(operands):
     operand_bytes = sum(t.numel() * t.element_size() for t in operands)
     n_bytes = 2 * operand_bytes + i_rows.numel() * i_rows.element_size() + n * 4
     n_ops = 2 * n * (2 * c * c + 3 * c * m1 + 3 * m1 * m2 + 3 * m2 * m3)
-    return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype))
+    return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype, cuda_cores))
 
 
-def cand_score_bwd_recompute_bound_ms(operands):
+def cand_score_bwd_recompute_bound_ms(operands, cuda_cores=False):
     """(least ms, what bounds it) for the backward that recomputes nc: the
     12 operands and the f32 cotangent read once, the 12 gradients written
     once (no nc read); K1b's operations plus the CAR product once more,
@@ -600,7 +607,7 @@ def cand_score_bwd_recompute_bound_ms(operands):
     operand_bytes = sum(t.numel() * t.element_size() for t in operands)
     n_bytes = 2 * operand_bytes + n * 4
     n_ops = 2 * n * (3 * c * c + 3 * c * m1 + 3 * m1 * m2 + 3 * m2 * m3)
-    return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype))
+    return bound(n_bytes, n_ops, _scorer_rate(i_rows.dtype, cuda_cores))
 
 
 def ugrnn_bwd_bound_ms(x, w, mask):
@@ -705,11 +712,17 @@ def check_recompute_kernel(name, operands, g, tol):
     """The backward that recomputes nc against its twin (K1b's normwise
     tolerance and outlier share), and against the stash backward on the nc
     the stash forward writes, which it must equal bit for bit; returns the
-    largest max error against the twin."""
+    largest max error against the twin.  In f32 the twin runs on the stash
+    forward's nc: the twin's own (cuBLAS's f32 product, up to 2.6e-6 from
+    the exactly rounded nc) flips leaky' where a pre-activation lies within
+    that of 0, which only a forward repeating cuBLAS's summation order would
+    match (``scripts/scorer_f32_accuracy.py`` measures it)."""
     from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer
 
     grads = cand_scorer.cand_score_bwd_recompute_kernel(*operands, g)
-    ref = cand_scorer.cand_score_bwd_reference(*operands, None, g)
+    _, nc = cand_scorer.cand_score_kernel(*operands, return_nc=True)
+    ref = cand_scorer.cand_score_bwd_reference(
+        *operands, nc if nc.dtype == torch.float32 else None, g)
     torch.cuda.synchronize()
     worst = 0.0
     report = []
@@ -720,7 +733,6 @@ def check_recompute_kernel(name, operands, g, tol):
         check(ok, f"cand_score_bwd_recompute disagrees on {name}: {gname} max "
                   f"{err:.3e}, normwise {norm_err:.3e}, {off} elements off")
     del ref
-    _, nc = cand_scorer.cand_score_kernel(*operands, return_nc=True)
     stash = cand_scorer.cand_score_bwd_kernel(*operands, nc, g)
     torch.cuda.synchronize()
     vs_stash = max((a.float() - b.float()).abs().max().item()
@@ -750,6 +762,27 @@ def scorer_inputs(bt, k, c, m1, m2, m3, dtype, seed):
         mk(m2, m3, scale=(2 / m2) ** 0.5), mk(m3, scale=0.1),
         mk(m3, scale=m3 ** -0.5),
     ]
+
+
+def scorer_scratch_bytes(operands, which):
+    """Bytes of scratch the scorer's forward (``which`` "fwd") or backward
+    ("bwd") library asks for on these operands."""
+    from chameleon_recsys_tpu_torch.ops.kernels import build
+
+    i_rows, u = operands[0], operands[1]
+    n, c = i_rows.shape
+    m1, m2, m3 = (operands[i].shape[1] for i in (5, 7, 9))
+    code = 1 if i_rows.dtype == torch.bfloat16 else 0
+    if which == "fwd":
+        fn = build.load("cand_score_fwd").cand_score_fwd_scratch_bytes
+        fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
+        args = (n, c, m1, m2, m3, code)
+    else:
+        fn = build.load("cand_score_bwd").cand_score_bwd_scratch_bytes
+        fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6
+        args = (n, n // u.shape[0], c, m1, m2, m3, code)
+    fn.restype = ctypes.c_longlong
+    return fn(*args)
 
 
 def print_split(label, split):
@@ -3496,9 +3529,16 @@ def synthetic_run(label, argv, device="cuda", overrides=None, hours=None, seed=N
 def synthetic_kernel_times(harness, source, launches):
     """The five kernels at B's shapes in f32 (the example's dtype): the
     fused scorer on the operands of an eval and a train step of B's model
-    on hour 0's first batch, the UGRNN kernels on random operands at B's
-    widths ([32, 11, 510]) under that batch's mask; each against its twin,
-    timed by CUDA events beside its twin and its bound; one JSON line."""
+    on hour 0's first batch (K1f, K1fs, K1b and K1b', which B does not run
+    but which must match K1b bit for bit), the UGRNN kernels on random
+    operands at B's widths ([32, 11, 510]) under that batch's mask; each
+    against its twin, timed by CUDA events beside its twin and its bounds
+    (the split-TF32 tensor cores' rate, and ``bound_cuda_core_ms`` at the
+    CUDA cores'), the scorer's forward beside the CAR product alone on
+    ``torch.matmul`` (f32, TF32 off: ``library_ms``).  Returns the entries
+    and a function that splits K1b by launch (torch profiler: run beside the
+    bf16 scorer's splits), which ``report_synthetic_kernels`` prints with
+    them as one JSON line."""
     from chameleon_recsys_tpu_torch.ops.kernels import cand_scorer, ugrnn
     from chameleon_recsys_tpu_torch.train.steps import (
         eval_scorer_operands,
@@ -3512,38 +3552,76 @@ def synthetic_kernel_times(harness, source, launches):
     args = (harness.state.model, harness.state.stream, batch, harness.ace_matrix,
             harness.metadata)
     out = {}
+
+    def bounds(fn, ops):
+        ms, by = fn(ops)[:2]
+        return dict(bound_ms=ms, bound_by=by, bound_cuda_core_ms=fn(ops, cuda_cores=True)[0])
+
+    def car_product_ms(ops):
+        return cuda_ms(lambda: torch.matmul(ops[0], ops[3]), iters=20, warmup=3)
+
     with torch.no_grad():
         ops = eval_scorer_operands(*args, generator=torch.Generator("cuda").manual_seed(5))
         err = (cand_scorer.cand_score_kernel(*ops)
                - cand_scorer.cand_score_reference(*ops)).abs().max().item()
         check(err <= 1e-5, f"synthetic B: cand_score_fwd disagrees at B's shape: {err}")
-        bms, by, _ = cand_score_bound_ms(ops)
         out["cand_score_fwd"] = dict(
-            shape=list(ops[0].shape), max_abs_err=err, bound_ms=bms, bound_by=by,
+            shape=list(ops[0].shape), max_abs_err=err, **bounds(cand_score_bound_ms, ops),
             ms=cuda_ms(lambda: cand_scorer.cand_score_kernel(*ops), iters=20, warmup=3),
             plain_ms=cuda_ms(lambda: cand_scorer.cand_score_reference(*ops), iters=5,
-                             warmup=1))
+                             warmup=1),
+            library_ms=car_product_ms(ops))
         ops = train_scorer_operands(*args, generator=torch.Generator("cuda").manual_seed(6))
         bt, k = ops[1].shape[0], ops[0].shape[0] // ops[1].shape[0]
         g = (torch.randn(bt, k, generator=torch.Generator().manual_seed(7))
              / (bt * cfg.softmax_temperature)).cuda()
         nc_err, bwd_err = check_scorer_train_kernels("synthetic_b", ops, g, 2e-4)
         _, nc = cand_scorer.cand_score_kernel(*ops, return_nc=True)
-        bms, by = cand_score_stash_bound_ms(ops)
         out["cand_score_fwd_stash"] = dict(
-            shape=list(ops[0].shape), max_abs_err=nc_err, bound_ms=bms, bound_by=by,
+            shape=list(ops[0].shape), max_abs_err=nc_err,
+            **bounds(cand_score_stash_bound_ms, ops),
             ms=cuda_ms(lambda: cand_scorer.cand_score_kernel(*ops, return_nc=True),
                        iters=20, warmup=3),
             plain_ms=cuda_ms(lambda: cand_scorer.cand_score_reference(*ops, return_nc=True),
-                             iters=5, warmup=1))
-        bms, by = cand_score_bwd_bound_ms(ops)
+                             iters=5, warmup=1),
+            library_ms=car_product_ms(ops))
         out["cand_score_bwd"] = dict(
-            shape=list(ops[0].shape), max_abs_err=bwd_err, bound_ms=bms, bound_by=by,
+            shape=list(ops[0].shape), max_abs_err=bwd_err,
+            **bounds(cand_score_bwd_bound_ms, ops),
             ms=cuda_ms(lambda: cand_scorer.cand_score_bwd_kernel(*ops, nc, g), iters=20,
                        warmup=3),
             plain_ms=cuda_ms(lambda: cand_scorer.cand_score_bwd_reference(*ops, nc, g),
-                             iters=5, warmup=1))
-        del ops, nc
+                             iters=5, warmup=1),
+            library_ms=None)
+        rec_err = check_recompute_kernel("synthetic_b", ops, g, 2e-4)
+        out["cand_score_bwd_recompute"] = dict(
+            shape=list(ops[0].shape), max_abs_err=rec_err,
+            **bounds(cand_score_bwd_recompute_bound_ms, ops),
+            ms=cuda_ms(lambda: cand_scorer.cand_score_bwd_recompute_kernel(*ops, g),
+                       iters=20, warmup=3),
+            plain_ms=cuda_ms(lambda: cand_scorer.cand_score_bwd_reference(*ops, None, g),
+                             iters=5, warmup=1),
+            library_ms=None)
+
+        # the f32 launches' scratch (the split halves, the partials) and what
+        # one call adds to the device memory at its peak
+        for name, fn in (("cand_score_fwd_stash",
+                          lambda: cand_scorer.cand_score_kernel(*ops, return_nc=True)),
+                         ("cand_score_bwd",
+                          lambda: cand_scorer.cand_score_bwd_kernel(*ops, nc, g))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            out[name]["peak_added_bytes"] = torch.cuda.max_memory_allocated() - base
+        out["cand_score_fwd_stash"]["scratch_bytes"] = scorer_scratch_bytes(ops, "fwd")
+        out["cand_score_bwd"]["scratch_bytes"] = scorer_scratch_bytes(ops, "bwd")
+
+    def split_bwd():
+        with torch.no_grad():
+            return launch_split(lambda: cand_scorer.cand_score_bwd_kernel(*ops, nc, g), 3)
+
     mask = valid_click_mask(batch["session_size"], cfg.max_inputs_length).cpu()
     x, w, m = ugrnn_inputs(mask, torch.float32, seed=8, units=cfg.rnn_units)
     err = (ugrnn.ugrnn_scan_kernel(x, w, m)
@@ -3572,6 +3650,18 @@ def synthetic_kernel_times(harness, source, launches):
                                                                 acts=acts), iters=10))
     for name, entry in out.items():
         entry["launches"] = launches[name]
+    return out, split_bwd
+
+
+def report_synthetic_kernels(out, split_bwd):
+    """Splits f32 K1b at B's shapes by launch (``split_bwd``), prints the
+    split and adds it to K1b's entry, then prints the ``synthetic B kernels``
+    JSON line."""
+    split = split_bwd()
+    print_split("cand_score_bwd [17600, 1024] float32 (synthetic B)", split)
+    out["cand_score_bwd"]["split_ms"] = [
+        [name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0],
+         us / 1e3] for name, us in split]
     print("synthetic B kernels, float32 at B's shapes " + json.dumps(out))
 
 
@@ -3583,7 +3673,8 @@ def synthetic_phase():
     the last eval's HR@10 above the first's) and that B launched the five
     kernels of its path; then A's hours 0-4 on the card and on the CPU with
     the same draws (``SYNTHETIC_CPU_TOL``), and the five kernels timed at
-    B's shapes.  Returns B's launch counts."""
+    B's shapes.  Returns B's launch counts and ``synthetic_kernel_times``'s
+    entries and K1b split."""
     rows, _, _, _ = synthetic_run("A", SYNTHETIC_RUNS["A"])
     below = [i for i, r in enumerate(rows)
              if r["hitrate_at_n_chameleon"] <= r["hitrate_at_n_pop_recent"]]
@@ -3610,7 +3701,7 @@ def synthetic_phase():
     check(len(rows) == 5 and rows[-1]["hitrate_at_n_chameleon"]
           > rows[0]["hitrate_at_n_chameleon"],
           "synthetic B: the last eval's HR@10 is not above the first's")
-    synthetic_kernel_times(harness, source, counts)
+    f32_kernels = synthetic_kernel_times(harness, source, counts)
     del harness
 
     hours = range(SYNTHETIC_CPU_HOURS)
@@ -3632,7 +3723,7 @@ def synthetic_phase():
           f"synthetic A: the card's baseline columns differ from the CPU's {differ[:5]}")
     check(all(diffs[k] <= SYNTHETIC_CPU_TOL[k] for k in diffs),
           f"synthetic A: CHAMELEON on the card lies off the CPU's {diffs}")
-    return counts
+    return counts, f32_kernels
 
 
 def main() -> int:
@@ -3678,15 +3769,18 @@ def main() -> int:
         if registers:
             print(f"  ptxas {name}: {len(registers)} instantiations, registers "
                   f"{min(registers)}-{max(registers)}, spill bytes {spills}")
-    # the backward's row kernel and GEMM instantiations, one by one (dynamic
-    # shared memory is set at launch: the row kernel's, the core's 97.1 KB)
+    # the backward's row kernel, GEMM and split instantiations, one by one
+    # (dynamic shared memory is set at launch: the row kernel's, the bf16
+    # core's 97.1 KB, the split-TF32 core's 193.0 KB)
     for entry, registers, spill, smem in ptxas_entries(
             build.build_log.get("cand_score_bwd", "")):
-        if any(k in entry for k in ("rows_kernel", "gemm_kernel")):
+        if any(k in entry for k in ("rows_kernel", "gemm_kernel", "gemm_tf32_kernel",
+                                    "split_")):
             print(f"  ptxas cand_score_bwd {entry}: {registers} registers, "
                   f"{spill} bytes spill stores, {smem} bytes static smem")
-    # the forward's two kernels (bf16 on wgmma + TMA, f32 on the CUDA cores)
-    # and the dynamic shared memory each sets at launch at the G1 widths
+    # the forward's kernels (bf16 on wgmma + TMA; f32: the weights' split,
+    # split TF32 on wgmma + TMA, the matching tail) and the dynamic shared
+    # memory each dtype's launches set at most at the G1 widths
     for entry, registers, spill, smem in ptxas_entries(
             build.build_log.get("cand_score_fwd", "")):
         print(f"  ptxas cand_score_fwd {entry}: {registers} registers, "
@@ -3807,7 +3901,7 @@ def main() -> int:
         tempfile.tempdir = workdir  # the example's model directories
         try:
             t0 = time.perf_counter()
-            synthetic_counts = synthetic_phase()
+            synthetic_counts, (f32_kernels, split_f32_bwd) = synthetic_phase()
             print(f"synthetic phase: {time.perf_counter() - t0:.1f} s wall")
         finally:
             tempfile.tempdir = None
@@ -3930,7 +4024,7 @@ def main() -> int:
     # (bf16, the compacted G1 shape) with a cotangent of the size the loss
     # gives (N(0, 1) / (rows * temperature)), then on random operands whose
     # scores are O(1): the G1 train shape in bf16, a float32 shape (the
-    # CUDA-core branch) and the odd shape in both dtypes
+    # split-TF32 branch) and the odd shape in both dtypes
     def cotangent(operands, seed):
         bt, k = operands[1].shape[0], operands[0].shape[0] // operands[1].shape[0]
         g = torch.randn(bt, k, generator=torch.Generator().manual_seed(seed))
@@ -4144,6 +4238,7 @@ def main() -> int:
         recompute_split = launch_split(
             lambda: cand_scorer.cand_score_bwd_recompute_kernel(*ops, g), 3)
         fwd_split = launch_split(lambda: cand_scorer.cand_score_kernel(*scorer_operands), 3)
+        report_synthetic_kernels(f32_kernels, split_f32_bwd)
         recompute_ms = cuda_ms(
             lambda: cand_scorer.cand_score_bwd_recompute_kernel(*ops, g), iters=5,
             warmup=2)
@@ -4257,7 +4352,7 @@ def main() -> int:
     profile_neural_steps()
     profile_acr_bf16()
 
-    print(json.dumps({"kernels": [
+    kernels = [
         {
             "name": "ugrnn_fwd",
             "route": "cuda",
@@ -4336,7 +4431,20 @@ def main() -> int:
             "bound_by": recompute_bound_by,
             "library_ms": None,
         },
-    ]}))
+    ]
+    # the scorer's f32 kernels at B's shapes (phase 17; launches: B's run,
+    # the f32 path's), beside the bf16 rows above
+    where = {k["name"]: (k["source"], k["replaces"]) for k in kernels}
+    for name in ("cand_score_fwd", "cand_score_fwd_stash", "cand_score_bwd",
+                 "cand_score_bwd_recompute"):
+        entry = f32_kernels[name]
+        kernels.append({
+            "name": f"{name}_f32", "route": "cuda", "source": where[name][0],
+            "replaces": where[name][1], **{key: entry[key] for key in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "bound_cuda_core_ms", "shape")},
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

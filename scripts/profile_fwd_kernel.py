@@ -118,7 +118,7 @@ def main() -> int:
         lib = ctypes.CDLL(str(lib_path))
         fn = lib.cand_score_fwd
         fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         cand_scorer._library = lambda: fn  # this process only
         for shape in args.shape or [SHAPE]:

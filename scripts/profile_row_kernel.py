@@ -2,15 +2,18 @@
 """Where the scorer backward's row kernel spends its cycles, on one NVIDIA
 card.
 
-    python3 scripts/profile_row_kernel.py
+    python3 scripts/profile_row_kernel.py [--dtype bfloat16]
+        [--shape 2688,50,1024,128,64,32]
 
 Copies ``csrc/cand_score_bwd.cu`` with ``clock64()`` reads added by thread 0
 of each block (at the kernel's start, after the a1 pass, after a2, before
 the dprod pass, at the end; and, summed over both passes, the time waiting
 for a chunk's copies, starting the next chunk's copies, forming prod and
 the dprod product), builds the copy with the package's ``nvcc`` flags into
-a temporary directory inside the checkout, runs the bf16 backward once at
-the compacted G1 train shape (seeded operands, as
+a temporary directory inside the checkout, runs the backward once in
+``--dtype`` at ``--shape`` (BT, K, C, M1, M2, M3; by default bf16 at the
+compacted G1 train shape; the quality example B's f32 step is ``--dtype
+float32 --shape 352,50,1024,128,64,32``; seeded operands, as
 ``scripts/profile_scorer_bwd.py``) and prints the mean cycles of each
 phase over the blocks, with the card's name, power limit and SM clock.
 The instrumented copy is a measurement aid: the package never builds it.
@@ -19,6 +22,7 @@ places it instruments.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -85,6 +89,13 @@ def instrumented(src: str) -> str:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    parser.add_argument("--shape", default=",".join(map(str, SHAPE)))
+    args = parser.parse_args()
+    shape = tuple(int(v) for v in args.shape.split(","))
+    dtype, code, rows = ((torch.bfloat16, 1, 64) if args.dtype == "bfloat16"
+                         else (torch.float32, 0, 32))
     if not torch.cuda.is_available():
         print("profile_row_kernel: no CUDA device", file=sys.stderr)
         return 1
@@ -96,8 +107,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip())
-    bt, k, c, m1, m2, m3 = SHAPE
-    ops = scorer_inputs(*SHAPE, dtype=torch.bfloat16, seed=9)
+    bt, k, c, m1, m2, m3 = shape
+    ops = scorer_inputs(*shape, dtype=dtype, seed=9)
     g = torch.randn(bt * k, generator=torch.Generator().manual_seed(30)).cuda()
     with torch.no_grad():
         _, nc = cand_scorer.cand_score_kernel(*ops, return_nc=True)
@@ -114,23 +125,23 @@ def main() -> int:
         lib.cand_score_bwd_scratch_bytes.restype = ctypes.c_longlong
         n = bt * k
         grads = [torch.empty_like(t) for t in ops]
-        scratch = torch.empty(lib.cand_score_bwd_scratch_bytes(n, k, c, m1, m2, m3, 1),
+        scratch = torch.empty(lib.cand_score_bwd_scratch_bytes(n, k, c, m1, m2, m3, code),
                               dtype=torch.uint8, device="cuda")
         for _ in range(3):  # the last launch's clocks are read
             err = lib.cand_score_bwd(
                 *(t.data_ptr() for t in ops), nc.data_ptr(), g.data_ptr(),
                 *(t.data_ptr() for t in grads), scratch.data_ptr(), n, k, c, m1, m2, m3,
-                1, 0.2, torch.cuda.current_stream().cuda_stream)
+                code, 0.2, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"cand_score_bwd launch failed: cudaError {err}")
         torch.cuda.synchronize()
         clk = np.zeros(SLOTS * 4096, dtype=np.int64)
         if lib.read_clk(clk.ctypes.data_as(ctypes.c_void_p)):
             raise RuntimeError("profile_row_kernel: reading the clocks failed")
-    blocks = min(-(-n // 64), 4096)
+    blocks = min(-(-n // rows), 4096)
     t = clk.reshape(4096, SLOTS)[:blocks].astype(np.float64)
     phases = np.diff(t[:, :5], axis=1).mean(0)
-    print(f"row kernel, {blocks} blocks of 64 rows at {list(ops[0].shape)} bf16: "
+    print(f"row kernel, {blocks} blocks of {rows} rows at {list(ops[0].shape)} {args.dtype}: "
           f"{(t[:, 4] - t[:, 0]).mean():.0f} cycles a block (mean)")
     for name, cycles in zip(PHASES, phases):
         print(f"  {name:18s} {cycles:9.0f} cycles")

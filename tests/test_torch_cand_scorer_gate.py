@@ -74,7 +74,10 @@ def test_kernels_take_the_g1_widths(dtype, train):
     ((32, 16, 136, 8), BF16, False, "second and third matching layers"),
     ((32, 16, 8, 129), BF16, False, "second and third matching layers"),
     ((2688, 128, 64, 32), F32, False, None),
-    ((2689, 128, 64, 32), F32, False, "f32 forward needs 236288 bytes"),
+    ((2689, 128, 64, 32), F32, False, None),  # f32 keeps no pre: any C
+    ((32, 128, 1800, 1800), F32, False, "f32 forward needs 238592 bytes"),
+    ((32, 16, 1808, 1809), F32, False, "M1 + M2 + M3 = 3633"),
+    ((32, 16, 1808, 1804), F32, True, "backward's row kernel"),
     ((32, 128, 72, 40), BF16, True, "backward's row kernel needs 233728 bytes"),
     ((32, 16, 8, 8), torch.float16, False, "float32 or bfloat16"),
 ])
@@ -91,12 +94,17 @@ def test_the_limits_follow_the_kernels_layouts():
     """The widest bf16 C is 1536 (the block's 64 rows of pre in 24 k-blocks
     of 8 KB beside one 16 KB ring stage a warpgroup; up to C 1024 the rings
     have 3 stages, up to C 1280 two), whatever the matching widths; float32
-    takes wider C (16 rows a block), 2,688 at M1 = 128; the backward's row
-    kernel bounds the widths of training alone (M2 = M3 = 1,024 fit the f32
-    forward, not the backward).  The byte counts are those the libraries
-    report for these widths (``cand_score_fwd_smem_bytes``,
-    ``cand_score_bwd_rows_smem_bytes``; the card tests compare them)."""
-    assert cand_scorer._f32_fwd_smem_bytes(1024, 128, 64, 32) == 125696
+    takes any C (its forward forms pre in registers, k block by k block,
+    and keeps none: 99,392 bytes of ring and first-layer sums), and its matching tail's
+    16 rows bound M1 + M2 + M3 at 3,632; the backward's row kernel bounds
+    the widths of training alone (M2 = M3 = 1,024 fit the f32 forward, not
+    the backward).  The byte counts are those the libraries report for these
+    widths (``cand_score_fwd_smem_bytes``, ``cand_score_bwd_rows_smem_bytes``;
+    the card tests compare them)."""
+    assert cand_scorer._f32_fwd_smem_bytes(1024, 128, 64, 32) == 99392
+    assert cand_scorer._f32_fwd_smem_bytes(32, 16, 1024, 1024) == 132096
+    assert kernel_takes(16384, 128, 64, 32, F32, train=True)
+    assert kernel_takes(32, 16, 1808, 1808, F32) and not kernel_takes(32, 16, 1808, 1809, F32)
     assert cand_scorer._bwd_smem_bytes(128, 64, 32, BF16) == 225536
     assert cand_scorer._bwd_smem_bytes(128, 64, 32, F32) == 190080
     assert kernel_takes(1536, 128, 128, 128, BF16) and kernel_takes(1529, 128, 64, 32, BF16)
@@ -106,6 +114,28 @@ def test_the_limits_follow_the_kernels_layouts():
     assert kernel_takes(32, 16, 1024, 1024, F32)
     assert not kernel_takes(32, 16, 1024, 1024, F32, train=True)
     assert "backward's row kernel" in kernel_limit(32, 16, 1024, 1024, F32, train=True)
+
+
+def test_f32_takes_every_width_the_cuda_core_forward_took():
+    """The split-TF32 forward (PR 15) takes every width the CUDA-core f32
+    forward it replaced took: that kernel's shared memory (16 rows of pre, C
+    padded to 64, + 4, or the epilogue's rows aliasing them, then its tiles:
+    the closed form below) had to fit the 227 KB a block may use, with M1 up
+    to 128; for training the backward's row kernel is unchanged."""
+    def cuda_core_bytes(c, m1, m2, m3):
+        m1_pad = -(-m1 // 16) * 16
+        rows = max(-(-c // 64) * 64 + 4, m1_pad + 4 + m2 + m3)
+        return -(-64 * rows // 128) * 128 + 256 * (m1_pad + 4) + 26112
+
+    for c in (8, 37, 512, 1024, 1030, 2048, 2688, 2752, 3072, 3136):
+        for m1, m2, m3 in ((16, 8, 8), (128, 64, 32), (9, 5, 3), (128, 1024, 1024),
+                           (16, 1280, 1280), (128, 1200, 1200), (64, 2500, 1)):
+            if m1 <= 128 and cuda_core_bytes(c, m1, m2, m3) <= cand_scorer._SMEM_LIMIT:
+                for train in (False, True):
+                    took = train is False or cand_scorer._bwd_smem_bytes(
+                        m1, m2, m3, F32) <= cand_scorer._SMEM_LIMIT
+                    assert not took or kernel_takes(c, m1, m2, m3, F32, train=train), (
+                        c, m1, m2, m3, train)
 
 
 # ---------------------------------------------------------------------------
