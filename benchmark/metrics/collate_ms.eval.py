@@ -1,0 +1,8 @@
+"""Host ms of one pull of a batch from the harness's collation
+(``data/collate.py::batches_from_sessions``, the span ``nar.collate``) in
+the traced eval hours."""
+from benchkit.spans import ms_per_call
+
+
+def read(run):
+    return ms_per_call(run, "nar.collate")

@@ -15,6 +15,11 @@ package's format (``train/checkpoint.py``).
 
 With ``cfg.use_pallas_rnn`` the session RNN runs through the hand-written
 CUDA kernel, two launches per ``recommend`` at two layers.
+
+``recommend`` opens four of the program's spans (``utils/profiling.py``):
+``nar.serve.candidates``, ``nar.serve.collate`` (its copies to the device
+included), ``nar.serve.score`` and ``nar.serve.wait`` (the answer's copies
+to the host).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from .data.collate import Session
 from .models.nar import NARAux, NARModel
 from .state.stream_state import StreamState, update_stream_state
 from .train.checkpoint import model_params
+from .utils.profiling import span
 from .utils.io import deserialize
 
 
@@ -151,14 +157,18 @@ class NARServer:
         if len(sessions) == 0:
             return (np.zeros((0, top_k), np.int32),
                     np.zeros((0, top_k), np.float32))
-        if candidates is None:
-            pool = self.default_candidates(num_candidates)
-            candidates = np.broadcast_to(pool, (len(sessions), len(pool)))
-        cand = torch.from_numpy(np.array(candidates, np.int32))  # a writable copy
-        ids, scores = self._score(
-            self._collate_serving(sessions), cand.to(self.device), top_k
-        )
-        return ids.cpu().numpy(), scores.cpu().numpy()
+        with span("nar.serve.candidates"):
+            if candidates is None:
+                pool = self.default_candidates(num_candidates)
+                candidates = np.broadcast_to(pool, (len(sessions), len(pool)))
+        with span("nar.serve.collate"):
+            cand = torch.from_numpy(np.array(candidates, np.int32))  # a writable copy
+            batch = self._collate_serving(sessions)
+            cand = cand.to(self.device)
+        with span("nar.serve.score"):
+            ids, scores = self._score(batch, cand, top_k)
+        with span("nar.serve.wait"):
+            return ids.cpu().numpy(), scores.cpu().numpy()
 
     def observe(self, sessions: Sequence[Session]) -> None:
         """Fold served sessions' clicks into the streaming state."""

@@ -34,6 +34,11 @@ the global shape and the rank keeps its block (the rank's compaction is
 group ``data_index`` of the single-device grouped step); the losses divide
 by the global valid-click count; the gradients are summed over the data
 group before Adam; the metrics are the global batch's.
+
+``train_step``'s phases are spans of the program (``utils/profiling.py``):
+``nar.train_step.sample`` (compaction and the sampler), ``.forward`` (the
+model and the loss), ``.backward``, ``.optimizer`` (the zero gradients,
+their sum under a mesh, Adam) and ``.stream``.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from ..ops.sampling import (
     sample_negatives_pooled_rows,
 )
 from ..state.stream_state import StreamState, update_stream_state
+from ..utils.profiling import span
 from .loss import l2_regularization
 
 
@@ -261,31 +267,35 @@ def train_step(
     model, cfg = state.model, state.model.cfg
     stream = state.stream
     with torch.enable_grad():
-        inputs = _train_inputs(model, stream, batch, ace_matrix, metadata,
-                               state.generator, uniforms, shard)
-        forward = model if shard is None else shard.model_call(model)
-        out = forward(batch, inputs.aux, inputs.neg_ids, train=True,
-                      neg_pool=inputs.pool, neg_pool_idx=inputs.neg_idx,
-                      scoring_rows=inputs.scoring_rows, generator=state.generator)
-        if shard is None:
-            reg = l2_regularization(model, cfg.reg_weight_decay)
-            loss = out.ce_loss + reg - out.nov_reg_loss
-            local_loss = loss
-        else:
-            # the L2 term's gradient counts once in the data group's sum
-            own_reg, reg = shard.l2(model, cfg.reg_weight_decay)
-            local_loss = (out.ce_loss + own_reg - out.nov_reg_loss if shard.counts_l2
-                          else out.ce_loss - out.nov_reg_loss)
-        state.optimizer.zero_grad(set_to_none=True)
-        local_loss.backward()
-    # optax updates every leaf; torch's Adam skips a parameter whose grad is
-    # None, so give such a parameter a zero gradient
-    for param in model.parameters():
-        if param.grad is None:
-            param.grad = torch.zeros_like(param)
-    if shard is not None:
-        shard.sync_grads(model)
-    state.optimizer.step()
+        with span("nar.train_step.sample"):
+            inputs = _train_inputs(model, stream, batch, ace_matrix, metadata,
+                                   state.generator, uniforms, shard)
+        with span("nar.train_step.forward"):
+            forward = model if shard is None else shard.model_call(model)
+            out = forward(batch, inputs.aux, inputs.neg_ids, train=True,
+                          neg_pool=inputs.pool, neg_pool_idx=inputs.neg_idx,
+                          scoring_rows=inputs.scoring_rows, generator=state.generator)
+            if shard is None:
+                reg = l2_regularization(model, cfg.reg_weight_decay)
+                loss = out.ce_loss + reg - out.nov_reg_loss
+                local_loss = loss
+            else:
+                # the L2 term's gradient counts once in the data group's sum
+                own_reg, reg = shard.l2(model, cfg.reg_weight_decay)
+                local_loss = (out.ce_loss + own_reg - out.nov_reg_loss if shard.counts_l2
+                              else out.ce_loss - out.nov_reg_loss)
+        with span("nar.train_step.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            local_loss.backward()
+    with span("nar.train_step.optimizer"):
+        # optax updates every leaf; torch's Adam skips a parameter whose
+        # grad is None, so give such a parameter a zero gradient
+        for param in model.parameters():
+            if param.grad is None:
+                param.grad = torch.zeros_like(param)
+        if shard is not None:
+            shard.sync_grads(model)
+        state.optimizer.step()
     ce_loss, dropped = out.ce_loss.detach(), inputs.dropped
     if shard is None:
         sessions, clicks = (batch["session_size"] > 0).sum(), out.loss_mask.sum()
@@ -304,7 +314,8 @@ def train_step(
     }
     if dropped is not None:
         metrics["dropped_clicks"] = dropped
-    new_stream = update_stream_state(stream, inputs.all_clicked, inputs.all_ts, cfg)
+    with span("nar.train_step.stream"):
+        new_stream = update_stream_state(stream, inputs.all_clicked, inputs.all_ts, cfg)
     return state._replace(stream=new_stream, step=state.step + 1), metrics
 
 

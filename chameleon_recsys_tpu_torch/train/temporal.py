@@ -34,6 +34,15 @@ and the eval logs.  So the eval row is the one-device row (a stochastic
 baseline draws per rank).  Rank 0 alone writes ``model_dir``, the store and
 the pickle checkpoint (gathered from every rank's rows); in the directory
 checkpoint every rank writes its own rows.
+
+The hours open the program's spans (``utils/profiling.py::span``), a batch
+at a time: ``nar.collate``, ``nar.put_batch``, ``nar.train_step`` (with
+``train/steps.py``'s ``nar.train_step.*`` inside), ``nar.host_tier`` and
+the hour's ``nar.train.wait``; in an eval hour ``nar.eval.setup``,
+``nar.collate``, ``nar.eval.dispatch``, ``nar.eval.wait``,
+``nar.eval.metrics``, ``nar.eval.baselines``, ``nar.eval.cold_start``,
+``nar.host_tier`` and ``nar.eval.results``.  They cost a flag check while
+tracing is off; ``last_eval_phase_seconds`` sums the eval spans either way.
 """
 from __future__ import annotations
 
@@ -69,7 +78,7 @@ from ..utils.io import (
     save_eval_benchmark_metrics_csv,
     serialize,
 )
-from ..utils.profiling import ThroughputMeter
+from ..utils.profiling import ThroughputMeter, span, spanned
 from ..utils.summary import HistogramWriter, ScalarWriter
 from .checkpoint import (
     load_train_state_dcp,
@@ -350,9 +359,11 @@ class TemporalHarness:
         self._ensure_initialized()
         n_steps, step_metrics, first_step = 0, [], self.host_state.current_step + 1
         self.train_meter.start()
-        for np_batch in self._batches(sessions):
-            batch = self._put_batch(np_batch)
-            self.state, metrics = self._train_step(batch)
+        for np_batch in spanned("nar.collate", self._batches(sessions)):
+            with span("nar.put_batch"):
+                batch = self._put_batch(np_batch)
+            with span("nar.train_step"):
+                self.state, metrics = self._train_step(batch)
             # keep the device scalars: converting here would sync every step
             step_metrics.append(metrics)
             n_steps += 1
@@ -363,9 +374,10 @@ class TemporalHarness:
             # (reference nar_model.py:1628-1650 runs in both modes).
             # First-click tracking is unconditional like the reference hook
             # (nar_model.py:1481-1494).
-            self._register_batch_clicks(np_batch)
-            if self._host_tier:
-                self._train_host_side(np_batch)
+            with span("nar.host_tier"):
+                self._register_batch_clicks(np_batch)
+                if self._host_tier:
+                    self._train_host_side(np_batch)
             self.train_meter.start()
         # one fetch of the hour's scalars, inside the meter: it waits for the
         # device, so the train throughput counts the device's work.  float64
@@ -374,11 +386,12 @@ class TemporalHarness:
         names = ["ce_loss"]
         if self.scalar_writer is not None and step_metrics:
             names = sorted(step_metrics[0])
-        fetched = (
-            torch.stack([torch.stack([m[k].double() for k in names])
-                         for m in step_metrics]).cpu().tolist()
-            if step_metrics else []
-        )
+        with span("nar.train.wait"):
+            fetched = (
+                torch.stack([torch.stack([m[k].double() for k in names])
+                             for m in step_metrics]).cpu().tolist()
+                if step_metrics else []
+            )
         self.train_meter.stop(0)
         self.hours_trained += 1
         if self.scalar_writer is not None and fetched:
@@ -455,23 +468,10 @@ class TemporalHarness:
         """Full eval pass over one hour; stream/host state snapshotted and
         restored afterwards (the temporal-protocol guard)."""
         self._ensure_initialized()
-        # The steps never write a stream tensor in place (each returns new
-        # ones), so holding the references is the snapshot.
-        stream_snapshot = self.state.stream
-        self.host_state.save_state_checkpoint()
-
-        # Metric sets are rebuilt per eval with the current buffer snapshot
-        # (ItemCoverage seeds its clicked-items set from it).
-        self._refresh_state_view()
-        streaming = self._new_metric_set()
-        for clf in self.bench_classifiers:
-            clf.streaming_metrics = self._new_metric_set()
-
-        hit_sum = rr_sum = label_count = 0.0
-        sessions_count = clicks_count = 0
-        t_start = time.time()
         # Per-phase wall accounting, exposed as self.last_eval_phase_seconds;
         # "device" is the dispatch plus the wait for the batch's fetches.
+        # Each phase is the sum of its spans, timed whether tracing is on
+        # or off.
         phases = {
             "device": 0.0,
             "chameleon_metrics": 0.0,
@@ -479,6 +479,22 @@ class TemporalHarness:
             "cold_start": 0.0,
             "host_state": 0.0,
         }
+        with span("nar.eval.setup"):
+            # The steps never write a stream tensor in place (each returns
+            # new ones), so holding the references is the snapshot.
+            stream_snapshot = self.state.stream
+            self.host_state.save_state_checkpoint()
+
+            # Metric sets are rebuilt per eval with the current buffer
+            # snapshot (ItemCoverage seeds its clicked-items set from it).
+            self._refresh_state_view()
+            streaming = self._new_metric_set()
+            for clf in self.bench_classifiers:
+                clf.streaming_metrics = self._new_metric_set()
+
+        hit_sum = rr_sum = label_count = 0.0
+        sessions_count = clicks_count = 0
+        t_start = time.time()
 
         # The loop is a one-step-lookahead pipeline: batch i+1's eval step is
         # dispatched, and its device->host copies queued, before batch i's
@@ -498,14 +514,13 @@ class TemporalHarness:
             host, event = self._fetch_async(wanted)
             return np_batch, host, event
 
-        batch_iter = iter(self._batches(sessions))
+        batch_iter = spanned("nar.collate", self._batches(sessions))
         pending = None
         while True:
             np_next = next(batch_iter, None)
             if np_next is not None:
-                t0 = time.perf_counter()
-                current = _dispatch(np_next)
-                phases["device"] += time.perf_counter() - t0
+                with span("nar.eval.dispatch", phases, "device"):
+                    current = _dispatch(np_next)
             else:
                 current = None
             if pending is None:
@@ -515,120 +530,121 @@ class TemporalHarness:
                 continue
             np_batch, host, event = pending
 
-            t0 = time.perf_counter()
-            if event is not None:
-                event.synchronize()
-            hit_sum += float(host["m_hit_sum"])
-            rr_sum += float(host["m_rr_sum"])
-            label_count += float(host["m_label_count"])
-            clicks_count += int(host["m_clicks"])
-            sessions_count += int(host["m_sessions"])
+            with span("nar.eval.wait", phases, "device"):
+                if event is not None:
+                    event.synchronize()
+                hit_sum += float(host["m_hit_sum"])
+                rr_sum += float(host["m_rr_sum"])
+                label_count += float(host["m_label_count"])
+                clicks_count += int(host["m_clicks"])
+                sessions_count += int(host["m_sessions"])
+                if self._host_tier:
+                    fetched = (
+                        host["predicted_ids"].numpy(),
+                        host["predicted_probs"].numpy() if "predicted_probs" in host
+                        else None,
+                        host["labels"].numpy(),
+                        host["neg_items"].numpy(),
+                        host["clicked_items"].numpy(),
+                    )
+                    view_arrays = (host["view_buffer_ids"], host["view_recent_pop_norm"],
+                                   host["view_global_pop"])
+                    pop_norm = self._state_view.get_articles_recent_pop_norm()
             if not self._host_tier:
                 pending = current
                 if pending is None:
                     break
                 continue
-            fetched = (
-                host["predicted_ids"].numpy(),
-                host["predicted_probs"].numpy() if "predicted_probs" in host else None,
-                host["labels"].numpy(),
-                host["neg_items"].numpy(),
-                host["clicked_items"].numpy(),
-            )
-            view_arrays = (host["view_buffer_ids"], host["view_recent_pop_norm"],
-                           host["view_global_pop"])
-            pop_norm = self._state_view.get_articles_recent_pop_norm()
-            phases["device"] += time.perf_counter() - t0
 
             ranked = None
             if self._sharded is not None:
-                t0 = time.perf_counter()
-                ranked, fetched = self._rank_blocks(np_batch, fetched)
-                phases["benchmarks"] += time.perf_counter() - t0
+                with span("nar.eval.baselines", phases, "benchmarks"):
+                    ranked, fetched = self._rank_blocks(np_batch, fetched)
             preds, probs, labels, neg_items, clicked = fetched
             if self._primary:
-                t0 = time.perf_counter()
-                update_metrics(
-                    preds,
-                    labels,
-                    pop_norm[labels],
-                    pop_norm[preds],
-                    clicked,
-                    streaming,
-                    recommender="chameleon",
-                )
-                self._log_eval_batch(np_batch, labels, neg_items, preds, probs, pop_norm)
-                phases["chameleon_metrics"] += time.perf_counter() - t0
+                with span("nar.eval.metrics", phases, "chameleon_metrics"):
+                    update_metrics(
+                        preds,
+                        labels,
+                        pop_norm[labels],
+                        pop_norm[preds],
+                        clicked,
+                        streaming,
+                        recommender="chameleon",
+                    )
+                    self._log_eval_batch(np_batch, labels, neg_items, preds, probs,
+                                         pop_norm)
 
-                t0 = time.perf_counter()
-                if ranked is None:
-                    self._each_benchmark(
-                        lambda clf: clf.evaluate(
-                            np_batch["user_id"],
-                            clicked,
-                            labels,
-                            topk=self.cfg.metrics_top_n,
-                            eval_negative_items=neg_items,
+                with span("nar.eval.baselines", phases, "benchmarks"):
+                    if ranked is None:
+                        self._each_benchmark(
+                            lambda clf: clf.evaluate(
+                                np_batch["user_id"],
+                                clicked,
+                                labels,
+                                topk=self.cfg.metrics_top_n,
+                                eval_negative_items=neg_items,
+                            )
                         )
-                    )
-                else:
-                    self._each_benchmark(
-                        lambda clf: clf.record_eval(
-                            ranked[id(clf)], clicked, labels, topk=self.cfg.metrics_top_n
+                    else:
+                        self._each_benchmark(
+                            lambda clf: clf.record_eval(
+                                ranked[id(clf)], clicked, labels,
+                                topk=self.cfg.metrics_top_n
+                            )
                         )
-                    )
-                phases["benchmarks"] += time.perf_counter() - t0
             # Cold-start bookkeeping runs after this batch's first-click
             # registration (reference order, nar_model.py:1481-1494).
-            self._register_batch_clicks(np_batch)
+            with span("nar.host_tier"):
+                self._register_batch_clicks(np_batch)
             if self.eval_cold_start and self._primary:
-                t0 = time.perf_counter()
-                self._update_cold_start(np_batch, labels, neg_items, preds)
-                phases["cold_start"] += time.perf_counter() - t0
+                with span("nar.eval.cold_start", phases, "cold_start"):
+                    self._update_cold_start(np_batch, labels, neg_items, preds)
             # force_refresh: the eval metric tier needs the view advanced to
             # this batch's post-step state, captured at dispatch time (the
             # state is one step ahead by now).
-            t0 = time.perf_counter()
-            self._train_host_side(
-                np_batch, force_refresh=True, refresh_arrays=view_arrays
-            )
-            phases["host_state"] += time.perf_counter() - t0
+            with span("nar.host_tier", phases, "host_state"):
+                self._train_host_side(
+                    np_batch, force_refresh=True, refresh_arrays=view_arrays
+                )
             pending = current
             if pending is None:
                 break
         self.last_eval_phase_seconds = phases
 
-        row: Dict[str, float] = {
-            "hitrate_at_n": hit_sum / max(label_count, 1.0),
-            "mrr_at_n": rr_sum / max(label_count, 1.0),
-        }
-        if self._primary:
-            row.update(compute_metrics_results(streaming, recommender="chameleon"))
-            for clf in self.bench_classifiers:
-                row.update(compute_metrics_results(clf.streaming_metrics,
-                                                   clf.get_clf_suffix()))
-        row["clicks_count"] = clicks_count
-        row["sessions_count"] = sessions_count
-        row.update(self.train_meter.result())  # sessions/s since start
-        if self.eval_cold_start and self._primary:
-            row["coldstart_chameleon"] = self.cold_start_state.get_statistics()
-            for clf in self.bench_classifiers:
-                row[f"coldstart_{clf.get_clf_suffix()}"] = (
-                    clf.cold_start_state.get_statistics()
-                )
-        self.artifacts.eval_sessions_metrics_log.append(row)
-        log.info(
-            "eval done in %.1fs: HR@%d=%.4f MRR@%d=%.4f",
-            time.time() - t_start,
-            self.cfg.metrics_top_n,
-            row["hitrate_at_n"],
-            self.cfg.metrics_top_n,
-            row["mrr_at_n"],
-        )
+        with span("nar.eval.results"):
+            row: Dict[str, float] = {
+                "hitrate_at_n": hit_sum / max(label_count, 1.0),
+                "mrr_at_n": rr_sum / max(label_count, 1.0),
+            }
+            if self._primary:
+                row.update(compute_metrics_results(streaming, recommender="chameleon"))
+                for clf in self.bench_classifiers:
+                    row.update(compute_metrics_results(clf.streaming_metrics,
+                                                       clf.get_clf_suffix()))
+            row["clicks_count"] = clicks_count
+            row["sessions_count"] = sessions_count
+            row.update(self.train_meter.result())  # sessions/s since start
+            if self.eval_cold_start and self._primary:
+                row["coldstart_chameleon"] = self.cold_start_state.get_statistics()
+                for clf in self.bench_classifiers:
+                    row[f"coldstart_{clf.get_clf_suffix()}"] = (
+                        clf.cold_start_state.get_statistics()
+                    )
+            self.artifacts.eval_sessions_metrics_log.append(row)
+            log.info(
+                "eval done in %.1fs: HR@%d=%.4f MRR@%d=%.4f",
+                time.time() - t_start,
+                self.cfg.metrics_top_n,
+                row["hitrate_at_n"],
+                self.cfg.metrics_top_n,
+                row["mrr_at_n"],
+            )
 
-        # restore pre-eval streaming state (train must not see eval's future)
-        self.state = self.state._replace(stream=stream_snapshot)
-        self.host_state.restore_state_checkpoint()
+            # restore pre-eval streaming state (train must not see eval's
+            # future)
+            self.state = self.state._replace(stream=stream_snapshot)
+            self.host_state.restore_state_checkpoint()
         self.evals_done += 1
         return row
 

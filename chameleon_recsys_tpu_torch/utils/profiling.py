@@ -3,13 +3,21 @@
 The port of ``chameleon_recsys_tpu/utils/profiling.py``:
 
 - ``ThroughputMeter``, steps/s, sessions/s and clicks/s of one phase;
+- the program's spans (``span``, ``spanned``): named host intervals at
+  batch and call granularity in the train hour, the eval hour and
+  ``recommend``, nothing while tracing is off (``set_tracing``; a running
+  torch profiler also turns it on), seconds and calls in a registry
+  (``span_snapshot``, ``reset_spans``) while it is on, and profiler ranges
+  on the device's clock while a profiler runs;
 - the readers of a profiler trace, ``device_op_durations``,
   ``device_op_durations_by_track`` and ``device_op_totals``, over the Chrome
   trace the torch profiler writes (``torch_trace``, the counterpart of
   ``xla_trace``).  They count device events only (kernels, copies and
   memsets: Kineto's categories ``kernel``, ``gpu_memcpy``, ``gpu_memset``),
   never host events, whatever their names; a device's tracks are its
-  streams;
+  streams; ``span_breakdown`` reads the program's spans in such a trace:
+  their seconds, the device operations launched under each, and the
+  device's idle time under each;
 - ``device_call_times_ms`` and ``device_time_ms``, each call timed by CUDA
   events on the current stream;
 - ``cuda_ms`` (the mean over back-to-back calls by CUDA events),
@@ -21,6 +29,7 @@ The port of ``chameleon_recsys_tpu/utils/profiling.py``:
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import glob
@@ -62,14 +71,6 @@ class ThroughputMeter:
         self.sessions += sessions
         self.clicks += clicks
 
-    @contextlib.contextmanager
-    def measure(self, sessions: int = 0, clicks: int = 0):
-        self.start()
-        try:
-            yield
-        finally:
-            self.stop(1, sessions, clicks)
-
     def result(self) -> Dict[str, float]:
         dt = max(self.elapsed, 1e-9)
         return {
@@ -87,19 +88,125 @@ class ThroughputMeter:
 
 
 # ---------------------------------------------------------------------------
+# Program spans
+# ---------------------------------------------------------------------------
+
+# Tracing is on while ``set_tracing(True)`` holds or while a torch profiler
+# runs.  The registry is the process's: {span name: [seconds, calls]} of
+# the spans closed while tracing was on.  Spans are opened on the thread
+# that drives the harness or the server, never on a worker thread.
+_tracing = False
+_spans: Dict[str, List[float]] = {}
+SPAN_PREFIX = "nar."  # the names of the program's spans start so
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class _Off:
+    """The span of ``span(name)`` while tracing is off: it does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "into", "key", "t0", "mark")
+
+    def __init__(self, name: str, into: Optional[Dict[str, float]], key: Optional[str]):
+        self.name, self.into, self.key, self.mark = name, into, key, None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self.mark = torch.profiler.record_function(self.name)
+            self.mark.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        seconds = time.perf_counter() - self.t0
+        if self.mark is not None:
+            self.mark.__exit__(exc_type, exc, tb)
+        if self.into is not None:
+            self.into[self.key] += seconds
+        if _tracing or self.mark is not None:
+            entry = _spans.setdefault(self.name, [0.0, 0])
+            entry[0] += seconds
+            entry[1] += exc_type is not StopIteration
+        return False
+
+
+def span(name: str, into: Optional[Dict[str, float]] = None, key: Optional[str] = None):
+    """A span of the program around a ``with`` block.
+
+    While tracing is off it is one shared object that does nothing.  While
+    tracing is on it adds its host seconds and one call to the registry
+    (``span_snapshot``), and while a torch profiler runs it is also a
+    ``record_function`` range, a ``user_annotation`` event of the profiler's
+    Chrome trace on the clock of the device's events.  ``into[key]`` gains
+    its seconds whether tracing is on or off: a caller's own timer, kept
+    through the same span.  A block left by ``StopIteration`` (an
+    iterator's last pull, which finds no item) adds its seconds but no
+    call.  It never waits for the device."""
+    if _tracing or into is not None or _profiler_enabled():
+        return _Span(name, into, key)
+    return _OFF
+
+
+def spanned(name: str, iterable):
+    """The items of ``iterable``, each pull inside ``span(name)``."""
+    it = iter(iterable)
+    while True:
+        try:
+            with span(name):
+                item = next(it)
+        except StopIteration:
+            return
+        yield item
+
+
+def set_tracing(on: bool) -> bool:
+    """Turn the program's tracing on or off; returns what it was."""
+    global _tracing
+    was, _tracing = _tracing, bool(on)
+    return was
+
+
+def span_snapshot() -> Dict[str, Tuple[float, int]]:
+    """{span name: (seconds, calls)} since the last ``reset_spans``."""
+    return {name: (entry[0], entry[1]) for name, entry in _spans.items()}
+
+
+def reset_spans() -> None:
+    _spans.clear()
+
+
+# ---------------------------------------------------------------------------
 # Trace readers
 # ---------------------------------------------------------------------------
 
-def _device_events(trace_dir: str):
-    """(device ``X`` events, {(pid, tid): thread name}) of the last trace
-    file under ``trace_dir`` (``*.pt.trace.json``, gzipped or not)."""
+def trace_events(trace_dir: str) -> List[dict]:
+    """The events of the last trace file under ``trace_dir``
+    (``*.pt.trace.json``, gzipped or not); empty where there is none."""
     paths = sorted(glob.glob(trace_dir + "/**/*.pt.trace.json", recursive=True)
                    + glob.glob(trace_dir + "/**/*.pt.trace.json.gz", recursive=True))
     if not paths:
-        return [], {}
+        return []
     opener = gzip.open if paths[-1].endswith(".gz") else open
     with opener(paths[-1], "rt") as f:
-        events = json.load(f).get("traceEvents", [])
+        return json.load(f).get("traceEvents", [])
+
+
+def _device_events(trace_dir: str):
+    """(device ``X`` events, {(pid, tid): thread name}) of the last trace
+    file under ``trace_dir``."""
+    events = trace_events(trace_dir)
     threads = {
         (e.get("pid"), e.get("tid")): e.get("args", {}).get("name", "")
         for e in events if e.get("ph") == "M" and e.get("name") == "thread_name"
@@ -136,12 +243,129 @@ def device_op_totals(trace_dir: str) -> Dict[str, float]:
     return {k: sum(v) for k, v in device_op_durations(trace_dir).items()}
 
 
+@dataclass
+class SpanBreakdown:
+    """What a Chrome trace says of the program's spans over a stretch.
+    ``spans``: {name: (seconds, calls)}; ``launched``: {innermost span open
+    at the launch: (device operations, device seconds)}; ``idle_by_span``:
+    {innermost span open: seconds no device operation ran}.  ``none`` is
+    the key of what falls under no span."""
+
+    window_s: float
+    busy_s: float
+    spans: Dict[str, Tuple[float, int]]
+    launched: Dict[str, Tuple[int, float]]
+    idle_by_span: Dict[str, float]
+
+
+def _boundaries(spans: List[Tuple[float, float, str]]):
+    """(times, names): from ``times[i]`` to ``times[i + 1]`` the innermost
+    of the nested ``spans`` (start, end, name) open is ``names[i]`` (None
+    where none is)."""
+    times: List[float] = []
+    names: List[Optional[str]] = []
+
+    def at(t, name):
+        if times and t <= times[-1]:
+            names[-1] = name
+        else:
+            times.append(t)
+            names.append(name)
+
+    stack: List[Tuple[float, str]] = []  # (end, name), the innermost last
+
+    def close(until):
+        while stack and stack[-1][0] <= until:
+            t = stack.pop()[0]
+            at(t, stack[-1][1] if stack else None)
+
+    for s, e, name in sorted(spans, key=lambda x: (x[0], -x[1])):
+        close(s)
+        stack.append((e, name))
+        at(s, name)
+    close(float("inf"))
+    return times, names
+
+
+def _split_gap(g0: float, g1: float, times, names, idle: Dict[str, float]) -> None:
+    """Add the gap from ``g0`` to ``g1`` (us) to ``idle``, split among the
+    innermost spans open over it."""
+    k = bisect.bisect_right(times, g0) - 1
+    t = g0
+    while t < g1:
+        nxt = times[k + 1] if k + 1 < len(times) else g1
+        u = min(nxt, g1)
+        idle[(names[k] if k >= 0 else None) or "none"] += (u - t) / 1e6
+        t, k = u, k + 1
+
+
+def span_breakdown(events: List[dict], start: Optional[float] = None,
+                   end: Optional[float] = None) -> SpanBreakdown:
+    """The program's spans in a Chrome trace's ``events`` (the
+    ``user_annotation`` events of ``span`` named ``nar.*``), over the
+    stretch from ``start`` to ``end`` (us, the trace's clock; by default
+    the first span's start to the last one's end).  Each kernel, copy or memset counts under the
+    innermost span open, on any thread, when its launch (the runtime call
+    of the same ``correlation``) started: the autograd engine launches the
+    backward from its own thread.  Each idle gap of the device is split
+    among the innermost spans open over it."""
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), str(e["name"]))
+             for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith(SPAN_PREFIX)]
+    if start is None:
+        start = min((s for s, _, _ in spans), default=0.0)
+    if end is None:
+        end = max((t for _, t, _ in spans), default=start)
+    spans = [x for x in spans if start <= x[0] < end]
+    by_name: Dict[str, List[float]] = collections.defaultdict(lambda: [0.0, 0])
+    for s, t, name in spans:
+        by_name[name][0] += (t - s) / 1e6
+        by_name[name][1] += 1
+    launches = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    times, names = _boundaries(spans)
+
+    def under(t):
+        k = bisect.bisect_right(times, t) - 1
+        return (names[k] if k >= 0 else None) or "none"
+
+    launched: Dict[str, List[float]] = collections.defaultdict(lambda: [0, 0.0])
+    busy = []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
+            continue
+        s = float(e["ts"])
+        s0, s1 = max(s, start), min(s + float(e.get("dur", 0.0)), end)
+        if s1 <= s0:
+            continue
+        busy.append((s0, s1))
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        entry = launched[under(launch) if launch is not None else "none"]
+        entry[0] += 1
+        entry[1] += (s1 - s0) / 1e6
+    idle: Dict[str, float] = collections.defaultdict(float)
+    prev, busy_s = start, 0.0
+    for s, t in sorted(busy) + [(end, end)]:
+        if s > prev:
+            _split_gap(prev, s, times, names, idle)
+        busy_s += max(0.0, t - max(s, prev))
+        prev = max(prev, t)
+    return SpanBreakdown((end - start) / 1e6, busy_s / 1e6,
+                         {k: (v[0], int(v[1])) for k, v in by_name.items()},
+                         {k: (int(v[0]), v[1]) for k, v in launched.items()},
+                         dict(idle))
+
+
 @contextlib.contextmanager
 def torch_trace(log_dir: str, enabled: bool = True):
     """A torch-profiler trace of the block written under ``log_dir`` as a
     Chrome trace (``*.pt.trace.json``; the readers above, TensorBoard or
     Perfetto read it), the card's activity included where there is a card;
-    yields the profiler (None when not ``enabled``)."""
+    yields the profiler (None when not ``enabled``).  Tracing is on inside
+    the block, so the trace carries the program's spans (``span``) on the
+    clock of the device's events, and the registry counts them: the
+    operator's way to see both at once (``span_breakdown`` reads them)."""
     if not enabled:
         yield None
         return
@@ -150,9 +374,13 @@ def torch_trace(log_dir: str, enabled: bool = True):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(str(log_dir))) as prof:
-        yield prof
+    was = set_tracing(True)
+    try:
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(str(log_dir))) as prof:
+            yield prof
+    finally:
+        set_tracing(was)
 
 
 # ---------------------------------------------------------------------------
