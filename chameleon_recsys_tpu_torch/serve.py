@@ -16,10 +16,14 @@ package's format (``train/checkpoint.py``).
 With ``cfg.use_pallas_rnn`` the session RNN runs through the hand-written
 CUDA kernel, two launches per ``recommend`` at two layers.
 
+On a CUDA device the scoring of a request shape seen before replays one
+CUDA graph (``serve_graphs.py``); on the CPU it runs eagerly.
+
 ``recommend`` opens four of the program's spans (``utils/profiling.py``):
 ``nar.serve.candidates``, ``nar.serve.collate`` (its copies to the device
 included), ``nar.serve.score`` and ``nar.serve.wait`` (the answer's copies
-to the host).
+to the host); inside ``nar.serve.score``, ``nar.serve.capture`` around a
+graph's capture and ``nar.serve.replay`` around a replay.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from .config import ArticleFeaturesSchema, NARConfig, SessionFeaturesSchema
 from .convert import stream_from_numpy
 from .data.collate import Session
 from .models.nar import NARAux, NARModel
+from .serve_graphs import ScoreGraphs
 from .state.stream_state import StreamState, update_stream_state
 from .train.checkpoint import model_params
 from .utils.profiling import span
@@ -68,6 +73,7 @@ class NARServer:
         self.model.load_state_dict(params, strict=True)
         self.model.to(self.device).eval()
         self.stream = StreamState(*(x.to(self.device) for x in stream))
+        self.graphs = ScoreGraphs(self._score) if self.device.type == "cuda" else None
 
     @classmethod
     def from_checkpoint(
@@ -91,8 +97,9 @@ class NARServer:
         )
 
     # ------------------------------------------------------------------
-    def _collate_serving(self, sessions: Sequence[Session]) -> Dict[str, torch.Tensor]:
-        """Serving collation: ALL clicks are inputs (no label shift)."""
+    def _collate_serving(self, sessions: Sequence[Session]) -> Dict[str, np.ndarray]:
+        """Serving collation on the host: ALL clicks are inputs (no label
+        shift); every session is padded to ``max_inputs_length``."""
         t = self.cfg.max_inputs_length
         b = len(sessions)
         batch = {
@@ -114,15 +121,16 @@ class NARServer:
             for spec in ctx_specs:
                 vals = s.context.get(spec.name, [0] * n)[-t:]
                 batch[spec.name][i, : len(vals)] = vals
-        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        return batch
 
     @torch.inference_mode()
-    def _score(self, batch, candidates: torch.Tensor, top_k: int):
+    def _score(self, batch, candidates: torch.Tensor, top_k: int,
+               recent_pop_norm: torch.Tensor, buffer_ids: torch.Tensor):
         aux = NARAux(
             ace_matrix=self.ace_matrix,
             metadata=self.metadata,
-            recent_pop_norm=self.stream.recent_pop_norm,
-            buffer_ids=self.stream.buffer_ids,
+            recent_pop_norm=recent_pop_norm,
+            buffer_ids=buffer_ids,
         )
         # position t predicts click t+1: score at each session's last click
         last_pos = torch.clamp_min(batch["session_size"].long() - 2, 0)
@@ -162,11 +170,24 @@ class NARServer:
                 pool = self.default_candidates(num_candidates)
                 candidates = np.broadcast_to(pool, (len(sessions), len(pool)))
         with span("nar.serve.collate"):
-            cand = torch.from_numpy(np.array(candidates, np.int32))  # a writable copy
+            cand = np.array(candidates, np.int32)  # a contiguous copy
             batch = self._collate_serving(sessions)
-            cand = cand.to(self.device)
+            key = (len(sessions), cand.shape[1], top_k)
+            graph = self.graphs.get(key) if self.graphs is not None else None
+            if graph is not None:
+                graph.load(batch, cand)
+            else:
+                batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+                cand = torch.from_numpy(cand).to(self.device)
         with span("nar.serve.score"):
-            ids, scores = self._score(batch, cand, top_k)
+            if graph is not None:
+                with span("nar.serve.replay"):
+                    ids, scores = graph.replay(self.stream)
+            elif self.graphs is not None:
+                ids, scores = self.graphs.score_unheld(key, batch, cand, top_k, self.stream)
+            else:
+                ids, scores = self._score(batch, cand, top_k, self.stream.recent_pop_norm,
+                                          self.stream.buffer_ids)
         with span("nar.serve.wait"):
             return ids.cpu().numpy(), scores.cpu().numpy()
 

@@ -1415,3 +1415,147 @@ def test_directory_checkpoint_round_trip_on_card(card, monkeypatch, tmp_path):
                             by_pickle.state.model.parameters()):
         if name != "matching_out_bias":
             assert (p - q).abs().max().item() <= 1e-5, name
+
+
+# ---------------------------------------------------------------------------
+# serving: the recommend call's scoring replayed as one CUDA graph a shape
+# ---------------------------------------------------------------------------
+
+GRAPH_SHAPES = ((32, 500, 10), (1, 64, 5))  # (sessions, candidates, top_k)
+
+
+def _graph_server(card, dtype):
+    """A small served model (bf16 or f32, the UGRNN on its kernel) over
+    1,200 articles, its stream warmed by one batch, live sessions and two
+    more batches to observe; candidates a row, three of them padding."""
+    FeatureSpec = port.FeatureSpec
+    n = 1200
+    article_schema = port.ArticleFeaturesSchema(features=(
+        FeatureSpec("article_id", "categorical", n),
+        FeatureSpec("created_at_ts", "numerical", dtype="int"),
+        FeatureSpec("category_id", "categorical", 12),
+    ))
+    session_schema = port.SessionFeaturesSchema(sequence=(
+        FeatureSpec("event_timestamp", "numerical", dtype="int"),
+        FeatureSpec("item_clicked", "categorical", n),
+        FeatureSpec("device", "categorical", 5),
+        FeatureSpec("hour_sin", "numerical", dtype="float"),
+    ))
+    cfg = port.NARConfig(
+        car_embedding_size=32, rnn_units=24, rnn_num_layers=2,
+        matching_layer_sizes=(16, 8, 8), recent_clicks_buffer_max_size=256,
+        recent_clicks_for_normalization=128, batch_size=32, max_session_length=8,
+        use_pallas_rnn=True, compute_dtype=dtype,
+    )
+    corpus = make_synthetic_corpus(article_schema, ace_dim=16)
+    model = port.NARModel(cfg, session_schema, article_schema, 16)
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    server = port.NARServer(
+        cfg, session_schema, article_schema, model.state_dict(),
+        init_stream_state(cfg, n, device=card), corpus.ace_matrix, corpus.metadata,
+        device=card,
+    )
+    sessions = synthetic_hour_sessions(corpus, session_schema, 0, 96,
+                                       cfg.max_session_length)
+    server.observe(sessions[64:])
+    rng = np.random.RandomState(5)
+    cands = {}
+    for b, c, _ in GRAPH_SHAPES:
+        rows = np.stack([rng.choice(np.arange(1, n), c, replace=False) for _ in range(b)])
+        rows[:, -3:] = 0
+        cands[(b, c)] = rows.astype(np.int32)
+    return cfg, server, sessions[:32], sessions[32:64], cands
+
+
+def _eager(server, sessions, cand, top_k):
+    """``_score`` run eagerly on the live stream, as the CPU runs it."""
+    batch = {k: torch.from_numpy(v).to(server.device)
+             for k, v in server._collate_serving(sessions).items()}
+    ids, scores = server._score(batch, torch.from_numpy(cand).to(server.device), top_k,
+                                server.stream.recent_pop_norm, server.stream.buffer_ids)
+    return ids.cpu().numpy(), scores.cpu().numpy()
+
+
+def _assert_same_answer(got, want, what):
+    np.testing.assert_array_equal(got[0], want[0], err_msg=what)
+    np.testing.assert_array_equal(got[1], want[1], err_msg=what)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_recommend_replays_one_graph_per_request_shape(card, dtype):
+    """Eager (first call), captured (second) and replayed (third) answers
+    are the same bits; a replay counts the UGRNN kernel's launches as the
+    eager call does; after ``observe`` the replay answers on the new stream;
+    the profiler sees the kernel inside the replayed graph."""
+    from chameleon_recsys_tpu_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, server, live, more, cands = _graph_server(card, dtype)
+    was = profiling.set_tracing(True)
+    profiling.reset_spans()
+    try:
+        for b, c, k in GRAPH_SHAPES:
+            req, cand = live[:b], cands[(b, c)]
+            outs, launches = [], []
+            for _ in range(3):
+                before = (ugrnn.launches, ugrnn.resident_launches)
+                outs.append(server.recommend(req, candidates=cand, top_k=k))
+                launches.append((ugrnn.launches - before[0],
+                                 ugrnn.resident_launches - before[1]))
+            assert launches == [(cfg.rnn_num_layers, cfg.rnn_num_layers)] * 3, launches
+            assert outs[0][0].shape == (b, k) and np.isfinite(outs[0][1]).all()
+            assert not np.isin(outs[0][0], 0).any()  # padding scores -inf
+            _assert_same_answer(outs[1], outs[0], f"captured against eager at {(b, c, k)}")
+            _assert_same_answer(outs[2], outs[0], f"replayed against eager at {(b, c, k)}")
+        spans = profiling.span_snapshot()
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset_spans()
+    assert list(server.graphs.graphs) == list(GRAPH_SHAPES)
+    assert spans["nar.serve.score"][1] == 3 * len(GRAPH_SHAPES)
+    assert spans["nar.serve.capture"][1] == spans["nar.serve.replay"][1] == len(GRAPH_SHAPES)
+
+    # observe replaces the stream's tensors: the replay reads the new ones
+    b, c, k = GRAPH_SHAPES[0]
+    req, cand = live[:b], cands[(b, c)]
+    stale = server.recommend(req, candidates=cand, top_k=k)
+    server.observe(more)
+    fresh = server.recommend(req, candidates=cand, top_k=k)
+    assert not np.array_equal(fresh[1], stale[1]), "the new stream changes no score"
+    _assert_same_answer(fresh, _eager(server, req, cand, k), "replayed after observe")
+
+    # the profiler sees the kernel's launches inside the replayed graph
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        server.recommend(req, candidates=cand, top_k=k)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("ugrnn_fwd" in n for n in names) == cfg.rnn_num_layers, names
+    assert len(server.graphs.graphs) == len(GRAPH_SHAPES)
+
+
+def test_score_graphs_hold_at_most_their_capacity(card):
+    """A key seen once never captures; a new capture past the capacity
+    evicts the least recently replayed key, which captures again when it
+    is seen twice more."""
+    _, server, live, _, cands = _graph_server(card, "bfloat16")
+    server.graphs.capacity = 2
+    cand = cands[(32, 500)]
+
+    def call(b, k):
+        return server.recommend(live[:b], candidates=cand[:b], top_k=k)
+
+    call(32, 10)
+    assert not server.graphs.graphs  # seen once: eager
+    for b in (32, 16, 16):
+        call(b, 10)
+    assert list(server.graphs.graphs) == [(32, 500, 10), (16, 500, 10)]
+    call(32, 10)  # replayed: now the most recent
+    call(8, 10)
+    call(8, 10)
+    assert list(server.graphs.graphs) == [(32, 500, 10), (8, 500, 10)]
+    call(16, 10)
+    assert (16, 500, 10) not in server.graphs.graphs
+    want = _eager(server, live[:16], cand[:16], 10)
+    _assert_same_answer(call(16, 10), want, "captured again after eviction")
+    assert list(server.graphs.graphs) == [(8, 500, 10), (16, 500, 10)]

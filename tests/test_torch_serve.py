@@ -36,6 +36,7 @@ from chameleon_recsys_tpu.state.stream_state import (
 import chameleon_recsys_tpu_torch as port
 from chameleon_recsys_tpu_torch.convert import params_from_flax, stream_from_numpy
 from chameleon_recsys_tpu_torch.ops.kernels import ugrnn as port_ugrnn
+from chameleon_recsys_tpu_torch.utils import profiling
 
 from conftest import tiny_article_schema, tiny_nar_config, tiny_session_schema
 
@@ -223,6 +224,30 @@ def test_recommend_from_default_pool(served, world):
     assert (np.diff(scores, axis=1) <= 0).all()
     ids, scores = port_server.recommend([], top_k=3)
     assert ids.shape == (0, 3) and scores.shape == (0, 3)
+
+
+def test_recommend_on_the_cpu_neither_captures_nor_replays(served, world):
+    """The CUDA graphs of ``serve_graphs.py`` are the card's: on the CPU every
+    call of one request shape runs ``_score`` eagerly, with the same answer."""
+    server = served["port_server"]
+    assert server.graphs is None
+    top_k = NUM_CANDIDATES - NUM_PADDING
+    was = profiling.set_tracing(True)
+    saved = profiling.span_snapshot()
+    profiling.reset_spans()
+    try:
+        outs = [server.recommend(world["live"], candidates=world["candidates"], top_k=top_k)
+                for _ in range(3)]
+        spans = profiling.span_snapshot()
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset_spans()
+        profiling._spans.update({k: list(v) for k, v in saved.items()})
+    assert spans["nar.serve.score"][1] == 3
+    assert "nar.serve.capture" not in spans and "nar.serve.replay" not in spans
+    for ids, scores in outs:
+        np.testing.assert_array_equal(ids, served["port_out"][0])
+        np.testing.assert_array_equal(scores, served["port_out"][1])
 
 
 def test_params_from_flax_rejects_mismatch(world):
