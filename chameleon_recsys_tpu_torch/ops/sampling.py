@@ -123,22 +123,25 @@ def _per_click_idx(u_click, new_seg, seg_end, valid, num_negatives):
 def draw_uniforms(
     generator: torch.Generator, b: int, l: int, buffer_size: int, *,
     num_negatives: int, buffer_sample_size: int, mult: int = 20,
-    rows: Optional[int] = None,
+    rows: Optional[int] = None, out: Optional[SamplerUniforms] = None,
 ) -> SamplerUniforms:
     """Draw the uniforms of one sampler call from ``generator``, on its
     device: per click of the [B, L] grid, or per selected row when ``rows``
-    (M) is given."""
+    (M) is given.  With ``out`` (uniforms of those shapes) the draws fill
+    its tensors in place, the same values in the same order as
+    ``torch.rand`` gives (``rand`` is ``uniform_`` on a new tensor)."""
     nc = min(num_negatives * mult, b * l + buffer_sample_size)
     device = generator.device
-
-    def uniform(*shape):
-        return torch.rand(shape, generator=generator, device=device)
-
-    return SamplerUniforms(
-        buffer=uniform(buffer_size),
-        pool=uniform(b * l + buffer_sample_size),
-        click=uniform(b, l, nc) if rows is None else uniform(rows, nc),
-    )
+    shapes = ((buffer_size,), (b * l + buffer_sample_size,),
+              (b, l, nc) if rows is None else (rows, nc))
+    if out is None:
+        return SamplerUniforms(*(torch.rand(shape, generator=generator, device=device)
+                                 for shape in shapes))
+    for tensor, shape in zip(out, shapes):
+        if tuple(tensor.shape) != shape:
+            raise ValueError(f"uniforms of shape {tuple(tensor.shape)}, expected {shape}")
+        tensor.uniform_(0.0, 1.0, generator=generator)
+    return out
 
 
 def sample_negatives_pooled(

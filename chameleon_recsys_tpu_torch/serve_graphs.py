@@ -22,51 +22,34 @@ tensors.  The parameters, the ACE matrix and the metadata are the server's
 and do not move (``load_state_dict`` copies in place).  The outputs are the
 graph's own ``ids`` and ``scores``; the caller copies them to the host
 before the next replay of any graph, because all graphs share one memory
-pool.  At most ``capacity`` keys hold a graph; a new capture evicts the
-least recently replayed, and a shape seen once never costs a capture.
-
-The hand-written kernels count their launches where Python launches them
-(``ops/kernels``), which a replay does not pass; a replay adds the counts
-its capture made, so ``launch_counts()`` keeps counting device launches.
+pool.  The rule of warm-up, capture and replay, the pool, the capacity
+and the launch counts are ``graphs.py``'s, which the eval step's graphs
+share.
 """
 from __future__ import annotations
 
-import collections
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
-from .ops.kernels import cand_scorer, ugrnn
+from .graphs import GraphCache
 from .utils.profiling import span
 
 Key = Tuple[int, int, int]  # (sessions, candidates, top_k)
-_COUNTING = (cand_scorer, ugrnn)  # the modules whose globals count launches
-
-
-def _launch_counters() -> Dict[Tuple[object, str], int]:
-    return {(module, name): value for module in _COUNTING
-            for name, value in vars(module).items()
-            if name.endswith("launches") and isinstance(value, int)}
 
 
 class ScoreGraph:
     """One captured scoring call: its input buffers, its copies of the
-    stream, its outputs and the kernel launches its capture counted."""
+    stream, and the graph with its outputs."""
 
     def __init__(self, score: Callable, batch: Dict[str, torch.Tensor],
-                 candidates: torch.Tensor, top_k: int, stream, pool,
-                 capture_stream: torch.cuda.Stream):
+                 candidates: torch.Tensor, top_k: int, stream, cache: GraphCache):
         self.batch, self.candidates = batch, candidates
         self.recent_pop_norm = stream.recent_pop_norm.clone()
         self.buffer_ids = stream.buffer_ids.clone()
-        before = _launch_counters()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=capture_stream):
-            self.ids, self.scores = score(batch, candidates, top_k,
-                                          self.recent_pop_norm, self.buffer_ids)
-        self.launches = {k: n - before.get(k, 0)
-                         for k, n in _launch_counters().items() if n != before.get(k, 0)}
+        self.captured = cache.capture(lambda: score(batch, candidates, top_k,
+                                                    self.recent_pop_norm, self.buffer_ids))
 
     def load(self, batch: Dict[str, np.ndarray], candidates: np.ndarray) -> None:
         """Copy a collated request from the host into the graph's buffers."""
@@ -78,52 +61,24 @@ class ScoreGraph:
         """The top-k (ids, scores) of the request last loaded, on ``stream``."""
         self.recent_pop_norm.copy_(stream.recent_pop_norm)
         self.buffer_ids.copy_(stream.buffer_ids)
-        self.graph.replay()
-        if count:
-            for (module, name), n in self.launches.items():
-                setattr(module, name, getattr(module, name) + n)
-        return self.ids, self.scores
+        return self.captured.replay(count)
 
 
-class ScoreGraphs:
-    """The graphs of one server, by request shape (least recently replayed
-    first), and the keys seen once since they last held a graph."""
-
-    capacity = 8  # keys that hold a graph
-    remembered = 64  # keys seen once that are remembered
+class ScoreGraphs(GraphCache):
+    """The graphs of one server, by request shape."""
 
     def __init__(self, score: Callable):
+        super().__init__()
         self.score = score
-        self.graphs: "collections.OrderedDict[Key, ScoreGraph]" = collections.OrderedDict()
-        self.seen: "collections.OrderedDict[Key, None]" = collections.OrderedDict()
-        self.pool = torch.cuda.graph_pool_handle()
-        self.side = torch.cuda.Stream()
-
-    def get(self, key: Key):
-        graph = self.graphs.get(key)
-        if graph is not None:
-            self.graphs.move_to_end(key)
-        return graph
 
     def score_unheld(self, key: Key, batch, candidates, top_k: int, stream):
         """A call whose key holds no graph: eager on the side stream the
         first time, captured (and replayed once) the second."""
-        if key not in self.seen:
-            self.seen[key] = None
-            if len(self.seen) > self.remembered:
-                self.seen.popitem(last=False)
-            main = torch.cuda.current_stream()
-            self.side.wait_stream(main)
-            with torch.cuda.stream(self.side):
-                out = self.score(batch, candidates, top_k, stream.recent_pop_norm,
-                                 stream.buffer_ids)
-            main.wait_stream(self.side)
-            return out
+        if self.first_sighting(key):
+            return self.warm_up(lambda: self.score(batch, candidates, top_k,
+                                                   stream.recent_pop_norm,
+                                                   stream.buffer_ids))
         with span("nar.serve.capture"):
-            del self.seen[key]
-            if len(self.graphs) >= self.capacity:
-                self.graphs.popitem(last=False)
-            graph = ScoreGraph(self.score, batch, candidates, top_k, stream, self.pool,
-                               self.side)
-            self.graphs[key] = graph
+            graph = self.hold(key, lambda: ScoreGraph(self.score, batch, candidates,
+                                                      top_k, stream, self))
             return graph.replay(stream, count=False)  # the capture counted

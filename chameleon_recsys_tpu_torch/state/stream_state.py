@@ -67,14 +67,16 @@ def _compact_front(ids, ts, valid):
 
 def _count_ids(ids: torch.Tensor, weights: torch.Tensor, num_items: int):
     """int32 histogram of ``ids`` weighted by ``weights``; out-of-range ids
-    are dropped (index_add_ would raise on them) and id 0 is zeroed."""
+    are dropped (index_add_ would raise on them) and id 0 is zeroed (by a
+    fill of the view: assigning a Python number through ``__setitem__``
+    copies it from the host and synchronises on the card)."""
     in_range = (ids >= 0) & (ids < num_items)
     counts = torch.zeros(num_items, dtype=torch.int32, device=ids.device)
     counts.index_add_(
         0, torch.where(in_range, ids, 0).long(),
         torch.where(in_range, weights, 0).to(torch.int32),
     )
-    counts[0] = 0
+    counts[0].zero_()
     return counts
 
 

@@ -22,7 +22,9 @@ model look the kept rows up in the flat grid.
 grid sampler, run the model over the whole [B, T] grid with ``rank=True``,
 sum the in-graph ranking metrics, and fold the batch's clicks into the
 stream (the temporal protocol snapshots and restores it around an eval
-hour).
+hour).  On the card a caller may hand it a graph cache
+(``train/eval_graphs.py``), which replays the step as one CUDA graph per
+batch shape with the same draws.
 
 A ``torch.Generator`` stands in for the JAX state's ``rng``; both steps take
 injected ``SamplerUniforms`` instead, for parity with the JAX draws.
@@ -345,6 +347,19 @@ def _eval_inputs(model, stream, batch, ace_matrix, metadata, generator, uniforms
     return aux, pool, neg_idx, neg_ids, all_clicked, all_ts
 
 
+def draw_eval_uniforms(cfg, batch, buffer_size: int, generator: torch.Generator,
+                       out: Optional[SamplerUniforms] = None) -> SamplerUniforms:
+    """The uniforms the eval step's grid sampler draws from ``generator``
+    for ``batch`` (into ``out`` when given), as it draws them itself."""
+    b, t = batch["item_clicked"].shape
+    return draw_uniforms(
+        generator, b, t + batch["label_last_item"].shape[1], buffer_size,
+        num_negatives=cfg.eval_negative_samples,
+        buffer_sample_size=cfg.eval_negative_sample_from_buffer,
+        mult=cfg.neg_sampling_multiplying_factor, out=out,
+    )
+
+
 @torch.inference_mode()
 def eval_step(
     model: NARModel,
@@ -357,6 +372,7 @@ def eval_step(
     fetch_full_ranking: bool = True,
     uniforms: Optional[SamplerUniforms] = None,
     shard=None,
+    graphs=None,
 ):
     """One eval batch -> (stream', metrics, fetches).
 
@@ -367,7 +383,25 @@ def eval_step(
     ``metrics_top_n`` predicted ids and no probabilities.  Under a mesh
     (``shard``) the metrics are the global batch's and the fetches the
     rank's rows.
+
+    ``graphs`` (``train/eval_graphs.py::EvalGraphs``, the caller's cache)
+    replays the step as one CUDA graph per batch shape, with the same
+    draws from ``generator``; it is taken only on a CUDA device, without
+    ``uniforms`` and without a mesh.  A replay returns copies of the
+    graph's outputs, which later replays leave as they are.
     """
+    if (graphs is not None and uniforms is None and shard is None
+            and batch["item_clicked"].is_cuda):
+        return graphs.step(model, stream, batch, ace_matrix, metadata,
+                           generator=generator, fetch_full_ranking=fetch_full_ranking)
+    return _eval_step(model, stream, batch, ace_matrix, metadata, generator=generator,
+                      fetch_full_ranking=fetch_full_ranking, uniforms=uniforms,
+                      shard=shard)
+
+
+def _eval_step(model, stream, batch, ace_matrix, metadata, *, generator,
+               fetch_full_ranking, uniforms, shard=None):
+    """``eval_step``'s device work, eager."""
     cfg = model.cfg
     aux, pool, neg_idx, neg_ids, all_clicked, all_ts = _eval_inputs(
         model, stream, batch, ace_matrix, metadata, generator, uniforms, shard

@@ -41,13 +41,21 @@ at a time: ``nar.collate``, ``nar.put_batch``, ``nar.train_step`` (with
 the hour's ``nar.train.wait``; in an eval hour ``nar.eval.setup``,
 ``nar.collate``, ``nar.eval.dispatch``, ``nar.eval.wait``,
 ``nar.eval.metrics``, ``nar.eval.baselines``, ``nar.eval.cold_start``,
-``nar.host_tier`` and ``nar.eval.results``.  They cost a flag check while
-tracing is off; ``last_eval_phase_seconds`` sums the eval spans either way.
+``nar.host_tier`` and ``nar.eval.results``; inside ``nar.eval.dispatch`` on
+the card, ``nar.eval.capture`` or ``nar.eval.replay``.  They cost a flag
+check while tracing is off; ``last_eval_phase_seconds`` sums the eval spans
+either way.
+
+On the card, without a mesh, the eval step is replayed as one CUDA graph
+per batch shape (``train/eval_graphs.py``; the harness hands its cache to
+``eval_step`` from the main thread), and collated batches go to the card
+through pinned host buffers without a host sync (``_Staging``).
 """
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
@@ -86,9 +94,39 @@ from .checkpoint import (
     save_train_state_dcp,
     unpack_train_state,
 )
+from .eval_graphs import EvalGraphs
 from .steps import TrainState, eval_step, init_train_state, train_step
 
 log = logging.getLogger("chameleon_recsys_tpu_torch.temporal")
+
+
+class _Staging:
+    """Copies of collated batches to the card through pinned host buffers,
+    two sets in turn, with no host sync: a set is rewritten only after the
+    copies that last read it have run (its event)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.sets: List[Optional[tuple]] = [None, None]
+        self.turn = 0
+
+    def put(self, np_batch) -> Dict[str, torch.Tensor]:
+        layout = {name: (v.shape, v.dtype) for name, v in np_batch.items()}
+        held = self.sets[self.turn]
+        if held is None or held[0] != layout:
+            buffers = {name: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                                         pin_memory=True)
+                       for name, v in np_batch.items()}
+            held = self.sets[self.turn] = (layout, buffers, torch.cuda.Event())
+        _, buffers, copied = held
+        copied.synchronize()  # returns at once where nothing was recorded
+        self.turn = 1 - self.turn
+        batch = {}
+        for name, values in np_batch.items():
+            np.copyto(buffers[name].numpy(), values)
+            batch[name] = buffers[name].to(self.device, non_blocking=True)
+        copied.record()
+        return batch
 
 
 @dataclass
@@ -258,6 +296,11 @@ class TemporalHarness:
             else None
         )
         self.histograms_every_n_hours = max(1, histograms_every_n_hours)
+        # the eval step's CUDA graphs and the batches' pinned staging: on
+        # the card without a mesh
+        on_card = self.device.type == "cuda" and mesh_plan is None
+        self._eval_graphs = EvalGraphs() if on_card else None
+        self._staging = _Staging(self.device) if on_card else None
         self.hours_trained = 0
         # Count of completed chunk evals — checkpointed so a resume from a
         # checkpoint taken between a chunk's train and its eval re-runs that
@@ -320,6 +363,8 @@ class TemporalHarness:
             from ..parallel.sharded import put_batch
 
             return put_batch(self._sharded, np_batch)
+        if self._staging is not None:
+            return self._staging.put(np_batch)
         return {k: torch.from_numpy(v).to(self.device) for k, v in np_batch.items()}
 
     def _train_step(self, batch):
@@ -335,8 +380,13 @@ class TemporalHarness:
             return self._sharded.eval_step(
                 self.state.model, self.state.stream, batch, self.ace_matrix,
                 self.metadata, **kwargs)
+        # a capture needs the card to itself: a harness on a worker thread
+        # (the sweep's parallel trials) may share it with others, so only
+        # the main thread hands the step its graphs
+        main = threading.current_thread() is threading.main_thread()
         return eval_step(self.state.model, self.state.stream, batch, self.ace_matrix,
-                         self.metadata, **kwargs)
+                         self.metadata, graphs=self._eval_graphs if main else None,
+                         **kwargs)
 
     def _batches(self, source):
         """Batch iterator over an hour's data: a Session sequence, or any

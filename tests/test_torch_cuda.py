@@ -1559,3 +1559,191 @@ def test_score_graphs_hold_at_most_their_capacity(card):
     want = _eager(server, live[:16], cand[:16], 10)
     _assert_same_answer(call(16, 10), want, "captured again after eviction")
     assert list(server.graphs.graphs) == [(8, 500, 10), (16, 500, 10)]
+
+
+# ---------------------------------------------------------------------------
+# eval: the eval step replayed as one CUDA graph a batch shape
+# ---------------------------------------------------------------------------
+
+EVAL_BATCHES = 5  # an hour: warm-up, capture, three replays
+
+
+def _eval_graph_harness(card, dtype, model_dir):
+    """A small harness on the card (the tiny eval world, the UGRNN and the
+    fused scorer on their kernels) after one train hour; its eval hours
+    hold ``EVAL_BATCHES`` batches."""
+    from chameleon_recsys_tpu_torch.config import RunConfig
+    from chameleon_recsys_tpu_torch.train.temporal import TemporalHarness
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, sess, art = _tiny_eval_world()
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, negative_samples=5,
+                              negative_sample_from_buffer=30)
+    corpus = make_synthetic_corpus(art, ace_dim=8)
+    n = EVAL_BATCHES * cfg.batch_size
+
+    def source(hour):
+        return synthetic_hour_sessions(corpus, sess, hour, n, cfg.max_session_length)
+
+    harness = TemporalHarness(cfg, RunConfig(model_dir=str(model_dir), random_seed=5), sess, art,
+                              corpus.ace_matrix, corpus.metadata, device=card)
+    harness.train_hour(source(0))
+    return cfg, harness, source
+
+
+def _recorded_hour(harness, sessions, monkeypatch):
+    """An eval hour, with each eval step's returns and launches: (row,
+    [(returns, their copies to the host at return, launches)])."""
+    from chameleon_recsys_tpu_torch.ops.kernels import launch_counts
+    from chameleon_recsys_tpu_torch.train import temporal
+
+    calls = []
+    original = temporal.eval_step
+
+    def recording(*a, **k):
+        before = launch_counts()
+        out = original(*a, **k)
+        after = launch_counts()
+        host = tuple({n: t.cpu() for n, t in part.items()} for part in
+                     (out[0]._asdict(), out[1], out[2]))
+        calls.append((out, host, {n: after[n] - before[n] for n in after
+                                  if after[n] != before[n]}))
+        return out
+
+    monkeypatch.setattr(temporal, "eval_step", recording)
+    row = harness.evaluate_hour(sessions)
+    monkeypatch.setattr(temporal, "eval_step", original)
+    return row, calls
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_eval_hour_replays_one_graph_per_batch_shape(card, dtype, monkeypatch, tmp_path):
+    """One eval hour graphed and one eager, from the same state and
+    generator state: the same negatives, ranking, probabilities and stream
+    after every batch, the same HR and MRR, the same generator state after
+    the hour and the pre-hour stream restored; tensors a call returned are
+    unchanged by later replays; one capture for the hour's one key; every
+    call counts the scorer's and the UGRNN's launches."""
+    from chameleon_recsys_tpu_torch.utils import profiling
+
+    cfg, harness, source = _eval_graph_harness(card, dtype, tmp_path)
+    harness.fetch_full_ranking = True  # the probabilities too
+    sessions = source(1)
+    before = {n: t.clone() for n, t in harness.state.stream._asdict().items()}
+    generator = harness.state.generator.get_state()
+    graphs = harness._eval_graphs
+    assert graphs is not None and not graphs.graphs
+
+    was = profiling.set_tracing(True)
+    profiling.reset_spans()
+    try:
+        graphed_row, graphed = _recorded_hour(harness, sessions, monkeypatch)
+        torch.cuda.synchronize()
+        spans = profiling.span_snapshot()
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset_spans()
+    graphed_generator = harness.state.generator.get_state()
+    for name, value in before.items():
+        assert torch.equal(getattr(harness.state.stream, name), value), name
+    assert len(graphed) == EVAL_BATCHES
+    assert spans["nar.eval.dispatch"][1] == EVAL_BATCHES
+    assert spans["nar.eval.capture"][1] == 1
+    assert spans["nar.eval.replay"][1] == EVAL_BATCHES - 2
+    assert len(graphs.graphs) == 1 and not graphs.seen
+    want = {"cand_score_fwd": 1, "ugrnn_fwd": cfg.rnn_num_layers}
+    for i, (_, _, launched) in enumerate(graphed):
+        assert {n: launched.get(n) for n in want} == want, (i, launched)
+    # what a call returned is its own: later replays leave it as it was
+    for i, (out, host, _) in enumerate(graphed):
+        for part, copies in zip((out[0]._asdict(), out[1], out[2]), host):
+            for name, tensor in part.items():
+                assert torch.equal(tensor.cpu(), copies[name]), (i, name)
+
+    harness._eval_graphs = None  # the eager step, from the same state
+    harness.state.generator.set_state(generator)
+    eager_row, eager = _recorded_hour(harness, sessions, monkeypatch)
+    assert torch.equal(harness.state.generator.get_state(), graphed_generator)
+    for name, value in before.items():
+        assert torch.equal(getattr(harness.state.stream, name), value), name
+    for i, ((_, got, _), (_, ref, _)) in enumerate(zip(graphed, eager)):
+        for part_got, part_ref in zip(got, ref):
+            assert list(part_got) == list(part_ref), i
+            for name, value in part_ref.items():
+                assert torch.equal(part_got[name], value), (i, name)
+    for key in ("hitrate_at_n", "mrr_at_n", "clicks_count", "sessions_count"):
+        assert graphed_row[key] == eager_row[key], key
+    assert eager_row["clicks_count"] > 0
+
+
+def test_eval_graphs_recapture_for_another_model(card, tmp_path):
+    """A graph holds the addresses of the parameters it read: a harness
+    whose model is built again drops its graphs and captures anew, with
+    the eager step's answers."""
+    cfg, harness, source = _eval_graph_harness(card, "bfloat16", tmp_path)
+    harness.evaluate_hour(source(1))
+    graphs = harness._eval_graphs
+    assert len(graphs.graphs) == 1
+    held = next(iter(graphs.graphs.values()))
+    old_model = harness.state.model  # alive: the new one takes other addresses
+    harness.init_state()
+    harness.train_hour(source(0))
+    generator = harness.state.generator.get_state()
+    graphed = harness.evaluate_hour(source(2))
+    assert len(graphs.graphs) == 1 and next(iter(graphs.graphs.values())) is not held
+    harness._eval_graphs = None
+    harness.state.generator.set_state(generator)
+    eager = harness.evaluate_hour(source(2))
+    assert (graphed["hitrate_at_n"], graphed["mrr_at_n"]) == (eager["hitrate_at_n"],
+                                                                eager["mrr_at_n"])
+    assert old_model is not harness.state.model
+
+
+def test_staged_batches_reach_the_card_as_collated(card, tmp_path):
+    """The harness's pinned staging: each put gives the collated arrays on
+    the card, also where a staging set comes round again while the card
+    has not yet read the batches put earlier."""
+    cfg, harness, source = _eval_graph_harness(card, "bfloat16", tmp_path)
+    batches = list(harness._batches(source(3)))
+    torch.cuda._sleep(50_000_000)  # keep the stream busy while the puts queue
+    put = [harness._put_batch(b) for b in batches]
+    for np_batch, batch in zip(batches, put):
+        assert list(batch) == list(np_batch)
+        for name, values in np_batch.items():
+            assert batch[name].is_cuda
+            np.testing.assert_array_equal(batch[name].cpu().numpy(), values, err_msg=name)
+
+
+def test_eval_and_train_steps_do_not_sync(card):
+    """One eval step and one train step, each after one to warm up, raise
+    nothing with the CUDA sync debug mode at "error": no host sync is left
+    in either (a graph's capture could not hold one)."""
+    cfg, sess, art = _tiny_eval_world()
+    cfg = dataclasses.replace(cfg, train_valid_row_capacity=48, negative_samples=5,
+                              negative_sample_from_buffer=30)
+    corpus = make_synthetic_corpus(art, ace_dim=8)
+    b, length = cfg.batch_size, cfg.max_session_length
+    batches = [{k: torch.from_numpy(v).to(card) for k, v in collate_sessions(
+        synthetic_hour_sessions(corpus, sess, h, b, length), sess, b, length).items()}
+        for h in range(3)]
+    ace = torch.from_numpy(corpus.ace_matrix).to(card)
+    metadata = {k: torch.from_numpy(np.asarray(v)).to(card)
+                for k, v in corpus.metadata.items()}
+    model = port.NARModel(cfg, sess, art, 8)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(card)
+    stream = update_stream_state(init_stream_state(cfg, 200, device=card),
+                                 *_batch_all_clicks(batches[0]), cfg)
+    state = init_train_state(model, stream, torch.Generator(device=card).manual_seed(1))
+    torch.cuda.synchronize()
+    for mode in ("default", "error"):
+        step = int(state.stream.current_step)
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            new_stream, _, _ = eval_step(model, state.stream, batches[1], ace, metadata,
+                                         generator=state.generator)
+            state, _ = train_step(state, batches[2], ace, metadata)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert int(new_stream.current_step) == int(state.stream.current_step) == step + 1

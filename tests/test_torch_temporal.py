@@ -32,6 +32,7 @@ mapping.
 
 The port's own checkpoint round trip and resume are bit-exact on the CPU.
 """
+import concurrent.futures
 import contextlib
 import csv
 import subprocess
@@ -85,7 +86,9 @@ from chameleon_recsys_tpu_torch.data import synthetic as port_synthetic
 from chameleon_recsys_tpu_torch.ops.sampling import SamplerUniforms
 from chameleon_recsys_tpu_torch.parallel.mesh import MeshPlan
 from chameleon_recsys_tpu_torch.train import steps, temporal
+from chameleon_recsys_tpu_torch.train.eval_graphs import EvalGraphs
 from chameleon_recsys_tpu_torch.train.temporal import BenchmarkSpec, TemporalHarness
+from chameleon_recsys_tpu_torch.utils import profiling
 from chameleon_recsys_tpu_torch.utils.io import deserialize, serialize
 
 from conftest import tiny_article_schema, tiny_nar_config, tiny_session_schema
@@ -366,6 +369,105 @@ def test_eval_restores_stream_state(world):
     for name, value in before.items():
         assert torch.equal(getattr(h.state.stream, name), value), name
     assert h.host_state.current_step == host_step
+
+
+def _traced_eval_hour(harness, sessions):
+    """An eval hour with tracing on: (row, the spans it opened)."""
+    was = profiling.set_tracing(True)
+    saved = profiling.span_snapshot()
+    profiling.reset_spans()
+    try:
+        row = harness.evaluate_hour(sessions)
+        spans = profiling.span_snapshot()
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset_spans()
+        profiling._spans.update({k: list(v) for k, v in saved.items()})
+    return row, spans
+
+
+def test_eval_on_the_cpu_neither_captures_nor_replays(world, monkeypatch):
+    """The eval step's CUDA graphs are the card's: on the CPU the harness
+    holds no graph cache and no pinned staging, and a step handed a cache
+    all the same runs eagerly, with the rows of the plain step and neither
+    graph span."""
+    plain = port_harness(world, "cpu_plain")
+    plain.train_hour(world.port_source(0))
+    want = plain.evaluate_hour(world.port_source(1))
+    h = port_harness(world, "cpu_graphs")
+    assert h._eval_graphs is None and h._staging is None
+    h.train_hour(world.port_source(0))
+    cache = EvalGraphs()
+    original = temporal.eval_step
+    monkeypatch.setattr(temporal, "eval_step",
+                        lambda *a, **k: original(*a, **{**k, "graphs": cache}))
+    row, spans = _traced_eval_hour(h, world.port_source(1))
+    assert spans["nar.eval.dispatch"][1] > 0
+    assert "nar.eval.capture" not in spans and "nar.eval.replay" not in spans
+    assert not cache.graphs and not cache.seen
+    assert set(row) == set(want)
+    for key, value in want.items():
+        if not key.endswith(WALL_CLOCK):
+            assert row[key] == value, key
+
+
+def test_eval_step_with_uniforms_or_under_a_mesh_takes_no_graph(world):
+    """A caller's own uniforms, or a mesh, keep the eager step: the step
+    leaves a cache it is handed untouched and gives the step's answers
+    without it; under a mesh the harness hands no cache to the sharded
+    step, even where it holds one."""
+    cfg = world.pcfg
+    h = port_harness(world, "uniforms")
+    h.train_hour(world.port_source(0))
+    batch = h._put_batch(next(iter(h._batches(world.port_source(1)))))
+    uniforms = steps.draw_eval_uniforms(cfg, batch, cfg.recent_clicks_buffer_max_size,
+                                        torch.Generator().manual_seed(3))
+    args = (h.state.model, h.state.stream, batch, h.ace_matrix, h.metadata)
+    cache = EvalGraphs()
+    got = steps.eval_step(*args, generator=h.state.generator, uniforms=uniforms,
+                          graphs=cache)
+    want = steps.eval_step(*args, generator=h.state.generator, uniforms=uniforms)
+    assert not cache.graphs and not cache.seen
+    for part_got, part_want in zip((got[0]._asdict(), got[1], got[2]),
+                                   (want[0]._asdict(), want[1], want[2])):
+        assert list(part_got) == list(part_want)
+        for name, value in part_want.items():
+            assert torch.equal(part_got[name], value), name
+
+    calls = []
+
+    class Sharded:
+        def eval_step(self, *a, **k):
+            calls.append(k)
+            return steps.eval_step(*a, **k)
+
+    h._sharded = Sharded()
+    h._eval_graphs = EvalGraphs()
+    h._eval_step(batch)
+    assert len(calls) == 1 and "graphs" not in calls[0]
+    assert not h._eval_graphs.graphs and not h._eval_graphs.seen
+
+
+def test_the_harness_hands_its_graphs_only_from_the_main_thread(world, monkeypatch):
+    """A capture needs the card to itself, and a harness on a worker thread
+    (the sweep's parallel trials) may share it: there the harness's eval
+    step gets no graph cache."""
+    h = port_harness(world, "threads")
+    h.train_hour(world.port_source(0))
+    batch = h._put_batch(next(iter(h._batches(world.port_source(1)))))
+    h._eval_graphs = EvalGraphs()
+    handed = []
+    original = temporal.eval_step
+
+    def recording(*a, **k):
+        handed.append(k["graphs"])
+        return original(*a, **k)
+
+    monkeypatch.setattr(temporal, "eval_step", recording)
+    h._eval_step(batch)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pool.submit(h._eval_step, batch).result()
+    assert handed == [h._eval_graphs, None]
 
 
 def test_checkpoint_roundtrip(world, tmp_path):
