@@ -18,7 +18,10 @@ Semantics preserved bit-for-bit, including the reference's quirks:
     buffer (including padding zeros) (metrics.py:321-343).
 
 The port's copy of ``chameleon_recsys_tpu/metrics/streaming.py``,
-unchanged but for this note: the port imports nothing of the JAX package.
+unchanged but for this note and the ``add_sums`` entries of the metrics of
+``create_eval_metrics``, through which an eval hour on the card adds the
+sums that ``device.py`` folds there.  The port imports nothing of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -140,6 +143,11 @@ class _MeanOfResults(StreamingMetric):
         self._sum += float(np.sum(values))
         self._count += int(np.size(values))
 
+    def add_sums(self, total, count):
+        """A batch's sum of per-click values and their count, folded elsewhere."""
+        self._sum += float(total)
+        self._count += int(count)
+
     def result(self):
         if self._count == 0:
             return float("nan")
@@ -192,6 +200,11 @@ class HitRate(StreamingMetric):
                 (preds[:, : self.topn] == labs[:, None]).any(axis=1).sum()
             )
 
+    def add_sums(self, matches, total):
+        """A batch's hits and valid clicks, counted elsewhere."""
+        self.hitrate_matches += int(matches)
+        self.hitrate_total += int(total)
+
     def result(self):
         if self.hitrate_total == 0:
             return float("nan")
@@ -216,6 +229,16 @@ class HitRateBySessionPosition(StreamingMetric):
             self.norm_pop_by_pos[pos] += float(labels_norm_pop[rows[i], cols[i]])
             if hits[i]:
                 self.matches_by_pos[pos] += 1
+
+    def add_sums(self, matches, totals, norm_pops):
+        """A batch's hits, valid clicks and label popularity sums by
+        position, [T] each (index 0 is position 1), counted elsewhere."""
+        for i in np.flatnonzero(np.asarray(totals)):
+            pos = int(i) + 1
+            self.total_by_pos[pos] += int(totals[i])
+            self.norm_pop_by_pos[pos] += float(norm_pops[i])
+            if matches[i]:
+                self.matches_by_pos[pos] += int(matches[i])
 
     def result(self):
         hitrate = {
@@ -307,6 +330,12 @@ class ItemCoverage(StreamingMetric):
     def reset(self):
         self.clicked_items = set(self.recent_clicks_buffer.tolist())
         self.recommended_items = set()
+        self.counts = None
+
+    def add_sums(self, recommended, clicked):
+        """The hour's counts of recommended and clicked ids, kept
+        elsewhere; they stand in for the sets' sizes."""
+        self.counts = (int(recommended), int(clicked))
 
     def add(self, predictions, labels, clicked_items):
         preds, labs, _, _ = _valid_clicks(predictions, labels)
@@ -322,9 +351,11 @@ class ItemCoverage(StreamingMetric):
         self.clicked_items.update(batch_clicked)
 
     def result(self):
-        if not self.clicked_items:
+        recommended, clicked = self.counts or (len(self.recommended_items),
+                                               len(self.clicked_items))
+        if not clicked:
             return float("nan")
-        return len(self.recommended_items) / float(len(self.clicked_items))
+        return recommended / float(clicked)
 
 
 class _ContentILDBase(_MeanOfResults):

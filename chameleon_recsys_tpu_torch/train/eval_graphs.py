@@ -17,14 +17,17 @@ A graph reads fixed device buffers:
   * its own copy of the batch, into which each call's batch is copied;
   * its own copy of the stream, into which the live stream is copied
     before every replay (the step returns a new stream each batch, and the
-    hour's snapshot of the stream must stay as it is);
+    hour's snapshot of the stream must stay as it is), and so of the
+    ItemCoverage bitmaps where the step folds the metric set
+    (``metrics/device.py``);
   * the sampler's uniforms, drawn from the caller's generator into the
     graph's buffers before every replay (``draw_eval_uniforms``): the
     draws the eager step makes, in its order, so the negatives and the
     generator's state after the hour are eager's;
-  * the parameters, the ACE matrix and the metadata where they are.  A
-    graph holds their addresses, so the cache drops its graphs when the
-    model or one of those tensors is another.
+  * the parameters, the ACE matrix and the metadata where they are, and
+    the metric fold's normalised copy of the ACE matrix.  A graph holds
+    their addresses, so the cache drops its graphs when the model or one
+    of those tensors is another.
 
 The graph always computes the full ranking, as the eager step does;
 ``fetch_full_ranking`` picks which outputs a call returns.  Every tensor a
@@ -36,31 +39,36 @@ from __future__ import annotations
 import itertools
 
 from ..graphs import GraphCache
+from ..metrics.device import COVERAGE, SUMS
 from ..state.stream_state import StreamState
 from ..utils.profiling import span
 from .steps import _eval_step, draw_eval_uniforms
 
 
 class EvalGraph:
-    """One captured eval step: its copies of the batch and the stream, its
-    uniforms, and the graph with its outputs."""
+    """One captured eval step: its copies of the batch, the stream and the
+    coverage bitmaps, its uniforms, and the graph with its outputs."""
 
     def __init__(self, model, stream, batch, ace_matrix, metadata, generator,
-                 cache: GraphCache):
+                 cache: GraphCache, fold=None, coverage=None):
         self.cfg = model.cfg
         self.batch = {name: values.clone() for name, values in batch.items()}
         self.stream = StreamState(*(t.clone() for t in stream))
+        self.coverage = None if coverage is None else tuple(t.clone() for t in coverage)
         self.uniforms = draw_eval_uniforms(self.cfg, batch, stream.buffer_ids.shape[0],
                                            generator)
         self.captured = cache.capture(lambda: _eval_step(
             model, self.stream, self.batch, ace_matrix, metadata, generator=None,
-            fetch_full_ranking=True, uniforms=self.uniforms))
+            fetch_full_ranking=True, uniforms=self.uniforms, fold=fold,
+            coverage=self.coverage))
         self.captured.replay(count=False)  # the capture counted
 
-    def replay(self, batch, stream, generator) -> None:
+    def replay(self, batch, stream, generator, coverage=None) -> None:
         for name, values in batch.items():
             self.batch[name].copy_(values)
         for mine, live in zip(self.stream, stream):
+            mine.copy_(live)
+        for mine, live in zip(self.coverage or (), coverage or ()):
             mine.copy_(live)
         draw_eval_uniforms(self.cfg, batch, stream.buffer_ids.shape[0], generator,
                            out=self.uniforms)
@@ -77,16 +85,20 @@ class EvalGraph:
         else:
             own["predicted_ids"] = (
                 fetches["predicted_ids"][..., : self.cfg.metrics_top_n].clone())
+        for name in (SUMS, *COVERAGE):
+            if name in fetches:
+                own[name] = fetches[name].clone()
         return (StreamState(*(t.clone() for t in new_stream)),
                 {name: value.clone() for name, value in metrics.items()}, own)
 
 
-def _addresses(model, ace_matrix, metadata):
+def _addresses(model, ace_matrix, metadata, fold):
     """What a graph reads outside its own buffers, by address."""
     return (id(model), ace_matrix.data_ptr(),
             tuple((name, t.data_ptr()) for name, t in metadata.items()),
             tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
-                                                          model.buffers())))
+                                                          model.buffers())),
+            None if fold is None else (id(fold), fold.normalized(ace_matrix).data_ptr()))
 
 
 class EvalGraphs(GraphCache):
@@ -97,24 +109,27 @@ class EvalGraphs(GraphCache):
         self.reads = None
 
     def step(self, model, stream, batch, ace_matrix, metadata, *, generator,
-             fetch_full_ranking: bool):
+             fetch_full_ranking: bool, fold=None, coverage=None):
         """``eval_step`` on the card: (stream', metrics, fetches)."""
-        reads = _addresses(model, ace_matrix, metadata)
+        reads = _addresses(model, ace_matrix, metadata, fold)
         if reads != self.reads:
             self.clear()
             self.reads = reads
         key = (tuple((name, tuple(t.shape), t.dtype) for name, t in batch.items())
-               + tuple(tuple(t.shape) for t in stream))
+               + tuple(tuple(t.shape) for t in stream)
+               + (None if coverage is None else tuple(tuple(t.shape) for t in coverage),))
         graph = self.get(key)
         if graph is not None:
             with span("nar.eval.replay"):
-                graph.replay(batch, stream, generator)
+                graph.replay(batch, stream, generator, coverage)
                 return graph.outputs(fetch_full_ranking)
         if self.first_sighting(key):
             return self.warm_up(lambda: _eval_step(
                 model, stream, batch, ace_matrix, metadata, generator=generator,
-                fetch_full_ranking=fetch_full_ranking, uniforms=None))
+                fetch_full_ranking=fetch_full_ranking, uniforms=None, fold=fold,
+                coverage=coverage))
         with span("nar.eval.capture"):
             graph = self.hold(key, lambda: EvalGraph(model, stream, batch, ace_matrix,
-                                                     metadata, generator, self))
+                                                     metadata, generator, self, fold,
+                                                     coverage))
             return graph.outputs(fetch_full_ranking)

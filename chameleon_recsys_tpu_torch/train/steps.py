@@ -24,7 +24,8 @@ sum the in-graph ranking metrics, and fold the batch's clicks into the
 stream (the temporal protocol snapshots and restores it around an eval
 hour).  On the card a caller may hand it a graph cache
 (``train/eval_graphs.py``), which replays the step as one CUDA graph per
-batch shape with the same draws.
+batch shape with the same draws, and a ``metrics/device.py::MetricFold``,
+with which the step also folds CHAMELEON's eval metric set for the batch.
 
 A ``torch.Generator`` stands in for the JAX state's ``rng``; both steps take
 injected ``SamplerUniforms`` instead, for parity with the JAX draws.
@@ -373,6 +374,8 @@ def eval_step(
     uniforms: Optional[SamplerUniforms] = None,
     shard=None,
     graphs=None,
+    fold=None,
+    coverage=None,
 ):
     """One eval batch -> (stream', metrics, fetches).
 
@@ -389,18 +392,28 @@ def eval_step(
     draws from ``generator``; it is taken only on a CUDA device, without
     ``uniforms`` and without a mesh.  A replay returns copies of the
     graph's outputs, which later replays leave as they are.
+
+    ``fold`` (``metrics/device.py::MetricFold``, without a mesh) folds
+    CHAMELEON's eval metric set over the batch's top ``metrics_top_n``,
+    from the stream's popularity before the batch's update: the fetches
+    gain its packed sums and the ItemCoverage bitmaps ``coverage`` with
+    the batch's ids set, new tensors (``metrics/device.py``'s ``SUMS``
+    and ``COVERAGE``).
     """
+    if fold is not None and shard is not None:
+        raise ValueError("the metric fold takes the whole batch: no mesh")
     if (graphs is not None and uniforms is None and shard is None
             and batch["item_clicked"].is_cuda):
         return graphs.step(model, stream, batch, ace_matrix, metadata,
-                           generator=generator, fetch_full_ranking=fetch_full_ranking)
+                           generator=generator, fetch_full_ranking=fetch_full_ranking,
+                           fold=fold, coverage=coverage)
     return _eval_step(model, stream, batch, ace_matrix, metadata, generator=generator,
                       fetch_full_ranking=fetch_full_ranking, uniforms=uniforms,
-                      shard=shard)
+                      shard=shard, fold=fold, coverage=coverage)
 
 
 def _eval_step(model, stream, batch, ace_matrix, metadata, *, generator,
-               fetch_full_ranking, uniforms, shard=None):
+               fetch_full_ranking, uniforms, shard=None, fold=None, coverage=None):
     """``eval_step``'s device work, eager."""
     cfg = model.cfg
     aux, pool, neg_idx, neg_ids, all_clicked, all_ts = _eval_inputs(
@@ -431,6 +444,10 @@ def _eval_step(model, stream, batch, ace_matrix, metadata, *, generator,
         fetches["predicted_probs"] = out.predicted_probs
     else:
         fetches["predicted_ids"] = out.predicted_ids[..., : cfg.metrics_top_n]
+    if fold is not None:
+        fetches.update(fold(out.predicted_ids, batch["label_next_item"],
+                            stream.recent_pop_norm, batch["item_clicked"], ace_matrix,
+                            coverage))
     new_stream = update_stream_state(stream, all_clicked, all_ts, cfg)
     return new_stream, metrics, fetches
 

@@ -42,14 +42,19 @@ the hour's ``nar.train.wait``; in an eval hour ``nar.eval.setup``,
 ``nar.collate``, ``nar.eval.dispatch``, ``nar.eval.wait``,
 ``nar.eval.metrics``, ``nar.eval.baselines``, ``nar.eval.cold_start``,
 ``nar.host_tier`` and ``nar.eval.results``; inside ``nar.eval.dispatch`` on
-the card, ``nar.eval.capture`` or ``nar.eval.replay``.  They cost a flag
-check while tracing is off; ``last_eval_phase_seconds`` sums the eval spans
-either way.
+the card, ``nar.eval.capture`` or ``nar.eval.replay``, and inside
+``nar.eval.metrics`` ``nar.eval.metrics.device`` where the step folded the
+metric set.  They cost a flag check while tracing is off;
+``last_eval_phase_seconds`` sums the eval spans either way.
 
 On the card, without a mesh, the eval step is replayed as one CUDA graph
 per batch shape (``train/eval_graphs.py``; the harness hands its cache to
-``eval_step`` from the main thread), and collated batches go to the card
-through pinned host buffers without a host sync (``_Staging``).
+``eval_step`` from the main thread), collated batches go to the card
+through pinned host buffers without a host sync (``_Staging``), and the
+step folds CHAMELEON's eval metric set for its batch
+(``metrics/device.py``): the host adds the fetched sums into the metric
+objects and counts ItemCoverage's bitmaps once an hour.  On the CPU and
+under a mesh the host runs the metric suite (``update_metrics``).
 """
 from __future__ import annotations
 
@@ -69,6 +74,13 @@ import torch
 from ..baselines.benchmarks import BenchmarkRecommender, StreamStateView
 from ..config import ArticleFeaturesSchema, NARConfig, RunConfig, SessionFeaturesSchema
 from ..data.collate import Session, batches_from_sessions
+from ..metrics.device import (
+    COVERAGE,
+    SUMS,
+    MetricFold,
+    add_batch_sums,
+    add_coverage_counts,
+)
 from ..metrics.evaluation import (
     ColdStartAnalysisState,
     compute_metrics_results,
@@ -301,6 +313,10 @@ class TemporalHarness:
         on_card = self.device.type == "cuda" and mesh_plan is None
         self._eval_graphs = EvalGraphs() if on_card else None
         self._staging = _Staging(self.device) if on_card else None
+        # CHAMELEON's eval metric set, folded inside the eval step
+        self._metric_fold = (
+            MetricFold(cfg.metrics_top_n, cfg.eval_negative_sample_relevance,
+                       eval_metrics_by_session_position) if on_card else None)
         self.hours_trained = 0
         # Count of completed chunk evals — checkpointed so a resume from a
         # checkpoint taken between a chunk's train and its eval re-runs that
@@ -373,13 +389,17 @@ class TemporalHarness:
                                             self.metadata)
         return train_step(self.state, batch, self.ace_matrix, self.metadata)
 
-    def _eval_step(self, batch):
+    def _eval_step(self, batch, coverage=None):
+        """The eval step; with the ItemCoverage bitmaps ``coverage`` it
+        folds the metric set too."""
         kwargs = dict(generator=self.state.generator,
                       fetch_full_ranking=self.fetch_full_ranking)
         if self._sharded is not None:
             return self._sharded.eval_step(
                 self.state.model, self.state.stream, batch, self.ace_matrix,
                 self.metadata, **kwargs)
+        if coverage is not None:
+            kwargs.update(fold=self._metric_fold, coverage=coverage)
         # a capture needs the card to itself: a harness on a worker thread
         # (the sweep's parallel trials) may share it with others, so only
         # the main thread hands the step its graphs
@@ -541,6 +561,11 @@ class TemporalHarness:
             streaming = self._new_metric_set()
             for clf in self.bench_classifiers:
                 clf.streaming_metrics = self._new_metric_set()
+            # on the card the step folds the metric set; ItemCoverage's
+            # bitmaps are seeded as its clicked set is
+            coverage = (None if self._metric_fold is None else
+                        MetricFold.coverage(stream_snapshot.buffer_ids,
+                                            stream_snapshot.recent_pop_norm.shape[0]))
 
         hit_sum = rr_sum = label_count = 0.0
         sessions_count = clicks_count = 0
@@ -553,9 +578,13 @@ class TemporalHarness:
         # so every value is the serial loop's.  On the CPU each step runs
         # when it is called and the loop is serial.
         def _dispatch(np_batch):
+            nonlocal coverage
             batch = self._put_batch(np_batch)
-            stream, dev_metrics, fetches = self._eval_step(batch)
+            stream, dev_metrics, fetches = self._eval_step(batch, coverage)
             self.state = self.state._replace(stream=stream)
+            if coverage is not None:
+                fetches = dict(fetches)
+                coverage = tuple(fetches.pop(name) for name in COVERAGE)
             wanted = {f"m_{k}": v for k, v in dev_metrics.items()}
             if self._host_tier:
                 wanted.update(fetches, view_buffer_ids=stream.buffer_ids,
@@ -613,15 +642,19 @@ class TemporalHarness:
             preds, probs, labels, neg_items, clicked = fetched
             if self._primary:
                 with span("nar.eval.metrics", phases, "chameleon_metrics"):
-                    update_metrics(
-                        preds,
-                        labels,
-                        pop_norm[labels],
-                        pop_norm[preds],
-                        clicked,
-                        streaming,
-                        recommender="chameleon",
-                    )
+                    if SUMS in host:
+                        with span("nar.eval.metrics.device"):
+                            add_batch_sums(streaming, host[SUMS].numpy())
+                    else:
+                        update_metrics(
+                            preds,
+                            labels,
+                            pop_norm[labels],
+                            pop_norm[preds],
+                            clicked,
+                            streaming,
+                            recommender="chameleon",
+                        )
                     self._log_eval_batch(np_batch, labels, neg_items, preds, probs,
                                          pop_norm)
 
@@ -668,6 +701,8 @@ class TemporalHarness:
                 "mrr_at_n": rr_sum / max(label_count, 1.0),
             }
             if self._primary:
+                if coverage is not None:
+                    add_coverage_counts(streaming, MetricFold.coverage_counts(coverage))
                 row.update(compute_metrics_results(streaming, recommender="chameleon"))
                 for clf in self.bench_classifiers:
                     row.update(compute_metrics_results(clf.streaming_metrics,

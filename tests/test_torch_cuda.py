@@ -1714,10 +1714,73 @@ def test_staged_batches_reach_the_card_as_collated(card, tmp_path):
             np.testing.assert_array_equal(batch[name].cpu().numpy(), values, err_msg=name)
 
 
+def _folding_harness(card, model_dir):
+    """``_eval_graph_harness``'s harness with HitRateBySessionPosition on
+    and the eval step folding the metric set by position too."""
+    from chameleon_recsys_tpu_torch.metrics.device import MetricFold
+
+    cfg, harness, source = _eval_graph_harness(card, "bfloat16", model_dir)
+    assert harness._metric_fold is not None  # on the card the step folds
+    harness.eval_metrics_by_session_position = True
+    harness._metric_fold = MetricFold(cfg.metrics_top_n, cfg.eval_negative_sample_relevance,
+                                      True)
+    return cfg, harness, source
+
+
+def test_graphed_hour_folds_the_metric_set_as_the_host_suite(card, tmp_path):
+    """A graphed eval hour whose step folds CHAMELEON's metric set and the
+    same hour on the host suite, from the same state and generator state:
+    the same row under ``test_torch_device_metrics.py``'s tolerances, HR
+    equal to the step's ``hitrate_at_n``; the fold's span a batch, and
+    the graph replayed."""
+    from test_torch_device_metrics import _assert_rows_agree
+
+    from chameleon_recsys_tpu_torch.utils import profiling
+
+    cfg, harness, source = _folding_harness(card, tmp_path)
+    sessions = source(1)
+    generator = harness.state.generator.get_state()
+    was = profiling.set_tracing(True)
+    profiling.reset_spans()
+    try:
+        folded = harness.evaluate_hour(sessions)
+        spans = profiling.span_snapshot()
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset_spans()
+    assert spans["nar.eval.metrics.device"][1] == spans["nar.eval.metrics"][1] == EVAL_BATCHES
+    assert spans["nar.eval.replay"][1] == EVAL_BATCHES - 2
+    harness._metric_fold = None  # the host suite, from the same state
+    harness.state.generator.set_state(generator)
+    host = harness.evaluate_hour(sessions)
+    _assert_rows_agree(folded, host)
+    assert folded["hitrate_at_n"] == folded["hitrate_at_n_chameleon"]
+    assert folded["clicks_count"] > 0
+    assert any(k.startswith("clicks_at_pos_chameleon_") for k in folded)
+
+
+def test_folded_eval_hours_are_bit_identical(card, tmp_path):
+    """The same eval hour twice from the same state, the first warming up
+    and capturing, the second all replays: bit-identical rows."""
+    cfg, harness, source = _folding_harness(card, tmp_path)
+    sessions = source(1)
+    generator = harness.state.generator.get_state()
+    first = harness.evaluate_hour(sessions)
+    harness.state.generator.set_state(generator)
+    second = harness.evaluate_hour(sessions)
+    assert list(first) == list(second)
+    for key, value in first.items():
+        if not key.endswith(("elapsed_s", "per_s")):
+            assert repr(second[key]) == repr(value), key
+
+
 def test_eval_and_train_steps_do_not_sync(card):
-    """One eval step and one train step, each after one to warm up, raise
-    nothing with the CUDA sync debug mode at "error": no host sync is left
-    in either (a graph's capture could not hold one)."""
+    """One eval step, folding the metric set, and one train step, each
+    after one to warm up, raise nothing with the CUDA sync debug mode at
+    "error": no host sync is left in either (a graph's capture could not
+    hold one)."""
+    from chameleon_recsys_tpu_torch.metrics.device import MetricFold
+
     cfg, sess, art = _tiny_eval_world()
     cfg = dataclasses.replace(cfg, train_valid_row_capacity=48, negative_samples=5,
                               negative_sample_from_buffer=30)
@@ -1735,15 +1798,19 @@ def test_eval_and_train_steps_do_not_sync(card):
     stream = update_stream_state(init_stream_state(cfg, 200, device=card),
                                  *_batch_all_clicks(batches[0]), cfg)
     state = init_train_state(model, stream, torch.Generator(device=card).manual_seed(1))
+    fold = MetricFold(cfg.metrics_top_n, cfg.eval_negative_sample_relevance, True)
     torch.cuda.synchronize()
     for mode in ("default", "error"):
         step = int(state.stream.current_step)
         torch.cuda.set_sync_debug_mode(mode)
         try:
-            new_stream, _, _ = eval_step(model, state.stream, batches[1], ace, metadata,
-                                         generator=state.generator)
+            coverage = fold.coverage(state.stream.buffer_ids, 200)
+            new_stream, _, fetches = eval_step(model, state.stream, batches[1], ace, metadata,
+                                               generator=state.generator, fold=fold,
+                                               coverage=coverage)
             state, _ = train_step(state, batches[2], ace, metadata)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         assert int(new_stream.current_step) == int(state.stream.current_step) == step + 1
+        assert fetches["metric_sums"].dtype == torch.float64
