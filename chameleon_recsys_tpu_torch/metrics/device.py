@@ -21,11 +21,12 @@ by writes of one value, so two identical hours give the same bits.
 
 The step returns ``metric_sums``, one float64 vector a batch (``SCALARS``,
 then by position the matches, the clicks and the label popularity, [T]
-each, where ``by_position``), and the bitmaps anew (``COVERAGE``).  The
-harness adds the vectors into the host metric objects (``add_batch_sums``)
-and counts the bitmaps' bits once an hour (``coverage_counts``,
-``add_coverage_counts``); ``compute_metrics_results`` reads them as it
-reads the host suite's.
+each, where ``by_position``), and sets the batch's ids in the fold's own
+ItemCoverage bitmaps in place.  The harness reseeds the bitmaps at the
+start of an hour (``seed_coverage``), adds the vectors into the host metric
+objects (``add_batch_sums``) and counts the bitmaps' bits once, at the
+hour's end (``coverage_counts``, ``add_coverage_counts``);
+``compute_metrics_results`` reads them as it reads the host suite's.
 """
 from __future__ import annotations
 
@@ -52,7 +53,6 @@ from .streaming import (
 SCALARS = ("hit_matches", "clicks", "mrr", "ndcg", "esi_r", "esi_rr", "eild_r",
            "eild_rr", "list_clicks")
 SUMS = "metric_sums"
-COVERAGE = ("coverage_recommended", "coverage_clicked")
 
 # the metric each scalar sum goes to, with the scalar that counts it
 _MEANS = {
@@ -80,6 +80,7 @@ class MetricFold:
         self.negative_relevance = float(negative_relevance)
         self.by_position = by_position
         self._normalized = None  # (matrix, its version, the normalised copy)
+        self.coverage = None  # ItemCoverage's (recommended, clicked) bitmaps
 
     def normalized(self, ace_matrix: torch.Tensor) -> torch.Tensor:
         """The ACE rows over their float64 norms (zero rows stay zero),
@@ -94,28 +95,32 @@ class MetricFold:
                                        torch.where(norms > 0, m / norms, 0.0))
         return held[2]
 
-    @staticmethod
-    def coverage(buffer_ids: torch.Tensor, num_items: int) -> Tuple[torch.Tensor, ...]:
-        """ItemCoverage's bitmaps over the ids [0, num_items), and a last
-        slot that takes the ids of no valid click: none recommended, the
-        clicked ones seeded with the buffer's ids, zeros included, as
-        ItemCoverage seeds its set."""
-        recommended = torch.zeros(num_items + 1, dtype=torch.bool, device=buffer_ids.device)
-        return recommended, recommended.index_fill(0, buffer_ids.long(), True)
+    def seed_coverage(self, buffer_ids: torch.Tensor, num_items: int) -> None:
+        """Reseed ItemCoverage's bitmaps in place for an hour: over the ids
+        [0, num_items), and a last slot that takes the ids of no valid
+        click; none recommended, the clicked ones the buffer's ids, zeros
+        included, as ItemCoverage seeds its set.  They are made once per
+        item count, so a graph that sets them serves every hour."""
+        if self.coverage is None or self.coverage[0].shape[0] != num_items + 1:
+            self.coverage = tuple(torch.empty(num_items + 1, dtype=torch.bool,
+                                              device=buffer_ids.device) for _ in range(2))
+        recommended, clicked = self.coverage
+        recommended.zero_()
+        clicked.zero_()
+        clicked.index_fill_(0, buffer_ids.long(), True)
 
-    @staticmethod
-    def coverage_counts(coverage: Sequence[torch.Tensor]) -> Tuple[int, int]:
+    def coverage_counts(self) -> Tuple[int, int]:
         """The recommended and the clicked ids the bitmaps hold (one fetch)."""
-        counts = torch.stack([bits[:-1].sum() for bits in coverage]).cpu()
+        counts = torch.stack([bits[:-1].sum() for bits in self.coverage]).cpu()
         return int(counts[0]), int(counts[1])
 
-    def __call__(self, predicted_ids, labels, pop_norm, clicked, ace_matrix,
-                 coverage) -> Dict[str, torch.Tensor]:
+    def __call__(self, predicted_ids, labels, pop_norm, clicked,
+                 ace_matrix) -> Dict[str, torch.Tensor]:
         """One batch: ``predicted_ids`` [B, T, >= top_n] ranked, the next
         clicks ``labels`` [B, T], the stream's ``recent_pop_norm`` before
-        the batch's update, the batch's ``clicked`` ids [B, T], the ACE
-        matrix and the bitmaps -> {``SUMS``: the packed vector, ``COVERAGE``:
-        the bitmaps with the batch's ids set}."""
+        the batch's update, the batch's ``clicked`` ids [B, T] and the ACE
+        matrix -> {``SUMS``: the packed vector}; the batch's ids are set in
+        the bitmaps (seeded by ``seed_coverage``)."""
         f64 = torch.float64
         top = predicted_ids[..., : self.top_n].long()
         labels = labels.long()
@@ -143,14 +148,14 @@ class MetricFold:
             label_pop = pop_norm[labels].to(f64)
             parts += [found.sum(0).to(f64), valid.sum(0).to(f64),
                       torch.where(valid, label_pop, 0.0).sum(0)]
-        recommended, seen = coverage
+        recommended, seen = self.coverage
         trash = recommended.shape[0] - 1
         shown = torch.where(valid[..., None], top, trash).reshape(-1)
         batch_clicks = torch.cat([labels.reshape(-1), clicked.long().reshape(-1)])
         batch_clicks = torch.where(batch_clicks != 0, batch_clicks, trash)
-        return {SUMS: torch.cat(parts),
-                COVERAGE[0]: recommended.index_fill(0, shown, True),
-                COVERAGE[1]: seen.index_fill(0, batch_clicks, True)}
+        recommended.index_fill_(0, shown, True)
+        seen.index_fill_(0, batch_clicks, True)
+        return {SUMS: torch.cat(parts)}
 
     def _lists(self, top, labels, valid, pop_norm, ace_matrix) -> Dict[str, torch.Tensor]:
         """ESI-R, ESI-RR, EILD-R and EILD-RR summed over the valid clicks."""

@@ -16,8 +16,17 @@ package's format (``train/checkpoint.py``).
 With ``cfg.use_pallas_rnn`` the session RNN runs through the hand-written
 CUDA kernel, two launches per ``recommend`` at two layers.
 
-On a CUDA device the scoring of a request shape seen before replays one
-CUDA graph (``serve_graphs.py``); on the CPU it runs eagerly.
+On a CUDA device ``recommend`` keys a call by (sessions B, candidates C,
+top_k) and scores it under ``graphs.py``'s rule (``ScoreGraph``): eagerly at
+a key's first call, captured as one CUDA graph (~500 small operations) at
+its second, replayed after.  The request goes to the card into the key's
+own buffers, made at its first call.  A graph reads its own copies of
+``recent_pop_norm`` and ``buffer_ids``, into which the live stream is
+copied before every replay (``observe`` replaces the stream's tensors), and
+the server's parameters, ACE matrix and metadata where they are
+(``load_state_dict`` copies in place).  The answer goes to the host before
+the next replay of any graph: all graphs share one memory pool.  On the
+CPU ``_score`` runs eagerly.
 
 ``recommend`` opens four of the program's spans (``utils/profiling.py``):
 ``nar.serve.candidates``, ``nar.serve.collate`` (its copies to the device
@@ -36,7 +45,7 @@ from .config import ArticleFeaturesSchema, NARConfig, SessionFeaturesSchema
 from .convert import stream_from_numpy
 from .data.collate import Session
 from .models.nar import NARAux, NARModel
-from .serve_graphs import ScoreGraphs
+from .graphs import Graph, GraphCache
 from .state.stream_state import StreamState, update_stream_state
 from .train.checkpoint import model_params
 from .utils.profiling import span
@@ -73,7 +82,7 @@ class NARServer:
         self.model.load_state_dict(params, strict=True)
         self.model.to(self.device).eval()
         self.stream = StreamState(*(x.to(self.device) for x in stream))
-        self.graphs = ScoreGraphs(self._score) if self.device.type == "cuda" else None
+        self.graphs = GraphCache("nar.serve") if self.device.type == "cuda" else None
 
     @classmethod
     def from_checkpoint(
@@ -172,22 +181,17 @@ class NARServer:
         with span("nar.serve.collate"):
             cand = np.array(candidates, np.int32)  # a contiguous copy
             batch = self._collate_serving(sessions)
-            key = (len(sessions), cand.shape[1], top_k)
-            graph = self.graphs.get(key) if self.graphs is not None else None
-            if graph is not None:
-                graph.load(batch, cand)
-            else:
-                batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
-                cand = torch.from_numpy(cand).to(self.device)
+            if self.graphs is not None:
+                key = (len(sessions), cand.shape[1], top_k)
+                graph = self.graphs.graph(key, lambda: ScoreGraph(self, batch, cand, top_k))
+                graph.put(batch, cand)
         with span("nar.serve.score"):
-            if graph is not None:
-                with span("nar.serve.replay"):
-                    ids, scores = graph.replay(self.stream)
-            elif self.graphs is not None:
-                ids, scores = self.graphs.score_unheld(key, batch, cand, top_k, self.stream)
+            if self.graphs is not None:
+                ids, scores = self.graphs.run(key, graph, self.stream)
             else:
-                ids, scores = self._score(batch, cand, top_k, self.stream.recent_pop_norm,
-                                          self.stream.buffer_ids)
+                ids, scores = self._score({k: torch.from_numpy(v) for k, v in batch.items()},
+                                          torch.from_numpy(cand), top_k,
+                                          self.stream.recent_pop_norm, self.stream.buffer_ids)
         with span("nar.serve.wait"):
             return ids.cpu().numpy(), scores.cpu().numpy()
 
@@ -208,3 +212,38 @@ class NARServer:
             torch.from_numpy(ts).to(self.device),
             self.cfg,
         )
+
+
+class ScoreGraph(Graph):
+    """The scoring of one request shape on the card: the request's buffers,
+    made at the shape's first call, and from its capture the graph's
+    copies of the stream."""
+
+    def __init__(self, server: NARServer, batch: Dict[str, np.ndarray],
+                 candidates: np.ndarray, top_k: int):
+        self.score, self.top_k = server._score, top_k
+        self.batch = {name: torch.empty_like(torch.from_numpy(values), device=server.device)
+                      for name, values in batch.items()}
+        self.candidates = torch.empty_like(torch.from_numpy(candidates), device=server.device)
+
+    def put(self, batch: Dict[str, np.ndarray], candidates: np.ndarray) -> None:
+        """Copy a collated request from the host into the buffers."""
+        for name, values in batch.items():
+            self.batch[name].copy_(torch.from_numpy(values))
+        self.candidates.copy_(torch.from_numpy(candidates))
+
+    def eager(self, stream: StreamState):
+        return self.score(self.batch, self.candidates, self.top_k, stream.recent_pop_norm,
+                          stream.buffer_ids)
+
+    def buffers(self, stream: StreamState) -> None:
+        self.recent_pop_norm = stream.recent_pop_norm.clone()
+        self.buffer_ids = stream.buffer_ids.clone()
+
+    def work(self):
+        return self.score(self.batch, self.candidates, self.top_k, self.recent_pop_norm,
+                          self.buffer_ids)
+
+    def load(self, stream: StreamState) -> None:
+        self.recent_pop_norm.copy_(stream.recent_pop_norm)
+        self.buffer_ids.copy_(stream.buffer_ids)

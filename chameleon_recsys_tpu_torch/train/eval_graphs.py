@@ -6,9 +6,9 @@ ranking metrics and the stream update.  On a CUDA device
 ``TemporalHarness.evaluate_hour`` hands its ``EvalGraphs`` to ``eval_step``
 (from the main thread only: a capture needs the card to itself), which
 keys a call by what it shows, the shapes of the collated batch and of the
-stream, under ``graphs.py``'s rule: a key's first call runs eagerly on the
-side stream, its second captures the step and replays it once (the span
-``nar.eval.capture``), and every later call replays it
+stream, and runs it under ``graphs.py``'s rule: a key's first call runs
+eagerly on the side stream, its second captures the step and replays it
+once (the span ``nar.eval.capture``), and every later call replays it
 (``nar.eval.replay``).  Collated batches are padded to ``batch_size`` x
 ``max_session_length``, so an hour holds one key.
 
@@ -17,17 +17,18 @@ A graph reads fixed device buffers:
   * its own copy of the batch, into which each call's batch is copied;
   * its own copy of the stream, into which the live stream is copied
     before every replay (the step returns a new stream each batch, and the
-    hour's snapshot of the stream must stay as it is), and so of the
-    ItemCoverage bitmaps where the step folds the metric set
-    (``metrics/device.py``);
+    hour's snapshot of the stream must stay as it is);
   * the sampler's uniforms, drawn from the caller's generator into the
     graph's buffers before every replay (``draw_eval_uniforms``): the
     draws the eager step makes, in its order, so the negatives and the
     generator's state after the hour are eager's;
   * the parameters, the ACE matrix and the metadata where they are, and
-    the metric fold's normalised copy of the ACE matrix.  A graph holds
-    their addresses, so the cache drops its graphs when the model or one
-    of those tensors is another.
+    the metric fold's normalised copy of the ACE matrix and its
+    ItemCoverage bitmaps, which the step sets in place
+    (``metrics/device.py``).  A graph holds their addresses, so the cache
+    drops its graphs when the model or one of those tensors is another;
+    the fold keeps its bitmaps from hour to hour, so one graph serves
+    every hour.
 
 The graph always computes the full ranking, as the eager step does;
 ``fetch_full_ranking`` picks which outputs a call returns.  Every tensor a
@@ -38,45 +39,49 @@ from __future__ import annotations
 
 import itertools
 
-from ..graphs import GraphCache
-from ..metrics.device import COVERAGE, SUMS
+from ..graphs import Graph, GraphCache
+from ..metrics.device import SUMS
 from ..state.stream_state import StreamState
-from ..utils.profiling import span
 from .steps import _eval_step, draw_eval_uniforms
 
 
-class EvalGraph:
-    """One captured eval step: its copies of the batch, the stream and the
-    coverage bitmaps, its uniforms, and the graph with its outputs."""
+class EvalGraph(Graph):
+    """The eval step of one batch shape: from its capture, its copies of
+    the batch and the stream and its uniforms.  A call is (stream, batch,
+    generator, fetch_full_ranking)."""
 
-    def __init__(self, model, stream, batch, ace_matrix, metadata, generator,
-                 cache: GraphCache, fold=None, coverage=None):
+    def __init__(self, model, ace_matrix, metadata, fold):
+        self.model, self.ace_matrix, self.metadata, self.fold = model, ace_matrix, metadata, fold
         self.cfg = model.cfg
+
+    def _step(self, stream, batch, generator, fetch_full_ranking, uniforms):
+        return _eval_step(self.model, stream, batch, self.ace_matrix, self.metadata,
+                          generator=generator, fetch_full_ranking=fetch_full_ranking,
+                          uniforms=uniforms, fold=self.fold)
+
+    def eager(self, stream, batch, generator, fetch_full_ranking):
+        return self._step(stream, batch, generator, fetch_full_ranking, None)
+
+    def buffers(self, stream, batch, generator, fetch_full_ranking) -> None:
         self.batch = {name: values.clone() for name, values in batch.items()}
         self.stream = StreamState(*(t.clone() for t in stream))
-        self.coverage = None if coverage is None else tuple(t.clone() for t in coverage)
         self.uniforms = draw_eval_uniforms(self.cfg, batch, stream.buffer_ids.shape[0],
                                            generator)
-        self.captured = cache.capture(lambda: _eval_step(
-            model, self.stream, self.batch, ace_matrix, metadata, generator=None,
-            fetch_full_ranking=True, uniforms=self.uniforms, fold=fold,
-            coverage=self.coverage))
-        self.captured.replay(count=False)  # the capture counted
 
-    def replay(self, batch, stream, generator, coverage=None) -> None:
+    def work(self):
+        return self._step(self.stream, self.batch, None, True, self.uniforms)
+
+    def load(self, stream, batch, generator, fetch_full_ranking) -> None:
         for name, values in batch.items():
             self.batch[name].copy_(values)
         for mine, live in zip(self.stream, stream):
             mine.copy_(live)
-        for mine, live in zip(self.coverage or (), coverage or ()):
-            mine.copy_(live)
         draw_eval_uniforms(self.cfg, batch, stream.buffer_ids.shape[0], generator,
                            out=self.uniforms)
-        self.captured.replay()
 
-    def outputs(self, fetch_full_ranking: bool):
-        """(stream', metrics, fetches) of the last replay, copied."""
-        new_stream, metrics, fetches = self.captured.outputs
+    def returns(self, outputs, stream, batch, generator, fetch_full_ranking):
+        """(stream', metrics, fetches) of the replay, copied."""
+        new_stream, metrics, fetches = outputs
         own = {name: fetches[name].clone()
                for name in ("labels", "neg_items", "clicked_items")}
         if fetch_full_ranking:
@@ -85,9 +90,8 @@ class EvalGraph:
         else:
             own["predicted_ids"] = (
                 fetches["predicted_ids"][..., : self.cfg.metrics_top_n].clone())
-        for name in (SUMS, *COVERAGE):
-            if name in fetches:
-                own[name] = fetches[name].clone()
+        if SUMS in fetches:
+            own[SUMS] = fetches[SUMS].clone()
         return (StreamState(*(t.clone() for t in new_stream)),
                 {name: value.clone() for name, value in metrics.items()}, own)
 
@@ -98,38 +102,25 @@ def _addresses(model, ace_matrix, metadata, fold):
             tuple((name, t.data_ptr()) for name, t in metadata.items()),
             tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
                                                           model.buffers())),
-            None if fold is None else (id(fold), fold.normalized(ace_matrix).data_ptr()))
+            None if fold is None else (id(fold), fold.normalized(ace_matrix).data_ptr(),
+                                       *(t.data_ptr() for t in fold.coverage)))
 
 
 class EvalGraphs(GraphCache):
     """The eval step's graphs of one harness, by batch and stream shapes."""
 
     def __init__(self):
-        super().__init__()
+        super().__init__("nar.eval")
         self.reads = None
 
     def step(self, model, stream, batch, ace_matrix, metadata, *, generator,
-             fetch_full_ranking: bool, fold=None, coverage=None):
+             fetch_full_ranking: bool, fold=None):
         """``eval_step`` on the card: (stream', metrics, fetches)."""
         reads = _addresses(model, ace_matrix, metadata, fold)
         if reads != self.reads:
             self.clear()
             self.reads = reads
         key = (tuple((name, tuple(t.shape), t.dtype) for name, t in batch.items())
-               + tuple(tuple(t.shape) for t in stream)
-               + (None if coverage is None else tuple(tuple(t.shape) for t in coverage),))
-        graph = self.get(key)
-        if graph is not None:
-            with span("nar.eval.replay"):
-                graph.replay(batch, stream, generator, coverage)
-                return graph.outputs(fetch_full_ranking)
-        if self.first_sighting(key):
-            return self.warm_up(lambda: _eval_step(
-                model, stream, batch, ace_matrix, metadata, generator=generator,
-                fetch_full_ranking=fetch_full_ranking, uniforms=None, fold=fold,
-                coverage=coverage))
-        with span("nar.eval.capture"):
-            graph = self.hold(key, lambda: EvalGraph(model, stream, batch, ace_matrix,
-                                                     metadata, generator, self, fold,
-                                                     coverage))
-            return graph.outputs(fetch_full_ranking)
+               + tuple(tuple(t.shape) for t in stream))
+        graph = self.graph(key, lambda: EvalGraph(model, ace_matrix, metadata, fold))
+        return self.run(key, graph, stream, batch, generator, fetch_full_ranking)

@@ -375,7 +375,6 @@ def eval_step(
     shard=None,
     graphs=None,
     fold=None,
-    coverage=None,
 ):
     """One eval batch -> (stream', metrics, fetches).
 
@@ -396,9 +395,8 @@ def eval_step(
     ``fold`` (``metrics/device.py::MetricFold``, without a mesh) folds
     CHAMELEON's eval metric set over the batch's top ``metrics_top_n``,
     from the stream's popularity before the batch's update: the fetches
-    gain its packed sums and the ItemCoverage bitmaps ``coverage`` with
-    the batch's ids set, new tensors (``metrics/device.py``'s ``SUMS``
-    and ``COVERAGE``).
+    gain its packed sums (``metrics/device.py``'s ``SUMS``), and the
+    batch's ids are set in the fold's ItemCoverage bitmaps in place.
     """
     if fold is not None and shard is not None:
         raise ValueError("the metric fold takes the whole batch: no mesh")
@@ -406,14 +404,14 @@ def eval_step(
             and batch["item_clicked"].is_cuda):
         return graphs.step(model, stream, batch, ace_matrix, metadata,
                            generator=generator, fetch_full_ranking=fetch_full_ranking,
-                           fold=fold, coverage=coverage)
+                           fold=fold)
     return _eval_step(model, stream, batch, ace_matrix, metadata, generator=generator,
                       fetch_full_ranking=fetch_full_ranking, uniforms=uniforms,
-                      shard=shard, fold=fold, coverage=coverage)
+                      shard=shard, fold=fold)
 
 
 def _eval_step(model, stream, batch, ace_matrix, metadata, *, generator,
-               fetch_full_ranking, uniforms, shard=None, fold=None, coverage=None):
+               fetch_full_ranking, uniforms, shard=None, fold=None):
     """``eval_step``'s device work, eager."""
     cfg = model.cfg
     aux, pool, neg_idx, neg_ids, all_clicked, all_ts = _eval_inputs(
@@ -446,8 +444,7 @@ def _eval_step(model, stream, batch, ace_matrix, metadata, *, generator,
         fetches["predicted_ids"] = out.predicted_ids[..., : cfg.metrics_top_n]
     if fold is not None:
         fetches.update(fold(out.predicted_ids, batch["label_next_item"],
-                            stream.recent_pop_norm, batch["item_clicked"], ace_matrix,
-                            coverage))
+                            stream.recent_pop_norm, batch["item_clicked"], ace_matrix))
     new_stream = update_stream_state(stream, all_clicked, all_ts, cfg)
     return new_stream, metrics, fetches
 

@@ -74,13 +74,7 @@ import torch
 from ..baselines.benchmarks import BenchmarkRecommender, StreamStateView
 from ..config import ArticleFeaturesSchema, NARConfig, RunConfig, SessionFeaturesSchema
 from ..data.collate import Session, batches_from_sessions
-from ..metrics.device import (
-    COVERAGE,
-    SUMS,
-    MetricFold,
-    add_batch_sums,
-    add_coverage_counts,
-)
+from ..metrics.device import SUMS, MetricFold, add_batch_sums, add_coverage_counts
 from ..metrics.evaluation import (
     ColdStartAnalysisState,
     compute_metrics_results,
@@ -389,24 +383,22 @@ class TemporalHarness:
                                             self.metadata)
         return train_step(self.state, batch, self.ace_matrix, self.metadata)
 
-    def _eval_step(self, batch, coverage=None):
-        """The eval step; with the ItemCoverage bitmaps ``coverage`` it
-        folds the metric set too."""
+    def _eval_step(self, batch):
+        """The eval step; where the harness holds a metric fold it folds
+        the metric set too."""
         kwargs = dict(generator=self.state.generator,
                       fetch_full_ranking=self.fetch_full_ranking)
         if self._sharded is not None:
             return self._sharded.eval_step(
                 self.state.model, self.state.stream, batch, self.ace_matrix,
                 self.metadata, **kwargs)
-        if coverage is not None:
-            kwargs.update(fold=self._metric_fold, coverage=coverage)
         # a capture needs the card to itself: a harness on a worker thread
         # (the sweep's parallel trials) may share it with others, so only
         # the main thread hands the step its graphs
         main = threading.current_thread() is threading.main_thread()
         return eval_step(self.state.model, self.state.stream, batch, self.ace_matrix,
                          self.metadata, graphs=self._eval_graphs if main else None,
-                         **kwargs)
+                         fold=self._metric_fold, **kwargs)
 
     def _batches(self, source):
         """Batch iterator over an hour's data: a Session sequence, or any
@@ -563,9 +555,9 @@ class TemporalHarness:
                 clf.streaming_metrics = self._new_metric_set()
             # on the card the step folds the metric set; ItemCoverage's
             # bitmaps are seeded as its clicked set is
-            coverage = (None if self._metric_fold is None else
-                        MetricFold.coverage(stream_snapshot.buffer_ids,
-                                            stream_snapshot.recent_pop_norm.shape[0]))
+            if self._metric_fold is not None:
+                self._metric_fold.seed_coverage(stream_snapshot.buffer_ids,
+                                                stream_snapshot.recent_pop_norm.shape[0])
 
         hit_sum = rr_sum = label_count = 0.0
         sessions_count = clicks_count = 0
@@ -578,13 +570,9 @@ class TemporalHarness:
         # so every value is the serial loop's.  On the CPU each step runs
         # when it is called and the loop is serial.
         def _dispatch(np_batch):
-            nonlocal coverage
             batch = self._put_batch(np_batch)
-            stream, dev_metrics, fetches = self._eval_step(batch, coverage)
+            stream, dev_metrics, fetches = self._eval_step(batch)
             self.state = self.state._replace(stream=stream)
-            if coverage is not None:
-                fetches = dict(fetches)
-                coverage = tuple(fetches.pop(name) for name in COVERAGE)
             wanted = {f"m_{k}": v for k, v in dev_metrics.items()}
             if self._host_tier:
                 wanted.update(fetches, view_buffer_ids=stream.buffer_ids,
@@ -642,7 +630,7 @@ class TemporalHarness:
             preds, probs, labels, neg_items, clicked = fetched
             if self._primary:
                 with span("nar.eval.metrics", phases, "chameleon_metrics"):
-                    if SUMS in host:
+                    if self._metric_fold is not None:
                         with span("nar.eval.metrics.device"):
                             add_batch_sums(streaming, host[SUMS].numpy())
                     else:
@@ -701,8 +689,8 @@ class TemporalHarness:
                 "mrr_at_n": rr_sum / max(label_count, 1.0),
             }
             if self._primary:
-                if coverage is not None:
-                    add_coverage_counts(streaming, MetricFold.coverage_counts(coverage))
+                if self._metric_fold is not None:
+                    add_coverage_counts(streaming, self._metric_fold.coverage_counts())
                 row.update(compute_metrics_results(streaming, recommender="chameleon"))
                 for clf in self.bench_classifiers:
                     row.update(compute_metrics_results(clf.streaming_metrics,

@@ -1761,13 +1761,27 @@ def test_graphed_hour_folds_the_metric_set_as_the_host_suite(card, tmp_path):
 
 def test_folded_eval_hours_are_bit_identical(card, tmp_path):
     """The same eval hour twice from the same state, the first warming up
-    and capturing, the second all replays: bit-identical rows."""
+    and capturing, the second all replays of the same graph (the fold's
+    bitmaps stay where they are): one capture, and bit-identical rows."""
+    from chameleon_recsys_tpu_torch.utils import profiling
+
     cfg, harness, source = _folding_harness(card, tmp_path)
     sessions = source(1)
     generator = harness.state.generator.get_state()
-    first = harness.evaluate_hour(sessions)
-    harness.state.generator.set_state(generator)
-    second = harness.evaluate_hour(sessions)
+    was = profiling.set_tracing(True)
+    profiling.reset_spans()
+    try:
+        first = harness.evaluate_hour(sessions)
+        held = list(harness._eval_graphs.graphs.values())
+        harness.state.generator.set_state(generator)
+        second = harness.evaluate_hour(sessions)
+        spans = profiling.span_snapshot()
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset_spans()
+    assert len(held) == 1 and list(harness._eval_graphs.graphs.values()) == held
+    assert spans["nar.eval.capture"][1] == 1
+    assert spans["nar.eval.replay"][1] == 2 * EVAL_BATCHES - 2
     assert list(first) == list(second)
     for key, value in first.items():
         if not key.endswith(("elapsed_s", "per_s")):
@@ -1804,10 +1818,9 @@ def test_eval_and_train_steps_do_not_sync(card):
         step = int(state.stream.current_step)
         torch.cuda.set_sync_debug_mode(mode)
         try:
-            coverage = fold.coverage(state.stream.buffer_ids, 200)
+            fold.seed_coverage(state.stream.buffer_ids, 200)
             new_stream, _, fetches = eval_step(model, state.stream, batches[1], ace, metadata,
-                                               generator=state.generator, fold=fold,
-                                               coverage=coverage)
+                                               generator=state.generator, fold=fold)
             state, _ = train_step(state, batches[2], ace, metadata)
         finally:
             torch.cuda.set_sync_debug_mode("default")

@@ -2,7 +2,8 @@
 the host suite (``create_eval_metrics`` + ``update_metrics``), on the CPU.
 
 1. ``MetricFold`` over three batches, its sums added into a fresh metric set
-   (``add_batch_sums``, ``add_coverage_counts``), against the host suite fed
+   (``add_batch_sums``, ``add_coverage_counts`` of its own bitmaps), against
+   the host suite fed
    the same batches: random batches of G1's grid (256 sessions x 19 steps,
    top 10; 2,000 articles, ACE width 250) and the edge cases, each with
    HitRateBySessionPosition off and on.  Tolerances: exact for HR, the
@@ -12,7 +13,7 @@ the host suite (``create_eval_metrics`` + ``update_metrics``), on the CPU.
    sides (numpy's and torch's differ by an ulp).
 2. An eval hour of a small CPU harness with the fold set on it against the
    same hour on the host suite, from the same state; a harness on the CPU
-   holds no fold.
+   holds no fold.  Two such hours reseed the same bitmaps in place.
 """
 import numpy as np
 import pytest
@@ -25,7 +26,6 @@ from chameleon_recsys_tpu_torch.metrics import (
     update_metrics,
 )
 from chameleon_recsys_tpu_torch.metrics.device import (
-    COVERAGE,
     SUMS,
     MetricFold,
     add_batch_sums,
@@ -104,16 +104,15 @@ def test_fold_equals_host_suite(case, by_position):
     folded = create_eval_metrics(top_n, NEGATIVE_RELEVANCE, by_position, ace, buffer)
     fold = MetricFold(top_n, NEGATIVE_RELEVANCE, by_position)
     ace_t, pop_t = torch.from_numpy(ace), torch.from_numpy(pop)
-    coverage = fold.coverage(torch.from_numpy(buffer), NUM_ITEMS)
+    fold.seed_coverage(torch.from_numpy(buffer), NUM_ITEMS)
     for _ in range(3):
         preds, labels, clicked = _batch(rng, columns, case)
         update_metrics(preds, labels, pop[labels], pop[preds], clicked, host)
         out = fold(torch.from_numpy(preds), torch.from_numpy(labels), pop_t,
-                   torch.from_numpy(clicked), ace_t, coverage)
-        assert out[SUMS].dtype == torch.float64
+                   torch.from_numpy(clicked), ace_t)
+        assert list(out) == [SUMS] and out[SUMS].dtype == torch.float64
         add_batch_sums(folded, out[SUMS].numpy())
-        coverage = tuple(out[name] for name in COVERAGE)
-    add_coverage_counts(folded, fold.coverage_counts(coverage))
+    add_coverage_counts(folded, fold.coverage_counts())
     want = compute_metrics_results(host, "chameleon")
     got = compute_metrics_results(folded, "chameleon")
     _assert_rows_agree(got, want)
@@ -179,3 +178,25 @@ def test_harness_hour_with_the_fold_equals_the_host_suite():
     assert got["hitrate_at_n"] == got["hitrate_at_n_chameleon"]
     assert any(k.startswith("clicks_at_pos_chameleon_") for k in got)
     assert spans["nar.eval.metrics.device"][1] == spans["nar.eval.metrics"][1] > 0
+
+
+def test_two_hours_reseed_the_same_bitmaps_in_place():
+    """Two eval hours with the fold keep its ItemCoverage bitmaps where
+    they are (one graph can read them every hour), reseed them at each
+    hour's start, and count the host suite's ``item_coverage_at_n``."""
+    harness, source = _small_harness()
+    harness.train_hour(source(0))
+    generator = harness.state.generator.get_state()
+    want = [harness.evaluate_hour(source(hour)) for hour in (1, 2)]
+
+    harness.state.generator.set_state(generator)
+    fold = harness._metric_fold = MetricFold(
+        harness.cfg.metrics_top_n, harness.cfg.eval_negative_sample_relevance, True)
+    got, addresses = [], []
+    for hour in (1, 2):
+        got.append(harness.evaluate_hour(source(hour)))
+        addresses.append(tuple(bits.data_ptr() for bits in fold.coverage))
+    assert addresses[0] == addresses[1]
+    key = "item_coverage_at_n_chameleon"
+    assert [row[key] for row in got] == [row[key] for row in want]
+    assert want[0][key] != want[1][key]

@@ -227,7 +227,7 @@ def test_recommend_from_default_pool(served, world):
 
 
 def test_recommend_on_the_cpu_neither_captures_nor_replays(served, world):
-    """The CUDA graphs of ``serve_graphs.py`` are the card's: on the CPU every
+    """The CUDA graphs of ``serve.py`` are the card's: on the CPU every
     call of one request shape runs ``_score`` eagerly, with the same answer."""
     server = served["port_server"]
     assert server.graphs is None
