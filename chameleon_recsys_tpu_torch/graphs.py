@@ -1,8 +1,10 @@
-"""CUDA graphs keyed by what a call shows, for serving and the eval step.
+"""CUDA graphs keyed by what a call shows, for serving and the train and
+eval steps.
 
-The recommend call's scoring (``serve.py``) and the eval step
-(``train/eval_graphs.py``) replay a call's device work as one CUDA graph.
-``GraphCache.run`` runs a call under the rule they share:
+The recommend call's scoring (``serve.py``), the train step
+(``train/train_graphs.py``) and the eval step (``train/eval_graphs.py``)
+replay a call's device work as one CUDA graph.  ``GraphCache.run`` runs a
+call under the rule they share:
 
   * a key's first call runs eagerly on the side stream the captures use,
     which is the warm-up that ``torch.cuda.graph`` asks for (the libraries'
@@ -18,7 +20,8 @@ first call: which buffers the graph reads, how a call's inputs are loaded
 into them, and what a replay returns.
 
 All graphs of one cache share one memory pool, so a graph's outputs are
-valid until the next replay of any graph of the cache.  At most
+valid until the next replay of any graph of the cache; a capture into a
+cache that holds no graph starts a new pool.  At most
 ``capacity`` keys hold a graph; a new capture evicts the least recently
 replayed, and at most ``remembered`` keys seen once are remembered, so a
 key seen once never costs a capture.
@@ -104,6 +107,11 @@ class GraphCache:
             del self.seen[key]
             if len(self.graphs) >= self.capacity:
                 self.graphs.popitem(last=False)
+            if not self.graphs:
+                # a pool that no live graph shares takes no new capture while
+                # tensors made in it live on (a dropped train graph's
+                # gradients): the capture starts a pool of its own
+                self._pool = None
             graph.buffers(*call)
             before = launch_counts()
             graph.replay = self._capture(graph.work)

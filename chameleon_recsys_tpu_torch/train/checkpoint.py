@@ -9,6 +9,8 @@ installed).  Its keys:
   * ``model``: ``NARModel.state_dict()`` as float32 numpy arrays;
   * ``optimizer``: torch Adam's ``state_dict()``, its tensors as numpy
     arrays (per parameter index: ``step``, ``exp_avg``, ``exp_avg_sq``);
+    its ``capturable`` is the writer's device's, and a load keeps the
+    live optimizer's;
   * ``stream``: the ``StreamState`` fields;
   * ``generator``: ``{"device": "cpu" | "cuda", "state": uint8 array}``, the
     train state's ``torch.Generator``, or ``None`` where the checkpoint has
@@ -125,8 +127,13 @@ def unpack_train_state(payload: Mapping, state: TrainState, programs=None) -> Tr
         params = programs.local_tensors(params)
         moments = _map_moments(state.model, moments, programs.local_tensors)
     state.model.load_state_dict(params, strict=True)
+    # whether Adam is capturable follows the live device (``init_train_state``),
+    # not the one that wrote the file
     state.optimizer.load_state_dict({
-        "state": moments, "param_groups": payload["optimizer"]["param_groups"],
+        "state": moments,
+        "param_groups": [dict(saved, capturable=live["capturable"]) for saved, live in
+                         zip(payload["optimizer"]["param_groups"],
+                             state.optimizer.param_groups)],
     })
     device = next(state.model.parameters()).device
     saved = payload["generator"]

@@ -11,7 +11,9 @@ the whole grid; run the model with ``train=True`` (at ``keep_prob`` < 1 the
 model takes the dense path over the sampled ``neg_ids``, as the JAX model
 does, with its dropout masks drawn from the state's generator after the
 sampler's draws); take loss = XE + L2 - novelty, back-propagate, step Adam;
-then fold the batch's clicks into the streaming state.  With
+then fold the batch's clicks into the streaming state.  On the card a
+caller may hand it a graph cache (``train/train_graphs.py``), which replays
+the whole step as one CUDA graph per batch shape with the same draws.  With
 ``train_compaction_groups`` = G > 1 the compaction runs per group of B / G
 sessions (G = the data-parallel width of the mesh layout): each group's
 valid rows first, ``capacity / G`` rows a group.  On one device that
@@ -41,7 +43,8 @@ group before Adam; the metrics are the global batch's.
 ``train_step``'s phases are spans of the program (``utils/profiling.py``):
 ``nar.train_step.sample`` (compaction and the sampler), ``.forward`` (the
 model and the loss), ``.backward``, ``.optimizer`` (the zero gradients,
-their sum under a mesh, Adam) and ``.stream``.
+their sum under a mesh, Adam) and ``.stream``; a replayed step runs none of
+them, only the graph's ``nar.train_step.replay``.
 """
 from __future__ import annotations
 
@@ -177,11 +180,17 @@ def init_train_state(
     model: NARModel, stream: StreamState, generator: torch.Generator
 ) -> TrainState:
     """A fresh train state: Adam as ``optax.adam(lr, b1=0.9, b2=0.999,
-    eps=1e-8)``, with no weight decay (the L2 term is in the loss)."""
+    eps=1e-8)``, with no weight decay (the L2 term is in the loss).  On a
+    CUDA device Adam is capturable (its step count on the card), so that a
+    CUDA graph can hold the whole step (``train/train_graphs.py``)."""
+    capturable = next(model.parameters()).is_cuda
     optimizer = torch.optim.Adam(
         model.parameters(), lr=model.cfg.learning_rate, betas=(0.9, 0.999),
-        eps=1e-8, weight_decay=0.0,
+        eps=1e-8, weight_decay=0.0, capturable=capturable,
     )
+    # the warm-ups and the steps left eager run it uncaptured by design,
+    # which torch would warn of once
+    optimizer._warned_capturable_if_run_uncaptured = True
     return TrainState(model, optimizer, stream, generator, 0)
 
 
@@ -247,6 +256,24 @@ def _train_inputs(model, stream, batch, ace_matrix, metadata, generator,
                         all_clicked, all_ts)
 
 
+def draw_train_uniforms(cfg, batch, buffer_size: int, generator: torch.Generator,
+                        out: Optional[SamplerUniforms] = None) -> SamplerUniforms:
+    """The uniforms the train step's sampler draws from ``generator`` for
+    ``batch`` (into ``out`` when given), as it draws them itself: one click
+    row per compacted row with a capacity, else per click of the grid."""
+    b, t = batch["item_clicked"].shape
+    rows = None
+    if cfg.train_valid_row_capacity is not None:
+        groups = max(cfg.train_compaction_groups, 1)
+        rows = min(cfg.train_valid_row_capacity // groups, b * t // groups) * groups
+    return draw_uniforms(
+        generator, b, t + batch["label_last_item"].shape[1], buffer_size,
+        num_negatives=cfg.negative_samples,
+        buffer_sample_size=cfg.negative_sample_from_buffer,
+        mult=cfg.neg_sampling_multiplying_factor, rows=rows, out=out,
+    )
+
+
 def train_step(
     state: TrainState,
     batch: Mapping[str, torch.Tensor],
@@ -255,6 +282,7 @@ def train_step(
     *,
     uniforms: Optional[SamplerUniforms] = None,
     shard=None,
+    graphs=None,
 ):
     """One train batch -> (state', metrics).
 
@@ -266,18 +294,38 @@ def train_step(
     a mesh, the global batch's).  Metrics: ``loss``, ``ce_loss``,
     ``reg_loss``, ``sessions``, ``clicks`` and, with a capacity,
     ``dropped_clicks``.
+
+    ``graphs`` (``train/train_graphs.py::TrainGraphs``, the caller's cache)
+    replays the step as one CUDA graph per batch shape, with the same
+    draws from ``state.generator``; it is taken only where the cache takes
+    the model and the batch (a CUDA device, no dropout masks to draw, no
+    Python hooks on the model), without ``uniforms`` and without a mesh.
+    A replay returns copies of the graph's outputs, which later replays
+    leave as they are.
     """
-    model, cfg = state.model, state.model.cfg
-    stream = state.stream
+    if (graphs is not None and uniforms is None and shard is None
+            and graphs.takes(state.model, batch)):
+        new_stream, metrics = graphs.step(state, batch, ace_matrix, metadata)
+    else:
+        new_stream, metrics = _train_step(
+            state.model, state.optimizer, state.stream, batch, ace_matrix, metadata,
+            generator=state.generator, uniforms=uniforms, shard=shard)
+    return state._replace(stream=new_stream, step=state.step + 1), metrics
+
+
+def _train_step(model, optimizer, stream, batch, ace_matrix, metadata, *, generator,
+                uniforms, shard=None):
+    """``train_step``'s device work, eager: (stream', metrics)."""
+    cfg = model.cfg
     with torch.enable_grad():
         with span("nar.train_step.sample"):
             inputs = _train_inputs(model, stream, batch, ace_matrix, metadata,
-                                   state.generator, uniforms, shard)
+                                   generator, uniforms, shard)
         with span("nar.train_step.forward"):
             forward = model if shard is None else shard.model_call(model)
             out = forward(batch, inputs.aux, inputs.neg_ids, train=True,
                           neg_pool=inputs.pool, neg_pool_idx=inputs.neg_idx,
-                          scoring_rows=inputs.scoring_rows, generator=state.generator)
+                          scoring_rows=inputs.scoring_rows, generator=generator)
             if shard is None:
                 reg = l2_regularization(model, cfg.reg_weight_decay)
                 loss = out.ce_loss + reg - out.nov_reg_loss
@@ -288,7 +336,7 @@ def train_step(
                 local_loss = (out.ce_loss + own_reg - out.nov_reg_loss if shard.counts_l2
                               else out.ce_loss - out.nov_reg_loss)
         with span("nar.train_step.backward"):
-            state.optimizer.zero_grad(set_to_none=True)
+            optimizer.zero_grad(set_to_none=True)
             local_loss.backward()
     with span("nar.train_step.optimizer"):
         # optax updates every leaf; torch's Adam skips a parameter whose
@@ -298,7 +346,7 @@ def train_step(
                 param.grad = torch.zeros_like(param)
         if shard is not None:
             shard.sync_grads(model)
-        state.optimizer.step()
+        optimizer.step()
     ce_loss, dropped = out.ce_loss.detach(), inputs.dropped
     if shard is None:
         sessions, clicks = (batch["session_size"] > 0).sum(), out.loss_mask.sum()
@@ -319,7 +367,7 @@ def train_step(
         metrics["dropped_clicks"] = dropped
     with span("nar.train_step.stream"):
         new_stream = update_stream_state(stream, inputs.all_clicked, inputs.all_ts, cfg)
-    return state._replace(stream=new_stream, step=state.step + 1), metrics
+    return new_stream, metrics
 
 
 def _eval_inputs(model, stream, batch, ace_matrix, metadata, generator, uniforms,

@@ -37,7 +37,8 @@ checkpoint every rank writes its own rows.
 
 The hours open the program's spans (``utils/profiling.py::span``), a batch
 at a time: ``nar.collate``, ``nar.put_batch``, ``nar.train_step`` (with
-``train/steps.py``'s ``nar.train_step.*`` inside), ``nar.host_tier`` and
+``train/steps.py``'s ``nar.train_step.*`` inside, or on the card
+``nar.train_step.capture`` or ``.replay``), ``nar.host_tier`` and
 the hour's ``nar.train.wait``; in an eval hour ``nar.eval.setup``,
 ``nar.collate``, ``nar.eval.dispatch``, ``nar.eval.wait``,
 ``nar.eval.metrics``, ``nar.eval.baselines``, ``nar.eval.cold_start``,
@@ -47,11 +48,12 @@ the card, ``nar.eval.capture`` or ``nar.eval.replay``, and inside
 metric set.  They cost a flag check while tracing is off;
 ``last_eval_phase_seconds`` sums the eval spans either way.
 
-On the card, without a mesh, the eval step is replayed as one CUDA graph
-per batch shape (``train/eval_graphs.py``; the harness hands its cache to
-``eval_step`` from the main thread), collated batches go to the card
+On the card, without a mesh, the train and eval steps are replayed as one
+CUDA graph per batch shape (``train/train_graphs.py``,
+``train/eval_graphs.py``; the harness hands its caches to ``train_step``
+and ``eval_step`` from the main thread), collated batches go to the card
 through pinned host buffers without a host sync (``_Staging``), and the
-step folds CHAMELEON's eval metric set for its batch
+eval step folds CHAMELEON's eval metric set for its batch
 (``metrics/device.py``): the host adds the fetched sums into the metric
 objects and counts ItemCoverage's bitmaps once an hour.  On the CPU and
 under a mesh the host runs the metric suite (``update_metrics``).
@@ -102,8 +104,16 @@ from .checkpoint import (
 )
 from .eval_graphs import EvalGraphs
 from .steps import TrainState, eval_step, init_train_state, train_step
+from .train_graphs import TrainGraphs
 
 log = logging.getLogger("chameleon_recsys_tpu_torch.temporal")
+
+
+def _on_main_thread() -> bool:
+    """Whether the harness may hand its steps their graphs: a capture needs
+    the card to itself, and a harness on a worker thread (the sweep's
+    parallel trials) may share it with others."""
+    return threading.current_thread() is threading.main_thread()
 
 
 class _Staging:
@@ -302,9 +312,10 @@ class TemporalHarness:
             else None
         )
         self.histograms_every_n_hours = max(1, histograms_every_n_hours)
-        # the eval step's CUDA graphs and the batches' pinned staging: on
-        # the card without a mesh
+        # the train and eval steps' CUDA graphs and the batches' pinned
+        # staging: on the card without a mesh
         on_card = self.device.type == "cuda" and mesh_plan is None
+        self._train_graphs = TrainGraphs() if on_card else None
         self._eval_graphs = EvalGraphs() if on_card else None
         self._staging = _Staging(self.device) if on_card else None
         # CHAMELEON's eval metric set, folded inside the eval step
@@ -381,7 +392,8 @@ class TemporalHarness:
         if self._sharded is not None:
             return self._sharded.train_step(self.state, batch, self.ace_matrix,
                                             self.metadata)
-        return train_step(self.state, batch, self.ace_matrix, self.metadata)
+        return train_step(self.state, batch, self.ace_matrix, self.metadata,
+                          graphs=self._train_graphs if _on_main_thread() else None)
 
     def _eval_step(self, batch):
         """The eval step; where the harness holds a metric fold it folds
@@ -392,12 +404,9 @@ class TemporalHarness:
             return self._sharded.eval_step(
                 self.state.model, self.state.stream, batch, self.ace_matrix,
                 self.metadata, **kwargs)
-        # a capture needs the card to itself: a harness on a worker thread
-        # (the sweep's parallel trials) may share it with others, so only
-        # the main thread hands the step its graphs
-        main = threading.current_thread() is threading.main_thread()
         return eval_step(self.state.model, self.state.stream, batch, self.ace_matrix,
-                         self.metadata, graphs=self._eval_graphs if main else None,
+                         self.metadata,
+                         graphs=self._eval_graphs if _on_main_thread() else None,
                          fold=self._metric_fold, **kwargs)
 
     def _batches(self, source):

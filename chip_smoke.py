@@ -3486,9 +3486,10 @@ def seeded_uniforms(seed, cfg):
                                  .to(device) for s in shapes))
 
     saved = temporal.train_step, temporal.eval_step
-    temporal.train_step = lambda state, batch, ace, meta: steps.train_step(
+    temporal.train_step = lambda state, batch, ace, meta, **kw: steps.train_step(
         state, batch, ace, meta,
-        uniforms=draw(ace.device, cfg.negative_samples, cfg.negative_sample_from_buffer))
+        uniforms=draw(ace.device, cfg.negative_samples, cfg.negative_sample_from_buffer),
+        **kw)
     temporal.eval_step = lambda model, stream, batch, ace, meta, **kw: steps.eval_step(
         model, stream, batch, ace, meta, uniforms=draw(
             ace.device, cfg.eval_negative_samples, cfg.eval_negative_sample_from_buffer),

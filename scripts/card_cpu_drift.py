@@ -162,8 +162,8 @@ def nar_part(workdir: Path):
                 for shape in ((buffer,), (b * length + 16,), (b, length, nc))))
 
         saved = temporal.train_step, temporal.eval_step
-        temporal.train_step = lambda state, batch, ace, meta: steps.train_step(
-            state, batch, ace, meta, uniforms=draw(ace.device))
+        temporal.train_step = lambda state, batch, ace, meta, **kw: steps.train_step(
+            state, batch, ace, meta, uniforms=draw(ace.device), **kw)
         temporal.eval_step = lambda model, stream, batch, ace, meta, **kw: steps.eval_step(
             model, stream, batch, ace, meta, uniforms=draw(ace.device), **kw)
         try:

@@ -976,8 +976,9 @@ def test_adressa_chain_on_card_matches_cpu(card, raw, tmp_path, monkeypatch):
                 torch.from_numpy(rng.uniform(size=shape).astype(np.float32)).to(device)
                 for shape in ((buffer,), (b * length + from_buffer,), (b, length, nc))))
 
-        monkeypatch.setattr(temporal, "train_step", lambda state, batch, ace, meta: (
-            steps.train_step(state, batch, ace, meta, uniforms=draw(3, 16, ace.device))))
+        monkeypatch.setattr(temporal, "train_step", lambda state, batch, ace, meta, **kw: (
+            steps.train_step(state, batch, ace, meta, uniforms=draw(3, 16, ace.device),
+                             **kw)))
         monkeypatch.setattr(temporal, "eval_step", lambda model, stream, batch, ace, meta,
                             **kw: steps.eval_step(model, stream, batch, ace, meta,
                                                   uniforms=draw(3, 16, ace.device), **kw))
@@ -1788,12 +1789,213 @@ def test_folded_eval_hours_are_bit_identical(card, tmp_path):
             assert repr(second[key]) == repr(value), key
 
 
+# ---------------------------------------------------------------------------
+# train: the train step replayed as one CUDA graph a batch shape
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's RESUME_TOL: a train hour from the same state differs by the
+# embeddings' backward, which adds with float atomics (the losses relative,
+# the parameters absolute)
+TRAIN_RESUME_TOL = {"loss": 1e-5, "param": 1e-5}
+
+
+def _train_graph_harness(card, model_dir, dtype="bfloat16", capacity=48):
+    """``_eval_graph_harness``'s world with a row capacity (or the grid
+    sampler without one), after one train hour; its hours hold
+    ``EVAL_BATCHES`` batches."""
+    from chameleon_recsys_tpu_torch.config import RunConfig
+    from chameleon_recsys_tpu_torch.train.temporal import TemporalHarness
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, sess, art = _tiny_eval_world()
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, negative_samples=5,
+                              negative_sample_from_buffer=30,
+                              train_valid_row_capacity=capacity)
+    corpus = make_synthetic_corpus(art, ace_dim=8)
+    n = EVAL_BATCHES * cfg.batch_size
+
+    def source(hour):
+        return synthetic_hour_sessions(corpus, sess, hour, n, cfg.max_session_length)
+
+    harness = TemporalHarness(cfg, RunConfig(model_dir=str(model_dir), random_seed=5), sess, art,
+                              corpus.ace_matrix, corpus.metadata, device=card)
+    harness.train_hour(source(0))
+    return cfg, harness, source
+
+
+def _recorded_train_hour(harness, sessions, monkeypatch):
+    """A train hour, with each train step's returns, their copies to the
+    host at return, the negatives it scored (read from the step's own
+    tensor: in a replay the graph's, which holds the replay's negatives)
+    and its launches: (hour's stats, [(returns, copies, negatives,
+    launches)])."""
+    from chameleon_recsys_tpu_torch.ops.kernels import launch_counts
+    from chameleon_recsys_tpu_torch.train import steps, temporal
+
+    calls, scored = [], {}
+    original_inputs, original_step = steps._train_inputs, temporal.train_step
+
+    def inputs(*a, **k):
+        out = original_inputs(*a, **k)
+        scored["neg_ids"] = out.neg_ids  # a capture's is the graph's own tensor
+        return out
+
+    def recording(*a, **k):
+        before = launch_counts()
+        state, metrics = original_step(*a, **k)
+        after = launch_counts()
+        out = (state.stream._asdict(), metrics)
+        host = tuple({n: t.cpu() for n, t in part.items()} for part in out)
+        calls.append((out, host, scored["neg_ids"].clone(),
+                      {n: after[n] - before[n] for n in after if after[n] != before[n]}))
+        return state, metrics
+
+    monkeypatch.setattr(steps, "_train_inputs", inputs)
+    monkeypatch.setattr(temporal, "train_step", recording)
+    try:
+        stats = harness.train_hour(sessions)
+    finally:
+        monkeypatch.setattr(steps, "_train_inputs", original_inputs)
+        monkeypatch.setattr(temporal, "train_step", original_step)
+    return stats, calls
+
+
+def _traced(fn):
+    """``fn()`` with tracing on: (its answer, the spans it opened)."""
+    from chameleon_recsys_tpu_torch.utils import profiling
+
+    was = profiling.set_tracing(True)
+    profiling.reset_spans()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, profiling.span_snapshot()
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset_spans()
+
+
+@pytest.mark.parametrize("dtype, capacity", [("bfloat16", 48), ("float32", None)])
+def test_train_hour_replays_one_graph_per_batch_shape(card, dtype, capacity, monkeypatch,
+                                                      tmp_path):
+    """One train hour graphed and one eager, from the same state and
+    generator state: the same negatives and stream after every batch, and
+    the same generator state after the hour; the losses and the parameters
+    within chip_smoke.py's RESUME_TOL (the embeddings' backward adds with
+    float atomics), but the matching output's bias, whose gradient is 0 up
+    to rounding (``test_directory_checkpoint_round_trip_on_card``); one
+    capture for the hour's one key; every call counts the scorer's and the
+    UGRNN's forward and backward launches; what a call returned is
+    unchanged by later replays."""
+    cfg, harness, source = _train_graph_harness(card, tmp_path, dtype, capacity)
+    graphs = harness._train_graphs
+    assert graphs is not None and len(graphs.graphs) == 1  # the first hour's
+    path = harness.save_checkpoint()
+    graphs.clear()  # this hour warms up and captures again
+    sessions = source(1)
+    (graphed_stats, graphed), spans = _traced(
+        lambda: _recorded_train_hour(harness, sessions, monkeypatch))
+    graphed_generator = harness.state.generator.get_state()
+    graphed_params = {n: p.detach().clone() for n, p in harness.state.model.named_parameters()}
+    assert len(graphed) == EVAL_BATCHES
+    assert spans["nar.train_step"][1] == EVAL_BATCHES
+    assert spans["nar.train_step.capture"][1] == 1
+    assert spans["nar.train_step.replay"][1] == EVAL_BATCHES - 2
+    assert spans["nar.train_step.forward"][1] == 2  # the warm-up's and the capture's
+    assert len(graphs.graphs) == 1 and not graphs.seen
+    first = graphed[0][3]  # the warm-up's, eager
+    assert first.get("cand_score_fwd_stash") == 1 and first.get("cand_score_bwd", 0) > 0
+    assert first.get("ugrnn_fwd") == cfg.rnn_num_layers and first.get("ugrnn_bwd", 0) > 0
+    for i, (_, _, _, launched) in enumerate(graphed):
+        assert launched == first, (i, launched)
+    for i, (out, host, _, _) in enumerate(graphed):
+        for part, copies in zip(out, host):
+            for name, tensor in part.items():
+                assert torch.equal(tensor.cpu(), copies[name]), (i, name)
+
+    harness._train_graphs = None  # the eager step, from the same state
+    harness.load_checkpoint(path)
+    eager_stats, eager = _recorded_train_hour(harness, sessions, monkeypatch)
+    assert torch.equal(harness.state.generator.get_state(), graphed_generator)
+    for i, ((out, _, negs, _), (ref, _, ref_negs, _)) in enumerate(zip(graphed, eager)):
+        assert torch.equal(negs, ref_negs), i
+        for name, value in ref[0].items():
+            assert torch.equal(out[0][name], value), (i, name)
+        assert list(out[1]) == list(ref[1])
+        loss, ref_loss = float(out[1]["ce_loss"]), float(ref[1]["ce_loss"])
+        assert abs(loss - ref_loss) <= TRAIN_RESUME_TOL["loss"] * abs(ref_loss), i
+    assert graphed_stats["avg_ce_loss"] == pytest.approx(eager_stats["avg_ce_loss"],
+                                                         rel=TRAIN_RESUME_TOL["loss"])
+    for name, p in harness.state.model.named_parameters():
+        if name != "matching_out_bias":
+            diff = (p - graphed_params[name]).abs().max().item()
+            assert diff <= TRAIN_RESUME_TOL["param"], (name, diff)
+
+
+def test_a_hooked_model_trains_eagerly(card, tmp_path):
+    """A replay runs no Python hook: with a forward hook on the model every
+    train step runs eagerly and the hook sees each; once it is removed the
+    next hour replays the graph the first hour captured, and the
+    parameters' gradients are the graph's again."""
+    cfg, harness, source = _train_graph_harness(card, tmp_path)
+    graph = next(iter(harness._train_graphs.graphs.values()))
+    seen = []
+    hook = harness.state.model.register_forward_hook(lambda *a: seen.append(1))
+    _, spans = _traced(lambda: harness.train_hour(source(1)))
+    hook.remove()
+    assert len(seen) == spans["nar.train_step"][1] == EVAL_BATCHES
+    assert "nar.train_step.capture" not in spans and "nar.train_step.replay" not in spans
+    params = list(harness.state.model.parameters())
+    assert not any(p.grad is g for p, g in zip(params, graph.grads))  # the eager steps'
+    _, spans = _traced(lambda: harness.train_hour(source(2)))
+    assert spans["nar.train_step.replay"][1] == EVAL_BATCHES
+    assert list(harness._train_graphs.graphs.values()) == [graph]
+    assert all(p.grad is g for p, g in zip(params, graph.grads))
+
+
+def test_train_graphs_recapture_after_a_load_and_the_eval_graph_holds(card, tmp_path):
+    """Adam updates the parameters in place, so the eval graph is held
+    across train hours, and the train graph across eval hours; a
+    ``load_checkpoint`` replaces Adam's state, so the next train hour warms
+    up and captures anew, with the eager hour's negatives and stream."""
+    cfg, harness, source = _train_graph_harness(card, tmp_path)
+    path = harness.save_checkpoint()
+    train_graph = next(iter(harness._train_graphs.graphs.values()))
+    harness.evaluate_hour(source(1))
+    eval_graph = next(iter(harness._eval_graphs.graphs.values()))
+    (_, spans) = _traced(lambda: (harness.train_hour(source(1)),
+                                  harness.evaluate_hour(source(2))))
+    assert spans["nar.train_step.replay"][1] == EVAL_BATCHES
+    assert spans["nar.eval.replay"][1] == EVAL_BATCHES
+    assert "nar.train_step.capture" not in spans and "nar.eval.capture" not in spans
+    assert list(harness._train_graphs.graphs.values()) == [train_graph]
+    assert list(harness._eval_graphs.graphs.values()) == [eval_graph]
+
+    harness.load_checkpoint(path)
+    generator = harness.state.generator.get_state()
+    graphed, spans = _traced(lambda: harness.train_hour(source(1)))
+    assert spans["nar.train_step.capture"][1] == 1
+    assert spans["nar.train_step.replay"][1] == EVAL_BATCHES - 2
+    assert next(iter(harness._train_graphs.graphs.values())) is not train_graph
+    stream = {n: t.clone() for n, t in harness.state.stream._asdict().items()}
+    harness._train_graphs = None
+    harness.load_checkpoint(path)
+    assert torch.equal(harness.state.generator.get_state(), generator)
+    eager = harness.train_hour(source(1))
+    for name, value in stream.items():
+        assert torch.equal(getattr(harness.state.stream, name), value), name
+    assert graphed["avg_ce_loss"] == pytest.approx(eager["avg_ce_loss"],
+                                                   rel=TRAIN_RESUME_TOL["loss"])
+
+
 def test_eval_and_train_steps_do_not_sync(card):
-    """One eval step, folding the metric set, and one train step, each
-    after one to warm up, raise nothing with the CUDA sync debug mode at
-    "error": no host sync is left in either (a graph's capture could not
-    hold one)."""
+    """One eval step, folding the metric set, and one eager train step,
+    each after one to warm up, and a graphed train step's replay, after its
+    warm-up and capture, raise nothing with the CUDA sync debug mode at
+    "error": no host sync is left in either step (a graph's capture could
+    not hold one) nor in the replay's copies and draws."""
     from chameleon_recsys_tpu_torch.metrics.device import MetricFold
+    from chameleon_recsys_tpu_torch.train.train_graphs import TrainGraphs
 
     cfg, sess, art = _tiny_eval_world()
     cfg = dataclasses.replace(cfg, train_valid_row_capacity=48, negative_samples=5,
@@ -1813,8 +2015,10 @@ def test_eval_and_train_steps_do_not_sync(card):
                                  *_batch_all_clicks(batches[0]), cfg)
     state = init_train_state(model, stream, torch.Generator(device=card).manual_seed(1))
     fold = MetricFold(cfg.metrics_top_n, cfg.eval_negative_sample_relevance, True)
+    graphs = TrainGraphs()
     torch.cuda.synchronize()
-    for mode in ("default", "error"):
+    # the graphed step warms up and captures under "default", replays under "error"
+    for mode in ("default", "default", "error"):
         step = int(state.stream.current_step)
         torch.cuda.set_sync_debug_mode(mode)
         try:
@@ -1822,8 +2026,11 @@ def test_eval_and_train_steps_do_not_sync(card):
             new_stream, _, fetches = eval_step(model, state.stream, batches[1], ace, metadata,
                                                generator=state.generator, fold=fold)
             state, _ = train_step(state, batches[2], ace, metadata)
+            state, _ = train_step(state, batches[2], ace, metadata, graphs=graphs)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        assert int(new_stream.current_step) == int(state.stream.current_step) == step + 1
+        assert int(new_stream.current_step) == step + 1
+        assert int(state.stream.current_step) == step + 2
         assert fetches["metric_sums"].dtype == torch.float64
+    assert len(graphs.graphs) == 1 and not graphs.seen

@@ -251,12 +251,12 @@ def test_hypertuning_cli_matches_jax(sweep_inputs):
                 stream=stream_from_numpy(start["stream"], device="cpu"))
             chain.update(cfg=start["cfg"], rng=start["rng"].copy())
 
-    def train_step(state, batch, ace_matrix, metadata):
+    def train_step(state, batch, ace_matrix, metadata, **kw):
         cfg = chain["cfg"]
         uniforms, chain["rng"] = jax_train_uniforms(
             cfg, chain["rng"], None, cfg.batch_size, cfg.max_session_length,
             cfg.recent_clicks_buffer_max_size)
-        return steps.train_step(state, batch, ace_matrix, metadata, uniforms=uniforms)
+        return steps.train_step(state, batch, ace_matrix, metadata, uniforms=uniforms, **kw)
 
     def eval_step(model, stream, batch, ace_matrix, metadata, **kw):
         cfg = chain["cfg"]

@@ -178,10 +178,10 @@ def jax_draws(world, raw_rng):
     b, length = cfg.batch_size, cfg.max_session_length
     buffer_size = cfg.recent_clicks_buffer_max_size
 
-    def train_step(state, batch, ace_matrix, metadata):
+    def train_step(state, batch, ace_matrix, metadata, **kw):
         uniforms, chain["rng"] = jax_train_uniforms(cfg, chain["rng"], None, b, length,
                                                     buffer_size)
-        return steps.train_step(state, batch, ace_matrix, metadata, uniforms=uniforms)
+        return steps.train_step(state, batch, ace_matrix, metadata, uniforms=uniforms, **kw)
 
     def eval_step(model, stream, batch, ace_matrix, metadata, **kw):
         uniforms, chain["rng"] = jax_eval_uniforms(cfg, chain["rng"], b, buffer_size)
