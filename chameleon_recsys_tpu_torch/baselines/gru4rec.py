@@ -26,6 +26,25 @@ Negatives are drawn uniformly, with replacement, among the first
 JAX's padding of that pool to a fixed length kept its step from recompiling
 and has no counterpart.  ``fit_batch`` returns the loss as a device scalar,
 so that a training loop fetches an hour's losses once.
+
+On a CUDA device a step's forward, loss and backward, ~1,100 launches at
+the G1 widths, replay as one CUDA graph per batch shape (``StepGraphs``,
+under ``graphs.py``'s rule: a shape's first call eager, its second
+captured), where a replay does what the eager step does: no dropout masks
+drawn inside it and no Python run there (hooks, a replaced
+``loss_for_batch`` or loss).  The graph reads its own copies of the items,
+labels and negatives, and makes the gradients in its pool; the draw of the
+negatives and the update stay eager, so the update is what it was.
+
+A step's spans (``utils/profiling.py``, off unless tracing is on):
+``gru4rec.sample`` (the pool and the draw), ``gru4rec.forward`` (the model
+and the loss) and ``gru4rec.backward`` where they run eagerly,
+``gru4rec.step.capture`` and ``gru4rec.step.replay`` where they run as a
+graph, and ``gru4rec.update``.  While tracing is on, on the card, a step
+also counts on the device the rows of the item tables it touches
+(``rows_touched``); ``flush_counts`` adds the sums to the counter
+``gru4rec.rows_touched`` with one fetch, which the runner makes once an
+hour.
 """
 from __future__ import annotations
 
@@ -37,7 +56,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..graphs import Graph, GraphCache, hooked
 from ..ops.dropout import dropout
+from ..utils.profiling import add_counts, span, tracing
 
 
 def to_device(array, device: torch.device, dtype=torch.long) -> torch.Tensor:
@@ -187,6 +208,7 @@ LOSSES = {
     "top1": top1_loss,
     "top1-max": top1_max_loss,
 }
+_OWN_LOSSES = dict(LOSSES)
 
 
 def parse_loss(loss: str, bpreg: float = 0.5) -> Tuple[str, float]:
@@ -272,6 +294,65 @@ class ReferenceOptimizer(torch.optim.Optimizer):
                 p.add_(out * -group["lr"])
 
 
+def rows_touched(params: GRU4RecParams) -> torch.Tensor:
+    """[rows of ``wx[0]``, rows of ``wy`` / ``by``] with a nonzero gradient,
+    an int64 pair on the parameters' device, counted without a host sync."""
+    wx, wy, by = params.wx[0].grad, params.wy.grad, params.by.grad
+    return torch.stack([wx.ne(0).any(1).sum(),
+                        (wy.ne(0).any(1) | by.ne(0)).sum()])
+
+
+class StepGraph(Graph):
+    """GRU4Rec's forward, loss and backward of one batch shape: from its
+    capture, its copies of the items, labels and negatives, and the
+    gradients its backward makes.  A call is (items, labels, negatives) on
+    the card."""
+
+    def __init__(self, model: "GRU4Rec"):
+        self.model = model
+
+    def eager(self, *call):
+        return self.model._forward_backward(*call)
+
+    def buffers(self, *call) -> None:
+        self.inputs = [t.clone() for t in call]
+
+    def work(self):
+        loss = self.model._forward_backward(*self.inputs)
+        self.grads = [p.grad for p in self.model.params.parameters()]
+        return loss
+
+    def load(self, *call) -> None:
+        for mine, given in zip(self.inputs, call):
+            mine.copy_(given)
+
+    def returns(self, loss, *call):
+        """A copy of the replay's loss; the parameters' ``.grad`` the
+        graph's gradients."""
+        for p, grad in zip(self.model.params.parameters(), self.grads):
+            if p.grad is not grad:
+                p.grad = grad
+        return loss.clone()
+
+
+class StepGraphs(GraphCache):
+    """The step graphs of one GRU4Rec, by the shapes of the batch and the
+    negatives; dropped when a parameter is another tensor."""
+
+    def __init__(self):
+        super().__init__("gru4rec.step")
+        self.reads = None
+
+    def step(self, model: "GRU4Rec", items, labels, neg_sample) -> torch.Tensor:
+        reads = tuple(p.data_ptr() for p in model.params.parameters())
+        if reads != self.reads:
+            self.clear()
+            self.reads = reads
+        key = (tuple(items.shape), tuple(labels.shape), tuple(neg_sample.shape))
+        graph = self.graph(key, lambda: StepGraph(model))
+        return self.run(key, graph, items, labels, neg_sample)
+
+
 def _draw_negative_indices(n_sample: int, n_valid: int,
                            generator: torch.Generator) -> torch.Tensor:
     """``n_sample`` uniform indices in [0, n_valid) on the generator's device."""
@@ -316,6 +397,15 @@ class GRU4Rec:
             self.params.parameters(), optimizer, learning_rate, decay=decay,
             momentum=momentum, lmbd=lmbd)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._counts: Optional[torch.Tensor] = None  # [steps, wx rows, wy rows]
+        self.graphs = StepGraphs() if self.device.type == "cuda" else None
+
+    def replayable(self) -> bool:
+        """Whether a replay of the forward and backward does what the eager
+        ones do: no dropout masks drawn in them, no Python run in them."""
+        return (self.dropout_p_hidden == 0.0 and "loss_for_batch" not in vars(self)
+                and LOSSES[self.loss_name] is _OWN_LOSSES[self.loss_name]
+                and not hooked(self.params))
 
     def loss_for_batch(self, items, labels, mask, neg_sample):
         """The training loss of a batch: each step's loss over ``[labels_t ||
@@ -336,20 +426,50 @@ class GRU4Rec:
                   buffer_ids: np.ndarray) -> torch.Tensor:
         """One training step on a padded [B, T] batch (items = clicks[:-1],
         labels = clicks[1:]); the loss as a device scalar."""
-        nonzero = buffer_ids[buffer_ids != 0]
-        if len(nonzero) == 0:
-            nonzero = np.array([1])
-        nonzero = nonzero[: self.neg_pool_capacity]
-        pool = to_device(nonzero, self.device)
-        neg_sample = pool[_draw_negative_indices(self.n_sample, len(nonzero),
-                                                 self.generator)]
-        labels_t = to_device(labels, self.device)
-        loss = self.loss_for_batch(to_device(items, self.device), labels_t,
-                                   labels_t != 0, neg_sample)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
+        with span("gru4rec.sample"):
+            nonzero = buffer_ids[buffer_ids != 0]
+            if len(nonzero) == 0:
+                nonzero = np.array([1])
+            nonzero = nonzero[: self.neg_pool_capacity]
+            pool = to_device(nonzero, self.device)
+            neg_sample = pool[_draw_negative_indices(self.n_sample, len(nonzero),
+                                                     self.generator)]
+        items_t, labels_t = to_device(items, self.device), to_device(labels, self.device)
+        if self.graphs is not None and self.replayable():
+            loss = self.graphs.step(self, items_t, labels_t, neg_sample)
+        else:
+            loss = self._forward_backward(items_t, labels_t, neg_sample)
+        if self.device.type == "cuda" and tracing():
+            self._count_rows()
+        with span("gru4rec.update"):
+            self.optimizer.step()
+        return loss
+
+    def _forward_backward(self, items, labels, neg_sample) -> torch.Tensor:
+        """The loss of a batch on the device, and its gradients in the
+        parameters' ``.grad``."""
+        with span("gru4rec.forward"):
+            loss = self.loss_for_batch(items, labels, labels != 0, neg_sample)
+        with span("gru4rec.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         return loss.detach()
+
+    def _count_rows(self):
+        """Add this step's touched rows to the device-side sums."""
+        step = torch.cat([torch.ones(1, dtype=torch.int64, device=self.device),
+                          rows_touched(self.params)])
+        self._counts = step if self._counts is None else self._counts + step
+
+    def flush_counts(self) -> None:
+        """Add the steps' touched rows counted since the last flush to the
+        counter ``gru4rec.rows_touched`` (fields ``steps``, ``wx``, ``wy``):
+        one fetch, nothing where no step counted."""
+        if self._counts is None:
+            return
+        steps, wx, wy = self._counts.tolist()
+        self._counts = None
+        add_counts("gru4rec.rows_touched", steps=steps, wx=wx, wy=wy)
 
     @torch.no_grad()
     def score_candidates(self, items, mask, candidate_ids):

@@ -9,6 +9,12 @@ against the SAME per-session negative samples the NAR eval exported
 The recent-clicks buffer, the popularity it gives the metrics and the draws
 of fresh eval negatives are the JAX runner's, on the host, with the same
 numpy ``RandomState``.
+
+The train hour's spans (``utils/profiling.py``, off unless tracing is on),
+as ``TemporalHarness`` places its own: ``neural.collate`` (each pull of a
+batch), ``neural.step`` (``fit_batch``, with the pool it is handed),
+``neural.buffer`` (the buffer's update) and ``neural.wait`` (the hour's
+closing fetch of its losses, with the model's counters).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from ..config import NARConfig, SessionFeaturesSchema
 from ..data.collate import Session, batches_from_sessions
 from ..metrics.evaluation import compute_metrics_results, update_metrics
+from ..utils.profiling import span, spanned
 
 log = logging.getLogger("chameleon_torch.neural_runner")
 
@@ -66,8 +73,9 @@ class NeuralBaselineRunner:
         self.eval_negative_samples = eval_negative_samples or {}
         self.extra_epochs_last_hour = extra_epochs_last_hour
         self.rng = np.random.RandomState(seed)
-        # host mirror of recent-clicks buffer for negatives + popularity
-        self._buffer: List[tuple] = []  # (id, ts) newest-first
+        # host mirror of recent-clicks buffer for negatives + popularity:
+        # ids and their timestamps, newest first
+        self._buffer = (np.zeros(0, np.int64), np.zeros(0, np.int64))
         self.metrics_log: List[Dict] = []
 
     # -- state mirror -------------------------------------------------------
@@ -83,16 +91,19 @@ class NeuralBaselineRunner:
             axis=1,
         ).reshape(-1)
         valid = ids != 0
-        new = list(zip(ids[valid][::-1].tolist(), ts[valid][::-1].tolist()))
+        new_ids = ids[valid][::-1].astype(np.int64)
+        new_ts = ts[valid][::-1].astype(np.int64)
         window = int(self.cfg.recent_clicks_buffer_hours * 3600)
-        min_ts = min(t for _, t in new) if new else 0
-        kept = [(i, t) for i, t in self._buffer if t >= min_ts - window]
-        self._buffer = (new + kept)[: self.cfg.recent_clicks_buffer_max_size]
+        min_ts = int(new_ts.min()) if len(new_ts) else 0
+        old_ids, old_ts = self._buffer
+        kept = old_ts >= min_ts - window
+        size = self.cfg.recent_clicks_buffer_max_size
+        self._buffer = (np.concatenate([new_ids, old_ids[kept]])[:size],
+                        np.concatenate([new_ts, old_ts[kept]])[:size])
 
     def _buffer_ids(self) -> np.ndarray:
-        if not self._buffer:
-            return np.zeros(1, np.int64)
-        return np.array([i for i, _ in self._buffer], np.int64)
+        ids = self._buffer[0]
+        return ids if len(ids) else np.zeros(1, np.int64)
 
     def _pop_norm(self) -> np.ndarray:
         counts = np.zeros(self.num_items, np.float64)
@@ -115,18 +126,25 @@ class NeuralBaselineRunner:
         """Trains on the hour's batches; their mean loss, fetched once at the
         end (``fit_batch`` returns device scalars)."""
         losses = []
-        for batch in self._batches(sessions):
-            loss = self.model.fit_batch(
-                batch["item_clicked"], batch["label_next_item"], self._buffer_ids()
-            )
+        for batch in spanned("neural.collate", self._batches(sessions)):
+            with span("neural.step"):
+                loss = self.model.fit_batch(
+                    batch["item_clicked"], batch["label_next_item"], self._buffer_ids()
+                )
             losses.append(loss)
             if update_buffer:
-                self._update_buffer(batch)
-        return mean_of_scalars(losses) if losses else 0.0
+                with span("neural.buffer"):
+                    self._update_buffer(batch)
+        with span("neural.wait"):
+            mean = mean_of_scalars(losses) if losses else 0.0
+            flush = getattr(self.model, "flush_counts", None)
+            if flush is not None:
+                flush()
+        return mean
 
     def evaluate_hour(self, sessions: Sequence[Session]) -> Dict[str, float]:
         streaming = self.create_metrics()
-        buffer_snapshot = list(self._buffer)
+        buffer_snapshot = self._buffer  # replaced, never changed in place
         k = self.cfg.eval_negative_samples
         for batch in self._batches(sessions):
             labels = batch["label_next_item"]

@@ -1,9 +1,10 @@
-"""CUDA graphs keyed by what a call shows, for serving and the train and
-eval steps.
+"""CUDA graphs keyed by what a call shows, for serving, the train and eval
+steps and GRU4Rec's step.
 
 The recommend call's scoring (``serve.py``), the train step
-(``train/train_graphs.py``) and the eval step (``train/eval_graphs.py``)
-replay a call's device work as one CUDA graph.  ``GraphCache.run`` runs a
+(``train/train_graphs.py``), the eval step (``train/eval_graphs.py``) and
+GRU4Rec's forward and backward (``baselines/gru4rec.py``) replay a call's
+device work as one CUDA graph.  ``GraphCache.run`` runs a
 call under the rule they share:
 
   * a key's first call runs eagerly on the side stream the captures use,
@@ -39,6 +40,19 @@ import torch
 
 from .ops.kernels import add_launch_counts, launch_counts
 from .utils.profiling import span
+
+
+def hooked(model: torch.nn.Module) -> bool:
+    """Whether Python hooks run inside ``model``'s forward or backward:
+    its modules' own, the global module hooks, or its parameters'."""
+    module = torch.nn.modules.module
+    if (module._global_forward_hooks or module._global_forward_pre_hooks
+            or module._global_backward_hooks or module._global_backward_pre_hooks):
+        return True
+    return (any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks
+                or m._backward_pre_hooks for m in model.modules())
+            or any(p._backward_hooks or getattr(p, "_post_accumulate_grad_hooks", None)
+                   for p in model.parameters()))
 
 
 class Graph:

@@ -50,6 +50,7 @@ from ..models.towers import gather_rows
 from ..ops.sampling import SamplerUniforms
 from ..train import steps
 from ..train.loss import l2_regularization
+from ..utils.profiling import span
 from . import distributed as coll
 from .mesh import MeshPlan, RowShard, batch_sharding, params_sharding
 
@@ -338,14 +339,15 @@ class StepShard:
     def sync_grads(self, model: nn.Module) -> None:
         """Sum every gradient over the data group (flat buckets, parameter
         order); with a model axis, broadcast the replicated ones from model
-        index 0."""
-        named = list(model.named_parameters())
-        _bucketed([p.grad for _, p in named],
-                  lambda flat: coll.all_reduce(flat, self.plan.data_group))
-        if self.plan.model_parallelism > 1:
-            _bucketed([p.grad for n, p in named if n not in self.sharded_names],
-                      lambda flat: coll.broadcast(flat, self.plan.model_root,
-                                                  self.plan.model_group))
+        index 0.  The span ``nar.train_step.sync`` holds it."""
+        with span("nar.train_step.sync"):
+            named = list(model.named_parameters())
+            _bucketed([p.grad for _, p in named],
+                      lambda flat: coll.all_reduce(flat, self.plan.data_group))
+            if self.plan.model_parallelism > 1:
+                _bucketed([p.grad for n, p in named if n not in self.sharded_names],
+                          lambda flat: coll.broadcast(flat, self.plan.model_root,
+                                                      self.plan.model_group))
 
 
 def _bucketed(grads: List[torch.Tensor], reduce) -> None:

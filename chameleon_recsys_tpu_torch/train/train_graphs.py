@@ -47,22 +47,9 @@ import itertools
 
 import torch
 
-from ..graphs import Graph, GraphCache
+from ..graphs import Graph, GraphCache, hooked
 from ..state.stream_state import StreamState
 from .steps import _train_step, draw_train_uniforms
-
-
-def hooked(model: torch.nn.Module) -> bool:
-    """Whether Python hooks run inside ``model``'s forward or backward:
-    its modules' own, the global module hooks, or its parameters'."""
-    module = torch.nn.modules.module
-    if (module._global_forward_hooks or module._global_forward_pre_hooks
-            or module._global_backward_hooks or module._global_backward_pre_hooks):
-        return True
-    return (any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks
-                or m._backward_pre_hooks for m in model.modules())
-            or any(p._backward_hooks or getattr(p, "_post_accumulate_grad_hooks", None)
-                   for p in model.parameters()))
 
 
 def replayable(model) -> bool:

@@ -4,11 +4,14 @@ The port of ``chameleon_recsys_tpu/utils/profiling.py``:
 
 - ``ThroughputMeter``, steps/s, sessions/s and clicks/s of one phase;
 - the program's spans (``span``, ``spanned``): named host intervals at
-  batch and call granularity in the train hour, the eval hour and
-  ``recommend``, nothing while tracing is off (``set_tracing``; a running
-  torch profiler also turns it on), seconds and calls in a registry
-  (``span_snapshot``, ``reset_spans``) while it is on, and profiler ranges
-  on the device's clock while a profiler runs;
+  batch and call granularity in the train hour, the eval hour,
+  ``recommend`` and the neural baselines' train hour, nothing while
+  tracing is off (``set_tracing``; a running torch profiler also turns it
+  on, ``tracing``), seconds and calls in a registry (``span_snapshot``,
+  ``reset_spans``) while it is on, and profiler ranges on the device's
+  clock while a profiler runs;
+- the program's counters (``add_counts``, ``counter_snapshot``,
+  ``reset_counters``): named sums that code adds to while tracing is on;
 - the readers of a profiler trace, ``device_op_durations``,
   ``device_op_durations_by_track`` and ``device_op_totals``, over the Chrome
   trace the torch profiler writes (``torch_trace``, the counterpart of
@@ -97,7 +100,10 @@ class ThroughputMeter:
 # that drives the harness or the server, never on a worker thread.
 _tracing = False
 _spans: Dict[str, List[float]] = {}
-SPAN_PREFIX = "nar."  # the names of the program's spans start so
+_counters: Dict[str, Dict[str, float]] = {}
+# the names of the program's spans start so: NAR's, and the neural
+# baselines' runner and GRU4Rec's
+SPAN_PREFIX = ("nar.", "neural.", "gru4rec.")
 _profiler_enabled = torch._C._autograd._profiler_enabled
 
 
@@ -178,6 +184,12 @@ def set_tracing(on: bool) -> bool:
     return was
 
 
+def tracing() -> bool:
+    """Whether tracing is on: ``set_tracing(True)`` holds or a torch
+    profiler runs."""
+    return _tracing or _profiler_enabled()
+
+
 def span_snapshot() -> Dict[str, Tuple[float, int]]:
     """{span name: (seconds, calls)} since the last ``reset_spans``."""
     return {name: (entry[0], entry[1]) for name, entry in _spans.items()}
@@ -185,6 +197,23 @@ def span_snapshot() -> Dict[str, Tuple[float, int]]:
 
 def reset_spans() -> None:
     _spans.clear()
+
+
+def add_counts(name: str, **values: float) -> None:
+    """Add ``values`` (field: amount) to counter ``name`` in the registry.
+    Callers add only while ``tracing()`` holds."""
+    entry = _counters.setdefault(name, {})
+    for field, value in values.items():
+        entry[field] = entry.get(field, 0.0) + float(value)
+
+
+def counter_snapshot() -> Dict[str, Dict[str, float]]:
+    """{counter name: {field: sum}} since the last ``reset_counters``."""
+    return {name: dict(entry) for name, entry in _counters.items()}
+
+
+def reset_counters() -> None:
+    _counters.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +331,8 @@ def _split_gap(g0: float, g1: float, times, names, idle: Dict[str, float]) -> No
 def span_breakdown(events: List[dict], start: Optional[float] = None,
                    end: Optional[float] = None) -> SpanBreakdown:
     """The program's spans in a Chrome trace's ``events`` (the
-    ``user_annotation`` events of ``span`` named ``nar.*``), over the
+    ``user_annotation`` events of ``span`` named as ``SPAN_PREFIX`` has
+    it), over the
     stretch from ``start`` to ``end`` (us, the trace's clock; by default
     the first span's start to the last one's end).  Each kernel, copy or memset counts under the
     innermost span open, on any thread, when its launch (the runtime call

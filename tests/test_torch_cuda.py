@@ -1237,6 +1237,103 @@ def test_gru4rec_steps_on_card_match_cpu(card, monkeypatch):
     assert ranked.shape == neg.shape[:2] + (11,)
 
 
+def test_gru4rec_spans_and_touched_rows_on_card(card):
+    """With tracing off a GRU4Rec step raises nothing with the CUDA sync
+    debug mode at "error" and keeps no count: an eager step after one to
+    warm up, and a replayed one after its shape's warm-up and capture.
+    With it on, the runner's spans, the draw, the update and the forward
+    and backward (eager) or the step's replay (graphed) carry a call a
+    batch, the hour's closing fetch one, and the counter
+    ``gru4rec.rows_touched`` the steps' touched rows (at most a step's
+    inputs, and its labels and negatives), fetched with the losses."""
+    from chameleon_recsys_tpu_torch.baselines import gru4rec
+    from chameleon_recsys_tpu_torch.baselines.neural_runner import NeuralBaselineRunner
+    from chameleon_recsys_tpu_torch.cli.run_gru4rec import minimal_session_schema
+    from chameleon_recsys_tpu_torch.config import NARConfig
+    from chameleon_recsys_tpu_torch.data.collate import Session
+    from chameleon_recsys_tpu_torch.utils import profiling
+
+    b, t, n_sample = 8, 6, 20
+
+    def model():
+        return gru4rec.GRU4Rec(500, layers=(32,), n_sample=n_sample, neg_pool_capacity=400,
+                               device=card)
+
+    eager, graphed = model(), model()
+    eager.graphs = None
+    batches = _neural_batches(500, 3, b=b, t=t)
+    eager.fit_batch(*batches[0])
+    graphed.fit_batch(*batches[0])
+    graphed.fit_batch(*batches[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.fit_batch(*batches[1])
+        graphed.fit_batch(*batches[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eager._counts is None and graphed._counts is None
+    assert len(graphed.graphs.graphs) == 1
+    rng = np.random.RandomState(4)
+    hour = [Session(session_id=i + 1, user_id=1, session_start=100 + i,
+                    item_ids=rng.randint(1, 300, size=int(rng.randint(2, t + 2))).tolist(),
+                    timestamps=list(range(100 + i, 100 + i + t + 1)), context={})
+            for i in range(3 * b)]
+    for s in hour:
+        s.timestamps = s.timestamps[:len(s.item_ids)]
+    for m, step_spans in ((eager, ("gru4rec.forward", "gru4rec.backward")),
+                          (graphed, ("gru4rec.step.replay",))):
+        runner = NeuralBaselineRunner(m, NARConfig(batch_size=b, max_session_length=t + 1),
+                                      minimal_session_schema(500), 500, lambda: [])
+        runner.train_hour(hour)  # the hour's shape warmed up and captured
+        was = profiling.set_tracing(True)
+        profiling.reset_spans()
+        profiling.reset_counters()
+        try:
+            runner.train_hour(hour)
+            spans, counts = profiling.span_snapshot(), profiling.counter_snapshot()
+        finally:
+            profiling.set_tracing(was)
+            profiling.reset_spans()
+            profiling.reset_counters()
+        for name in ("neural.collate", "neural.step", "gru4rec.sample", "gru4rec.update",
+                     *step_spans):
+            assert spans[name][1] == 3, name
+        assert spans["neural.wait"][1] == 1
+        touched = counts["gru4rec.rows_touched"]
+        assert touched["steps"] == 3
+        assert 0 < touched["wx"] <= 3 * b * t
+        assert 0 < touched["wy"] <= 3 * (b * t + n_sample)
+        assert m._counts is None
+
+
+def test_graphed_gru4rec_steps_on_card_are_the_eager_steps(card):
+    """GRU4Rec's steps replayed from its step graph and run eagerly, on the
+    card from the same weights and generator, are bit-equal: each step's
+    loss (a copy each, held across later replays), the parameters and
+    Adagrad's accumulators after every step; one capture for the batches'
+    one shape."""
+    from chameleon_recsys_tpu_torch.baselines import gru4rec
+
+    def model():
+        return gru4rec.GRU4Rec(500, layers=(48, 32), n_sample=32, seed=3, device=card)
+
+    graphed, eager = model(), model()
+    eager.graphs = None
+    got, want = [], []
+    for i, batch in enumerate(_neural_batches(500, 6)):
+        got.append(graphed.fit_batch(*batch))
+        want.append(eager.fit_batch(*batch))
+        for (name, p), q in zip(graphed.params.named_parameters(),
+                                eager.params.parameters()):
+            assert torch.equal(p, q), (i, name)
+            assert torch.equal(graphed.optimizer.state[p]["acc"],
+                               eager.optimizer.state[q]["acc"]), (i, name)
+    assert len(graphed.graphs.graphs) == 1
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    assert len(set(float(x) for x in got)) == len(got)
+
+
 def test_srgnn_steps_on_card_match_cpu(card):
     from chameleon_recsys_tpu_torch.baselines.sr_gnn import SRGNN
 

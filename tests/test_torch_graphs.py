@@ -4,15 +4,18 @@ the train graphs, on the CPU: which call of a key warms up, which captures
 and which replays, that a capture and its first replay count the launches
 once, which key a full cache evicts, that draws into given buffers are
 ``torch.rand``'s, that a train hour under the train graphs is the eager
-hour, and which train steps the graphs take.  A fake warm-up and a fake
+hour, and which train steps the graphs take; likewise GRU4Rec's step
+graphs.  A fake warm-up and a fake
 capture stand in for the card's."""
 import concurrent.futures
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 import chameleon_recsys_tpu_torch as port
+from chameleon_recsys_tpu_torch.baselines import gru4rec
 from chameleon_recsys_tpu_torch.config import RunConfig
 from chameleon_recsys_tpu_torch.data.synthetic import (
     make_synthetic_corpus,
@@ -400,3 +403,155 @@ def test_a_checkpoint_from_the_card_loads_with_the_live_adam(tmp_path):
     h.load_checkpoint(path)
     assert h.state.optimizer.param_groups[0]["capturable"] is False
     assert h.train_hour(source(1))["steps"] == TRAIN_BATCHES
+
+
+# ---------------------------------------------------------------------------
+# GRU4Rec's step graphs (``baselines/gru4rec.py::StepGraphs``) on a fake card
+# ---------------------------------------------------------------------------
+
+GRU4REC_STEPS = 5  # warm-up, capture, three replays
+
+
+class _StepGraphs(gru4rec.StepGraphs):
+    """GRU4Rec's step graphs without a card: a warm-up runs the call as it
+    is; a capture runs nothing, and each replay runs the captured work on
+    the graph's buffers, as the card's graph does."""
+
+    def __init__(self):
+        super().__init__()
+        self.log = []
+
+    def _warm_up(self, fn):
+        self.log.append("warm_up")
+        return fn()
+
+    def _capture(self, fn):
+        self.log.append("capture")
+
+        def replay():
+            self.log.append("replay")
+            return fn()
+
+        return replay
+
+
+def _gru4rec_batches(steps, b=6, t=5, n_items=120, seed=0):
+    """[(items, labels, click buffer)]: padded [b, t] batches."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        items = rng.randint(1, n_items, size=(b, t))
+        labels = rng.randint(1, n_items, size=(b, t))
+        lengths = rng.randint(1, t + 1, size=b)
+        pad = np.arange(t)[None, :] >= lengths[:, None]
+        items[pad], labels[pad] = 0, 0
+        out.append((items, labels, rng.randint(0, n_items, size=80)))
+    return out
+
+
+def _gru4rec(**kw):
+    return gru4rec.GRU4Rec(120, layers=(10, 8), n_sample=7, seed=3, device="cpu", **kw)
+
+
+def test_graphed_gru4rec_steps_are_the_eager_steps(monkeypatch):
+    """GRU4Rec's steps under its step graphs (a fake card) and eagerly, from
+    the same weights and generator: the same losses, each its own copy;
+    the same negatives; the same parameters, gradients and accumulators
+    after every step; one capture for the batches' one shape, the phase
+    spans only on its warm-up, and a replay span for each later step."""
+    graphed, eager = _gru4rec(), _gru4rec()
+    assert graphed.graphs is None  # the card's: none on the CPU
+    graphed.graphs = cache = _StepGraphs()
+    draws = {True: [], False: []}  # by whether the graphed model drew them
+    original = gru4rec._draw_negative_indices
+
+    def drawing(n, k, generator):
+        out = original(n, k, generator)
+        draws[generator is graphed.generator].append(out)
+        return out
+
+    monkeypatch.setattr(gru4rec, "_draw_negative_indices", drawing)
+    was = profiling.set_tracing(True)
+    saved = profiling.span_snapshot()
+    try:
+        got, want = [], []
+        for i, batch in enumerate(_gru4rec_batches(GRU4REC_STEPS)):
+            if i < 2:  # the warm-up's spans, then the later steps'
+                profiling.reset_spans()
+            got.append(graphed.fit_batch(*batch))
+            if i == 0:
+                warm = profiling.span_snapshot()
+            want.append(eager.fit_batch(*batch))
+            for p, q in zip(graphed.params.parameters(), eager.params.parameters()):
+                assert torch.equal(p, q), i
+                assert torch.equal(p.grad, q.grad), i
+                for k, v in eager.optimizer.state[q].items():
+                    assert torch.equal(graphed.optimizer.state[p][k], v), (i, k)
+        spans = profiling.span_snapshot()
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset_spans()
+        profiling._spans.update({k: list(v) for k, v in saved.items()})
+    assert cache.log == ["warm_up", "capture"] + ["replay"] * (GRU4REC_STEPS - 1)
+    assert len(cache.graphs) == 1 and not cache.seen
+    assert warm["gru4rec.forward"][1] == warm["gru4rec.backward"][1] == 1
+    assert "gru4rec.step.replay" not in warm
+    assert spans["gru4rec.step.capture"][1] == 1
+    assert spans["gru4rec.step.replay"][1] == GRU4REC_STEPS - 2
+    assert spans["gru4rec.update"][1] == 2 * (GRU4REC_STEPS - 1)
+    assert len(draws[True]) == len(draws[False]) == GRU4REC_STEPS
+    for a, b in zip(draws[True], draws[False]):
+        assert torch.equal(a, b)
+    assert len({x.data_ptr() for x in got}) == GRU4REC_STEPS
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["plain", "dropout", "loss_for_batch", "loss", "hook"])
+def test_gru4rec_step_graphs_engage_only_where_a_replay_is_the_step(monkeypatch, case):
+    """The step graphs take GRU4Rec's steps where a replay does what the
+    eager step does; with dropout masks to draw, a replaced
+    ``loss_for_batch`` or loss, or a hook on the parameters, which then
+    sees every step, each step runs eagerly and the cache is left
+    untouched."""
+    model = _gru4rec(dropout_p_hidden=0.3 if case == "dropout" else 0.0)
+    model.graphs = cache = _StepGraphs()
+    seen = []
+    if case == "loss_for_batch":
+        def recording(*a):
+            seen.append(1)
+            return type(model).loss_for_batch(model, *a)
+
+        model.loss_for_batch = recording
+    if case == "loss":
+        loss = gru4rec.LOSSES[model.loss_name]
+        monkeypatch.setitem(gru4rec.LOSSES, model.loss_name,
+                            lambda *a: seen.append(1) or loss(*a))
+    if case == "hook":
+        model.params.register_forward_hook(lambda *a: seen.append(1))
+        model.params.wh[0].register_hook(lambda g: seen.append(1))
+    for batch in _gru4rec_batches(GRU4REC_STEPS):
+        model.fit_batch(*batch)
+    if case == "plain":
+        assert cache.log == ["warm_up", "capture"] + ["replay"] * (GRU4REC_STEPS - 1)
+        return
+    assert not cache.log and not cache.graphs and not cache.seen
+    if case != "dropout":
+        assert len(seen) == GRU4REC_STEPS
+
+
+def test_gru4rec_step_graphs_recapture_for_other_parameters():
+    """A graph holds the parameters' addresses: a model whose parameters
+    are other tensors drops the graphs and warms up and captures anew."""
+    model = _gru4rec()
+    model.graphs = cache = _StepGraphs()
+    batches = _gru4rec_batches(GRU4REC_STEPS)
+    for batch in batches:
+        model.fit_batch(*batch)
+    held = next(iter(cache.graphs.values()))
+    cache.log.clear()
+    model.params.wh[0] = torch.nn.Parameter(model.params.wh[0].detach().clone())
+    for batch in batches:
+        model.fit_batch(*batch)
+    assert cache.log == ["warm_up", "capture"] + ["replay"] * (GRU4REC_STEPS - 1)
+    assert len(cache.graphs) == 1 and next(iter(cache.graphs.values())) is not held

@@ -182,6 +182,31 @@ def test_runner_matches_jax(name, monkeypatch):
     np.testing.assert_allclose(losses, jax_losses, rtol=1e-5)
 
 
+def test_click_buffer_matches_jax():
+    """The runner's host click buffer (numpy arrays, newest first) holds
+    what the JAX runner's list of (id, ts) pairs holds after each batch:
+    clicks more than an hour older than a batch's oldest dropped, the
+    newest ``recent_clicks_buffer_max_size`` kept, padding skipped."""
+    from chameleon_recsys_tpu.config import NARConfig as JaxNARConfig
+    from chameleon_recsys_tpu_torch.config import NARConfig
+
+    kw = dict(batch_size=4, max_session_length=5, recent_clicks_buffer_max_size=40)
+    ours = NeuralBaselineRunner(None, NARConfig(**kw), None, 50, lambda: [])
+    theirs = jax_runner.NeuralBaselineRunner(None, JaxNARConfig(**kw), None, 50, lambda: [])
+    assert np.array_equal(ours._buffer_ids(), theirs._buffer_ids())
+    rng = np.random.RandomState(0)
+    t0 = 1000
+    for step in range(30):
+        t0 += int(rng.choice([60, 900, 4000]))
+        items = rng.randint(1, 50, size=(4, 4)) * (rng.rand(4, 4) < 0.7)
+        ts = np.where(items != 0, t0 + rng.randint(0, 600, size=(4, 4)), 0)
+        batch = {"item_clicked": items.astype(np.int32), "event_timestamp": ts.astype(np.int32),
+                 "label_last_item": rng.randint(0, 50, size=(4, 1)).astype(np.int32)}
+        ours._update_buffer(batch)
+        theirs._update_buffer(batch)
+        np.testing.assert_array_equal(ours._buffer_ids(), theirs._buffer_ids(), err_msg=str(step))
+
+
 def test_mean_of_scalars_mixes_tensors_and_floats():
     assert mean_of_scalars([torch.tensor(1.0), 0.0, torch.tensor(5.0)]) == 2.0
     assert mean_of_scalars([1.5, 2.5]) == 2.0
